@@ -1,0 +1,272 @@
+"""S5P — Skewness-aware Streaming Vertex-cut Partitioner (the paper's system).
+
+Pipeline (paper Fig. 2), on one :class:`~repro_torch.streaming.EdgeStream`
+replayed by every pass:
+
+  degrees ──Alg.1──▶ head/tail clusters ──compaction, Θ──▶ Alg.2 game
+          ──Alg.3──▶ edge→partition (+ RF / balance)
+
+Variants: CMS-backed Θ (default) or exact Θ (``use_cms=False``), S5P-B
+(``bounded=True``: global degrees everywhere, no κ cap, no maxLoad) and
+the one-stage game (``one_stage=True``).  Runs on ``device`` (default
+``cuda``): there Alg. 1, Alg. 3 and the CMS go through the K1, K2 and
+K4a/K4b kernels.  Parallel ingest, the touch-up, the incremental and
+drift knobs and the hybrid budget are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..streaming import EdgeStream, run_carry
+from . import clustering as _cl
+from . import game as _game
+from . import postprocess as _post
+from .cms import SketchCarry, cms_query, pair_key, suggest_params
+
+__all__ = ["S5PConfig", "S5POutput", "s5p_partition", "cluster_statistics"]
+
+_INT32_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class S5PConfig:
+    k: int
+    tau: float = 1.0  # balance threshold (paper uses 1.0)
+    beta: float = 1.0  # ξ = β · avg_degree
+    use_cms: bool = True
+    cms_epsilon: float = 0.1
+    cms_nu: float = 0.01
+    game_batch_size: int = 256
+    game_max_rounds: int = 96
+    game_accept_prob: float = 0.9
+    chunk_size: int = 1 << 16
+    ordering: str = "natural"
+    bounded: bool = False  # S5P-B (§5.3)
+    one_stage: bool = False  # Fig. 7d ablation
+    seed: int = 0
+    # not ported yet: each must keep its default (see __post_init__)
+    num_streams: int = 1
+    super_chunk: int | str = 8
+    shard: str = "range"
+    touch_up: bool = True
+    drift_rf_threshold: float = 0.05
+    drift_balance_threshold: float = 0.10
+    refine_rounds: int = 16
+    drift_churn_threshold: float = 0.25
+    xi_refresh_threshold: float = 0.5
+    host_budget: int | None = None
+
+    def __post_init__(self):
+        if (self.num_streams != 1 or self.super_chunk != 8
+                or self.shard != "range" or self.touch_up is not True):
+            raise NotImplementedError(
+                "parallel ingest and its touch-up (num_streams, super_chunk, "
+                "shard, touch_up) wait for slice 4 of the port")
+        if (self.drift_rf_threshold, self.drift_balance_threshold,
+                self.refine_rounds, self.drift_churn_threshold,
+                self.xi_refresh_threshold) != (0.05, 0.10, 16, 0.25, 0.5):
+            raise NotImplementedError(
+                "incremental re-partitioning and its drift knobs wait for "
+                "slice 5 of the port")
+        if self.host_budget is not None:
+            raise NotImplementedError(
+                "the memory-budget hybrid partitioner (host_budget) waits "
+                "for slice 5 of the port")
+
+
+@dataclasses.dataclass
+class S5POutput:
+    parts: torch.Tensor  # (E,) int32 edge → partition
+    k: int
+    n_clusters: int
+    n_head_clusters: int
+    game_rounds: int
+    game_converged: bool
+    xi: int
+    kappa: int
+    max_load: int
+    cluster_assignment: np.ndarray  # (C,) cluster → partition
+    timings: dict[str, float]
+    aux: dict[str, Any]
+
+
+def _edge_clusters(src, dst, res: _cl.ClusterResult, degrees, xi):
+    """Per-edge (cu, cv, is_head_edge) from the compacted tables."""
+    s, d = src.long(), dst.long()
+    is_head = (degrees[s] > xi) & (degrees[d] > xi)
+    cu = torch.where(is_head, res.v2c_h[s], res.v2c_t[s])
+    cv = torch.where(is_head, res.v2c_h[d], res.v2c_t[d])
+    return cu, cv, is_head
+
+
+def cluster_statistics(src, dst, res: _cl.ClusterResult, degrees, xi: int, *,
+                       use_cms: bool, cms_epsilon: float, cms_nu: float,
+                       seed: int, chunk_size: int = 1 << 18):
+    """Stream pass 2: cluster sizes and inter-cluster adjacency Θ.
+
+    An internal edge adds 1 to its cluster's size, a boundary edge ½ to
+    each side.  Θ pairs span every pair of endpoint memberships (primary
+    and other-type); the pair list is deduped on the host (numpy), and the
+    counts come from a CMS streamed over the pairs (K4a, queried by K4b)
+    or from the exact dedup counts.
+    """
+    dev = src.device
+    C = res.n_clusters
+    cu, cv, is_head = _edge_clusters(src, dst, res, degrees, xi)
+    valid = src != dst
+    internal = (cu == cv) & valid
+    boundary = (cu != cv) & valid
+
+    def seg(w, idx):
+        z = torch.zeros(C, dtype=torch.float32, device=dev)
+        return z.index_add(0, idx.clamp(min=0).long(), w)
+
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    half = torch.full((), 0.5, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sizes = seg(torch.where(internal, one, zero), cu)
+    sizes = sizes + seg(torch.where(boundary, half, zero), cu)
+    sizes = sizes + seg(torch.where(boundary, half, zero), cv)
+
+    s, d = src.long(), dst.long()
+    hu, hv = res.v2c_h[s], res.v2c_h[d]
+    tu, tv = res.v2c_t[s], res.v2c_t[d]
+    alt_u = torch.where(is_head, tu, hu)  # u's membership in the other table
+    alt_v = torch.where(is_head, tv, hv)
+    pair_sets = [
+        (cu, cv, valid),
+        (alt_u, cv, valid & (alt_u >= 0)),
+        (cu, alt_v, valid & (alt_v >= 0)),
+    ]
+    sentinel = torch.full((), C, dtype=torch.int32, device=dev)
+    a_parts, b_parts = [], []
+    for a, b, ok in pair_sets:
+        ok = ok & (a != b) & (a >= 0) & (b >= 0)
+        a_parts.append(torch.where(ok, torch.minimum(a, b), sentinel).cpu().numpy())
+        b_parts.append(torch.where(ok, torch.maximum(a, b), sentinel).cpu().numpy())
+    a_np = np.concatenate(a_parts)
+    b_np = np.concatenate(b_parts)
+    keys = a_np.astype(np.int64) * (C + 1) + b_np
+    uniq, counts = np.unique(keys[a_np < C], return_counts=True)
+    pa = torch.from_numpy((uniq // (C + 1)).astype(np.int32)).to(dev)
+    pb = torch.from_numpy((uniq % (C + 1)).astype(np.int32)).to(dev)
+
+    sketch_mem = 0
+    if use_cms:
+        w, depth = suggest_params(cms_epsilon, cms_nu)
+        pair_stream = EdgeStream(a_np[a_np < C], b_np[a_np < C], C + 1,
+                                 chunk_size=chunk_size, device=dev)
+        theta = SketchCarry(w * max(1, int(math.sqrt(C))), depth, seed=seed,
+                            device=dev)
+        _, sketch = run_carry(pair_stream, theta)
+        pw = cms_query(sketch, pair_key(pa, pb)).to(torch.float32)
+        sketch_mem = sketch.memory_bytes()
+    else:
+        sketch = None
+        pw = torch.from_numpy(counts.astype(np.float32)).to(dev)
+
+    return sizes, pa, pb, pw, {
+        "n_pairs": int(uniq.size),
+        "sketch_bytes": sketch_mem,
+        "exact_count_bytes": int(uniq.size) * (8 + 4),
+        "counts_exact": counts,
+        "sketch": sketch,
+    }
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _as_int32(x, dev) -> torch.Tensor:
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.int32))
+    return x.to(dev, torch.int32)
+
+
+def s5p_partition(src, dst, n_vertices: int, config: S5PConfig,
+                  stream: EdgeStream | None = None, *, device=None) -> S5POutput:
+    """Partition an edge list with S5P.  ``src``/``dst`` are int arrays or
+    tensors; the run happens on ``device`` (default ``cuda``), or on the
+    device of ``stream`` when one is passed."""
+    dev = stream.device if stream is not None else resolve_device(device)
+    src = _as_int32(src, dev)
+    dst = _as_int32(dst, dev)
+    E = int(src.shape[0])
+    k = config.k
+    timings: dict[str, float] = {}
+    if stream is None:
+        stream = EdgeStream(src.cpu().numpy(), dst.cpu().numpy(), n_vertices,
+                            chunk_size=config.chunk_size,
+                            ordering=config.ordering, seed=config.seed,
+                            device=dev)
+
+    t0 = time.perf_counter()
+    degrees = _cl.compute_degrees(src, dst, n_vertices)
+    avg_deg = 2.0 * E / max(n_vertices, 1)
+    xi = min(int(config.beta * avg_deg), _INT32_MAX - 1)
+    kappa = _INT32_MAX if config.bounded else max(int(math.ceil(2.0 * E / k)), 2)
+
+    # ---- Phase 1: skewness-aware streaming clustering (Alg. 1) ----
+    state = _cl.cluster_stream(src, dst, n_vertices, xi=xi, kappa=kappa,
+                               global_tail=config.bounded, stream=stream)
+    res = _cl.compact_clusters(state, degrees, xi)
+    _sync(dev)
+    timings["clustering"] = time.perf_counter() - t0
+
+    if res.n_clusters == 0:  # degenerate: no valid edges
+        return S5POutput(
+            parts=torch.full((E,), -1, dtype=torch.int32, device=dev), k=k,
+            n_clusters=0, n_head_clusters=0, game_rounds=0,
+            game_converged=True, xi=xi, kappa=kappa, max_load=0,
+            cluster_assignment=np.zeros(0, np.int32), timings=timings, aux={})
+
+    # ---- Θ statistics pass ----
+    t0 = time.perf_counter()
+    sizes, pa, pb, pw, stats = cluster_statistics(
+        src, dst, res, degrees, xi, use_cms=config.use_cms,
+        cms_epsilon=config.cms_epsilon, cms_nu=config.cms_nu, seed=config.seed)
+    _sync(dev)
+    timings["statistics"] = time.perf_counter() - t0
+
+    # ---- Phase 2: Stackelberg game (Alg. 2) ----
+    t0 = time.perf_counter()
+    n_head = res.n_clusters if config.one_stage else res.n_head
+    inputs = _game.GameInputs(sizes=sizes, pair_a=pa, pair_b=pb, pair_w=pw,
+                              n_head=n_head, k=k)
+    bs = _game.default_batch_size(config.game_batch_size, res.n_clusters)
+    game = _game.run_game(inputs, res.n_clusters, batch_size=bs,
+                          max_rounds=config.game_max_rounds,
+                          accept_prob=config.game_accept_prob, seed=config.seed)
+    _sync(dev)
+    timings["game"] = time.perf_counter() - t0
+
+    # ---- Phase 3: postprocess (Alg. 3) ----
+    t0 = time.perf_counter()
+    max_load = _INT32_MAX if config.bounded else int(math.ceil(config.tau * E / k))
+    cu, cv, is_head = _edge_clusters(src, dst, res, degrees, xi)
+    parts, load = _post.assign_edges_stream(
+        src, dst, is_head, cu.clamp(min=0), cv.clamp(min=0), game.assignment,
+        k, max_load, stream=stream)
+    _sync(dev)
+    timings["postprocess"] = time.perf_counter() - t0
+
+    stats["incremental"] = {
+        "cluster_state": state, "degrees": degrees, "compact": res,
+        "sizes": sizes, "pair_a": pa, "pair_b": pb, "pair_w": pw, "load": load,
+    }
+    return S5POutput(
+        parts=parts, k=k, n_clusters=res.n_clusters,
+        n_head_clusters=res.n_head, game_rounds=game.rounds,
+        game_converged=game.converged, xi=xi, kappa=kappa, max_load=max_load,
+        cluster_assignment=game.assignment.cpu().numpy(), timings=timings,
+        aux=stats)

@@ -1,0 +1,7 @@
+from .generators import (  # noqa: F401
+    community_graph,
+    erdos_renyi_graph,
+    powerlaw_graph,
+    rmat_graph,
+    toy_graph_fig3,
+)

@@ -1,0 +1,7 @@
+"""Hand-written Hopper kernels of the port, one sub-package per kernel
+family of ``repro.kernels`` (``stream_scan``, ``cms_sketch``).
+
+Each wrapper launches its CUDA kernel on a CUDA tensor and runs its plain
+PyTorch version on a CPU tensor; ``_build`` compiles ``csrc/*.cu`` with
+``nvcc`` for ``sm_90a`` at first use and loads it through ``ctypes``.
+"""

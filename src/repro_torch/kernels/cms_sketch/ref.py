@@ -1,0 +1,30 @@
+"""Plain PyTorch versions of K4a/K4b: the same hashing as ``core.cms``
+(imported lazily — ``core`` imports the kernels package at module level)."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["update_ref", "query_ref"]
+
+
+def update_ref(keys, seeds, width, depth, counts):
+    """(depth, width) int32 bit patterns of Σ counts per cell, mod 2**32."""
+    from ...core.cms import _row_cols
+
+    cols = _row_cols(keys.to(torch.int64) & 0xFFFFFFFF, seeds, width)  # (d, n)
+    rows = torch.arange(depth, device=keys.device)[:, None] * width
+    c = (counts.to(torch.int64) & 0xFFFFFFFF).expand(depth, -1)
+    flat = torch.zeros(depth * width, dtype=torch.int64, device=keys.device)
+    flat.index_add_(0, (rows + cols).reshape(-1), c.reshape(-1))
+    flat &= 0xFFFFFFFF
+    return torch.where(flat >= 2**31, flat - 2**32, flat).to(torch.int32).reshape(depth, width)
+
+
+def query_ref(table, keys, seeds):
+    """Min over rows of the unsigned cells each key hashes to (int64)."""
+    from ...core.cms import _row_cols
+
+    cols = _row_cols(keys.to(torch.int64) & 0xFFFFFFFF, seeds, table.shape[1])
+    vals = torch.gather(table.to(torch.int64) & 0xFFFFFFFF, 1, cols)
+    return vals.amin(dim=0)

@@ -1,0 +1,74 @@
+"""The port stands alone: no module of ``repro_torch`` imports ``jax`` or
+``repro``, and its entry points refuse to run without a device."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+
+SRC = os.path.dirname(os.path.dirname(repro_torch.__file__))
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.core.s5p" in mods and "repro_torch.launch.partition" in mods
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None"
+        " and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": SRC}, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def _entry_points():
+    from repro_torch.core.clustering import cluster_stream
+    from repro_torch.core.postprocess import assign_edges_stream
+    from repro_torch.core.s5p import S5PConfig, s5p_partition
+    from repro_torch.launch.partition import run
+
+    src = np.array([0, 1, 2], np.int32)
+    dst = np.array([1, 2, 0], np.int32)
+    z = np.zeros(3, np.int32)
+    return {
+        "s5p_partition": lambda: s5p_partition(src, dst, 3, S5PConfig(k=2)),
+        "cluster_stream": lambda: cluster_stream(src, dst, 3, xi=1, kappa=4),
+        "assign_edges_stream": lambda: assign_edges_stream(
+            src, dst, z.astype(bool), z, z, torch.zeros(1, dtype=torch.int32), 2, 2),
+        "cli": lambda: run("toy", 2),
+    }
+
+
+@pytest.mark.parametrize("name", ["s5p_partition", "cluster_stream",
+                                  "assign_edges_stream", "cli"])
+def test_entry_points_need_a_device(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from repro_torch.kernels.stream_scan import assign_scan
+
+    t = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        assign_scan(torch.zeros(2, dtype=torch.int32, device="meta"), t, t, t, t, t,
+                    max_load=1)
