@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # the full run: R-MAT scale 20, k = 32
-    python3 chip_smoke.py --scale 16   # a shorter main path
+    python3 chip_smoke.py --scale 16   # a shorter main path and compare
 
 Phases, each printing one JSON line:
 
@@ -13,13 +13,27 @@ Phases, each printing one JSON line:
               k = 32, with every kernel launch counter set to 0 just before
               and read just after; max load must hold and every kernel of
               the path (K1, K2, K4a, K4b) must have launched;
-4. kernels  — each kernel's wrapper on card tensors at the main path's
+4. compare  — every other entry of ``PARTITIONERS`` on the main path's
+              graph and k (the S5P row is the main run's), each with the
+              launch counters set to 0 just before and read just after:
+              parts must lie in [0, k), K3 must launch once per chunk for
+              Greedy and HDRF, G1 once per chunk for grid; the rows that
+              run S5P's pipeline report its per-phase seconds; then the
+              delete path: the HDRF stream's last chunk is retracted from
+              its final carry (``HdrfCarry.retract_chunk``, K3 with sign
+              = -1, once) and the carry must equal the one rebuilt without
+              that chunk; then PageRank (10 iterations) on the S5P and HDRF
+              partitions: mirror-sync bytes, their ratio, seconds of the
+              layout build and of the supersteps;
+5. kernels  — each kernel's wrapper on card tensors at the main path's
               shapes against its plain PyTorch version on the same inputs:
-              all four must be bitwise equal (tolerance 0); times by CUDA
+              all must be bitwise equal (tolerance 0); times by CUDA
               events, the plain version's time, the bound, and a PyTorch
-              library call where one computes the same function;
-5. parity   — S5P on ``community_graph(2000, 32, 8, seed=5)``, k = 8, on
-              ``cuda`` and on ``cpu``: the parts must be identical.
+              library call where one computes the same function.  K3 and
+              G1 run 4,096 edges onto the final state of the compare run;
+6. parity   — every partitioner on ``community_graph(2000, 32, 8,
+              seed=5)``, k = 8, on ``cuda`` and on ``cpu``: the parts must be
+              identical.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -416,43 +430,312 @@ def check_cms(main) -> list[dict]:
     ]
 
 
-def phase_kernels(main) -> list[dict]:
+def phase_compare(main) -> dict:
+    import torch
+
+    from repro_torch.core.baselines import PARTITIONERS, S5P_BASED
+    from repro_torch.core.metrics import gas_comm_bytes, load_balance, partition_loads, replication_factor
+    from repro_torch.gas import build_gas_graph, comm_stats, pagerank
+
+    src, dst, n, k = main["src"], main["dst"], main["n"], main["cfg"].k
+    dev = torch.device("cuda")
+    s_t = torch.from_numpy(src).to(dev)
+    d_t = torch.from_numpy(dst).to(dev)
+    E = int(src.shape[0])
+    n_chunks = math.ceil(E / (1 << 16))
+    rows, parts_of, problems = {}, {}, []
+    for name, fn in PARTITIONERS.items():
+        kw = {"full_output": True} if name in S5P_BASED else {}
+        if name == "s5p":  # the main run, under the same arguments
+            out, dt, launches = main["out"], main["info"]["wall_s"], main["launches"]
+        else:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn(src, dst, n, k, 0, device=dev, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = launch_counts()
+        parts = out.parts if kw else out
+        loads = partition_loads(parts, k=k)
+        row = {"phase": "compare", "partitioner": name,
+               "rf": replication_factor(s_t, d_t, parts, n_vertices=n, k=k),
+               "balance": load_balance(parts, k=k), "max_load": int(loads.max()),
+               "gas_comm_bytes": gas_comm_bytes(s_t, d_t, parts, n_vertices=n, k=k),
+               "seconds": dt, "launches": launches}
+        if kw:
+            row.update(clusters=out.n_clusters, head_clusters=out.n_head_clusters,
+                       game_rounds=out.game_rounds, game_converged=out.game_converged,
+                       seconds_by_phase=out.timings)
+        emit(row)
+        rows[name] = row
+        parts_of[name] = parts
+        if int(parts.min()) < 0 or int(parts.max()) >= k or parts.shape != (E,):
+            problems.append(f"{name}: a part outside [0, {k})")
+    for name, kernel in (("greedy", "scoring_scan"), ("hdrf", "scoring_scan"),
+                         ("grid", "grid_scan")):
+        if rows[name]["launches"][kernel] != n_chunks:
+            problems.append(f"{name}: {kernel} launched {rows[name]['launches'][kernel]}"
+                            f" times, not once per chunk ({n_chunks})")
+    retract = _compare_retract(main, parts_of["hdrf"], s_t, d_t)
+    if not retract["restored"] or retract["launches"]["scoring_retract"] != 1:
+        problems.append(f"HDRF retract of the last chunk: {retract}")
+    pr = {}
+    for name in ("s5p", "hdrf"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = build_gas_graph(s_t, d_t, parts_of[name], n, k, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        values, stats = pagerank(g, iterations=10)
+        torch.cuda.synchronize()
+        pr[name] = {"bytes": stats.total_bytes(), "layout_s": t1 - t0,
+                    "supersteps_s": time.perf_counter() - t1,
+                    "mirrors_per_step": comm_stats(g).mirror_to_master_msgs,
+                    "values": values}
+        if not bool(torch.isfinite(values).all()):
+            problems.append(f"PageRank on {name}: values not finite")
+    # PageRank is replica-exact, so its values do not depend on the cut;
+    # the float32 sums run in another order for each layout (and atomics
+    # in a varying one), so the two agree to a relative 1e-4
+    a, b = pr["s5p"]["values"], pr["hdrf"]["values"]
+    pr_diff = float(((a - b).abs() / torch.maximum(a.abs(), b.abs())).max())
+    if pr_diff > 1e-4:
+        problems.append(f"PageRank values differ between cuts by {pr_diff} (relative)")
+    info = {"phase": "pagerank", "iterations": 10,
+            "s5p_bytes": pr["s5p"]["bytes"], "hdrf_bytes": pr["hdrf"]["bytes"],
+            "s5p_over_hdrf": pr["s5p"]["bytes"] / pr["hdrf"]["bytes"],
+            "s5p_layout_s": pr["s5p"]["layout_s"], "s5p_supersteps_s": pr["s5p"]["supersteps_s"],
+            "hdrf_layout_s": pr["hdrf"]["layout_s"],
+            "hdrf_supersteps_s": pr["hdrf"]["supersteps_s"],
+            "max_rel_value_diff": pr_diff}
+    emit(info)
+    if problems:
+        raise SystemExit("chip_smoke compare phase failed: " + "; ".join(problems))
+    return {"rows": rows, "pagerank": info, "parts": parts_of, "retract": retract,
+            "launches": {name: r["launches"] for name, r in rows.items()}}
+
+
+def _compare_retract(main, hdrf_parts, s_t, d_t) -> dict:
+    """The delete path: retract the HDRF stream's last chunk from the
+    run's final carry with ``HdrfCarry.retract_chunk`` (launch counters
+    set to 0 just before, read just after).  The carry must then equal the
+    one rebuilt from the parts without that chunk; the partial degrees
+    lose every entry of the chunk."""
+    import torch
+
+    from repro_torch.kernels.stream_scan import HdrfCarry
+
+    n, k = main["n"], main["cfg"].k
+    E = int(s_t.numel())
+    L = 1 << 16
+    start = (math.ceil(E / L) - 1) * L
+    carry = HdrfCarry(n, k, lam=1.1, device="cuda").init()
+    for leaf, t in zip(carry[:3], _scoring_state(main, hdrf_parts, hdrf=True)):
+        leaf.copy_(t)
+    src, dst = s_t[start:].contiguous(), d_t[start:].contiguous()
+    chunk_parts = hdrf_parts[start:].contiguous()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    carry = HdrfCarry(n, k, lam=1.1, device="cuda").retract_chunk(
+        carry, src, dst, E - start, chunk_parts)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    kept = hdrf_parts.clone()
+    kept[start:] = -1
+    want = _scoring_state(main, kept, hdrf=True)
+    want[2] -= torch.bincount(torch.cat([src, dst]).long(), minlength=n).to(torch.int32)
+    restored = all(torch.equal(a, b) for a, b in zip(carry[:3], want))
+    info = {"phase": "compare", "step": "hdrf retract of the last chunk",
+            "edges": E - start, "seconds": dt, "launches": launches,
+            "restored": restored}
+    emit(info)
+    return info
+
+
+def _scoring_state(main, parts, hdrf: bool):
+    """The final (load, rep[, pd]) of a Greedy/HDRF run over the main graph,
+    rebuilt from its parts: the counted tables are functions of them, and
+    pd counts every endpoint entry, the last chunk's (0, 0) padding too."""
+    import torch
+
+    from repro_torch.core.clustering import compute_degrees
+
+    n, k = main["n"], main["cfg"].k
+    s = torch.from_numpy(main["src"]).cuda()
+    d = torch.from_numpy(main["dst"]).cuda()
+    ok = (parts >= 0).to(torch.int32)
+    p = parts.clamp(min=0).long()
+    load = torch.zeros(k, dtype=torch.int32, device="cuda").index_add_(0, p, ok)
+    rep = torch.zeros(n * k, dtype=torch.int32, device="cuda")
+    rep.index_add_(0, s.long() * k + p, ok).index_add_(0, d.long() * k + p, ok)
+    state = [load, rep.view(n, k)]
+    if hdrf:
+        pd = compute_degrees(s, d, n)
+        pad = (-s.numel()) % (1 << 16) if s.numel() > (1 << 16) else 0
+        pd[0] += 2 * pad
+        state.append(pd)
+    return state
+
+
+def _k3_bytes(src, dst, parts, uniq, k, hdrf, retract):
+    """Each input read once, each output written once: edge ids and parts
+    (read too on retract), the touched replica rows read whole, the
+    partial degrees (HDRF) in and out, the loads, and of the table only the
+    32-byte sectors (8 counters) that hold a changed counter."""
+    import torch
+
+    E = int(src.numel())
+    ok = parts >= 0
+    p = parts[ok].long()
+    cells = torch.cat([src[ok].long() * k + p, dst[ok].long() * k + p])
+    sectors = int(torch.unique(cells // 8).numel())
+    return ((16 if retract else 12) * E + uniq * k * 4 + (8 * uniq if hdrf else 0)
+            + 32 * sectors + 8 * k)
+
+
+def check_k3_g1(main, compare) -> list[dict]:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.baselines import _grid_dims, _grid_rowcol
+    from repro_torch.kernels.stream_scan import (grid_chunk_oracle, grid_scan,
+                                                 scoring_chunk_oracle, scoring_scan)
+
+    n, k = main["n"], main["cfg"].k
+    E = 4096
+    src = torch.from_numpy(main["src"][:E]).cuda()
+    dst = torch.from_numpy(main["dst"][:E]).cuda()
+    cs, cd = src.cpu(), dst.cpu()
+    uniq = int(torch.unique(torch.cat([src, dst])).numel())
+    launches = compare["launches"]
+    rows = []
+
+    def one(name, mode, sign, state0, parts_in=None):
+        hdrf = mode == "hdrf"
+        # launches on the path that runs this mode: the compare row's
+        # inserts, the delete path's retracts
+        n_launches = (launches[mode]["scoring_scan"] if sign > 0
+                      else compare["retract"]["launches"]["scoring_retract"])
+        work = [t.clone() for t in state0]
+        lam = 1.1 if hdrf else None
+        kw = dict(mode=mode, sign=sign, parts=parts_in, n_valid=E if sign < 0 else None)
+
+        def reset():
+            for w, t in zip(work, state0):
+                w.copy_(t)
+
+        def run():
+            scoring_scan(src, dst, *work[:2], work[2] if hdrf else None, lam, **kw)
+
+        ms = cuda_time_ms(run, reps=5, setup=reset)
+        reset()
+        got = scoring_scan(src, dst, *work[:2], work[2] if hdrf else None, lam, **kw)
+        torch.cuda.synchronize()
+        plain = [t.to("cpu", copy=True) for t in state0]
+        ckw = dict(kw, parts=None if parts_in is None else parts_in.cpu())
+        want = {}
+
+        def run_plain():
+            want["out"] = scoring_chunk_oracle(cs, cd, *plain[:2],
+                                               plain[2] if hdrf else None, lam, **ckw)
+
+        plain_ms = host_time_ms(run_plain)
+        err = max(max_abs_err(g, w) for g, w in zip(got, want["out"]) if w is not None)
+        n_bytes = _k3_bytes(src, dst, got[0], uniq, k, hdrf, sign < 0)
+        n_ops = (12 if hdrf else 8) * k * E
+        b, by = bound_ms(n_bytes, n_ops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/stream_scan/csrc/scoring_scan.cu",
+                     "replaces": "src/repro/kernels/stream_scan/kernel.py:124",
+                     "launches": n_launches, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": None,
+                     "shape": {"V": n, "k": k, "chunk": E, "distinct_vertices": uniq,
+                               "state": "final state of the compare run"}})
+        return got
+
+    g_state = _scoring_state(main, compare["parts"]["greedy"], hdrf=False)
+    one("K3 scoring_scan greedy insert", "greedy", 1, g_state)
+    del g_state
+    h_state = _scoring_state(main, compare["parts"]["hdrf"], hdrf=True)
+    parts_ins = one("K3 scoring_scan hdrf insert", "hdrf", 1, h_state)[0]
+    after = [t.clone() for t in h_state]
+    scoring_scan(src, dst, *after, 1.1, mode="hdrf")
+    one("K3 scoring_scan hdrf retract (sign=-1)", "hdrf", -1, after, parts_ins.clone())
+    # the retract gives back exactly what the insert added
+    scoring_scan(src, dst, *after, mode="hdrf", sign=-1, parts=parts_ins, n_valid=E)
+    roundtrip = max(max_abs_err(a, b) for a, b in zip(after, h_state))
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], roundtrip)
+    del h_state, after
+
+    _, c = _grid_dims(k)
+    row_t, col_t = _grid_rowcol(n, k, c, 0, "cuda")
+    gp = compare["parts"]["grid"]
+    load0 = torch.zeros(k, dtype=torch.int32, device="cuda").index_add_(
+        0, gp.clamp(min=0).long(), (gp >= 0).to(torch.int32))
+    load = load0.clone()
+    ms = cuda_time_ms(lambda: grid_scan(load, row_t, col_t, c, src, dst), reps=10,
+                      setup=lambda: load.copy_(load0))
+    load.copy_(load0)
+    got = grid_scan(load, row_t, col_t, c, src, dst)
+    torch.cuda.synchronize()
+    want = {}
+    rc, cc = row_t.cpu(), col_t.cpu()
+    plain_ms = host_time_ms(lambda: want.__setitem__(
+        "out", grid_chunk_oracle(load0.to("cpu", copy=True), rc, cc, c, cs, cd)))
+    err = max(max_abs_err(a, b) for a, b in zip(got, want["out"]))
+    # edge ids in, parts out; row[·] and col[·] of each touched vertex; loads
+    b, by = bound_ms(12 * E + uniq * 8 + 8 * k, 6 * E)
+    rows.append({"name": "G1 grid_scan", "route": "cuda",
+                 "source": "src/repro_torch/kernels/stream_scan/csrc/scoring_scan.cu",
+                 "replaces": "src/repro/kernels/stream_scan/ref.py:191 (lax.scan, no Pallas kernel)",
+                 "launches": launches["grid"]["grid_scan"], "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                 "library_ms": None,
+                 "shape": {"V": n, "k": k, "chunk": E, "distinct_vertices": uniq}})
+    return rows
+
+
+def phase_kernels(main, compare) -> list[dict]:
     k1 = check_k1(main)
     k2 = [check_k2(main, k) for k in (8, 32, 256)]
     cms = check_cms(main)
-    rows = [k1, *k2, *cms]
+    k3_g1 = check_k3_g1(main, compare)
+    rows = [k1, *k2, *cms, *k3_g1]
     for r in rows:
         emit({"phase": "kernel", **r})
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
     if bad:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
     main_k2 = next(r for r in k2 if r["shape"]["k"] == main["cfg"].k)
-    return [k1, main_k2, *cms], rows
+    return [k1, main_k2, *cms, *k3_g1], rows
 
 
 def phase_parity() -> dict:
     import numpy as np
 
-    from repro_torch.core.s5p import S5PConfig, s5p_partition
+    from repro_torch.core.baselines import PARTITIONERS
     from repro_torch.graphs import community_graph
 
     src, dst, n = community_graph(2000, n_communities=32, avg_degree=8, seed=5)
-    cfg = S5PConfig(k=8)
-    t0 = time.perf_counter()
-    gpu = s5p_partition(src, dst, n, cfg, device="cuda")
-    t1 = time.perf_counter()
-    cpu = s5p_partition(src, dst, n, cfg, device="cpu")
-    t2 = time.perf_counter()
-    g, c = gpu.parts.cpu().numpy(), cpu.parts.numpy()
-    same = bool(np.array_equal(g, c))
+    differing, seconds = {}, {}
+    for name, fn in PARTITIONERS.items():
+        t0 = time.perf_counter()
+        gpu = fn(src, dst, n, 8, 0, device="cuda").cpu().numpy()
+        t1 = time.perf_counter()
+        cpu = fn(src, dst, n, 8, 0, device="cpu").numpy()
+        seconds[name] = [t1 - t0, time.perf_counter() - t1]
+        differing[name] = int((gpu != cpu).sum()) if gpu.shape == cpu.shape else -1
+    same = all(v == 0 for v in differing.values())
     info = {"phase": "parity", "graph": "community_graph(2000, 32, 8, seed=5)",
             "k": 8, "E": int(src.shape[0]), "parts_identical": same,
-            "differing_edges": int((g != c).sum()),
-            "game_rounds": [gpu.game_rounds, cpu.game_rounds],
-            "cuda_s": t1 - t0, "cpu_s": t2 - t1}
+            "differing_edges": differing, "cuda_cpu_s": seconds}
     emit(info)
     if not same:
-        raise SystemExit("chip_smoke: cuda and cpu parts differ on the community graph")
+        raise SystemExit(f"chip_smoke: cuda and cpu parts differ on the community graph: {differing}")
     return info
 
 
@@ -473,11 +756,13 @@ def main(argv=None) -> int:
     dev = phase_device()
     build = phase_build()
     main_run = phase_main(args.scale)
-    summary, all_rows = phase_kernels(main_run)
+    compare = phase_compare(main_run)
+    summary, all_rows = phase_kernels(main_run, compare)
     parity = phase_parity()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": dev, "build": build, "main": main_run["info"],
+                   "compare": compare["rows"], "pagerank": compare["pagerank"],
                    "kernels": all_rows, "parity": parity,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     emit({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in summary]})

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import random as _random
+from .._fp32 import fma_f32 as _fma_f32
 
 __all__ = [
     "GameInputs",
@@ -123,27 +124,6 @@ def _adjacency(inputs: GameInputs, n_clusters: int) -> _Adjacency:
     counts = torch.bincount(rows, minlength=n_clusters + 1).cpu().numpy()
     indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     return _Adjacency(rows, nbrs, w, indptr)
-
-
-def _fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """float32 ``x*y + z`` with one rounding, as a fused multiply-add gives.
-
-    The reference's XLA CPU backend contracts the cost expression into an
-    FMA, so the port computes one too, on any device: the float32 product
-    is exact in float64, the float64 sum is rounded to odd (TwoSum error
-    folded into the last bit), and rounding that to float32 is then the
-    correctly rounded result (53 >= 24 + 2 bits).
-    """
-    p = x.double() * y.double()
-    zd = z.double()
-    s = p + zd
-    bb = s - p
-    err = (p - (s - bb)) + (zd - bb)
-    bits = s.view(torch.int64)
-    even_inexact = (err != 0) & ((bits & 1) == 0)
-    toward = torch.where((err > 0) == (s > 0), 1, -1)  # grow or shrink |s|
-    s = torch.where(even_inexact, bits + toward, bits).view(torch.float64)
-    return s.to(torch.float32)
 
 
 def _costs(a, hyp, t, inv_k, cur_p):

@@ -2,7 +2,8 @@
 
 The port's "weights" are the states the reference computes: an Alg. 1
 ``ClusterState``, a ``CMSketch``, the game's ``GameInputs`` plus a start
-assignment, and the ``c2p`` table with a load vector.  Each function
+assignment, the ``c2p`` table with a load vector, and the scoring
+baselines' carries (Greedy, HDRF, grid).  Each function
 takes the reference structure (or anything with the same fields, as
 numpy-convertible arrays) and returns the port's structure on ``device``,
 as fresh copies, so both sides can compute from one state.  Nothing here
@@ -19,7 +20,8 @@ from .core.clustering import ClusterState
 from .core.cms import CMSketch
 from .core.game import GameInputs
 
-__all__ = ["cluster_state", "sketch", "game_inputs", "placement"]
+__all__ = ["cluster_state", "sketch", "game_inputs", "placement",
+           "greedy_carry", "hdrf_carry", "grid_carry"]
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -59,3 +61,27 @@ def placement(c2p, load, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """A cluster→partition table and a ``(k,)`` load vector (int32)."""
     dev = resolve_device(device)
     return _tensor(c2p, torch.int32, dev), _tensor(load, torch.int32, dev)
+
+
+def greedy_carry(carry, device=None):
+    """The reference's Greedy carry ``(load, rep)`` (int32)."""
+    dev = resolve_device(device)
+    load, rep = carry
+    return _tensor(load, torch.int32, dev), _tensor(rep, torch.int32, dev)
+
+
+def hdrf_carry(carry, device=None):
+    """The reference's HDRF carry ``(load, rep, pd, λ, kmask)``."""
+    dev = resolve_device(device)
+    load, rep, pd, lam, kmask = carry
+    return (_tensor(load, torch.int32, dev), _tensor(rep, torch.int32, dev),
+            _tensor(pd, torch.int32, dev), _tensor(lam, torch.float32, dev),
+            _tensor(kmask, torch.bool, dev))
+
+
+def grid_carry(carry, device=None):
+    """The reference's grid carry ``(load, row, col, n_cols)``."""
+    dev = resolve_device(device)
+    load, row, col, n_cols = carry
+    return (_tensor(load, torch.int32, dev), _tensor(row, torch.int32, dev),
+            _tensor(col, torch.int32, dev), int(n_cols))

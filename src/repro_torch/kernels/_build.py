@@ -27,6 +27,7 @@ _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 SOURCES = {
     "stream_scan": _PKG / "stream_scan" / "csrc" / "stream_scan.cu",
+    "scoring_scan": _PKG / "stream_scan" / "csrc" / "scoring_scan.cu",
     "cms_sketch": _PKG / "cms_sketch" / "csrc" / "cms_sketch.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

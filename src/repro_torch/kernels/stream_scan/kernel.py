@@ -1,11 +1,15 @@
-"""Wrappers of the Hopper kernels K1 (Alg. 1 fold) and K2 (Alg. 3 placement).
+"""Wrappers of the Hopper kernels K1 (Alg. 1 fold), K2 (Alg. 3 placement),
+K3 (Greedy/HDRF scoring scan) and G1 (grid scan).
 
-Same signatures as ``repro.kernels.stream_scan.kernel.cluster_scan`` and
-``assign_scan``.  On CUDA tensors each wrapper launches its kernel from
-``csrc/stream_scan.cu`` (one thread block per chunk, on PyTorch's current
-stream, no synchronisation) and counts the launch; on CPU tensors it runs
-the plain version in :mod:`.ref`.  K1 updates the state leaves in place
-and returns them, as the Pallas call aliases its inputs to its outputs.
+Same signatures as ``repro.kernels.stream_scan.kernel.cluster_scan``,
+``assign_scan`` and ``scoring_scan``; G1 has no Pallas counterpart (the
+reference runs ``ref.grid_chunk`` as a ``lax.scan``).  On CUDA tensors each
+wrapper launches its kernel from ``csrc/stream_scan.cu`` (K1, K2) or
+``csrc/scoring_scan.cu`` (K3, G1) — one thread block per chunk, on
+PyTorch's current stream, no synchronisation — and counts the launch; on
+CPU tensors it runs the plain version in :mod:`.ref`.  K1, K3 and G1
+update their state in place and return it, as the Pallas call aliases its
+inputs to its outputs.
 """
 
 from __future__ import annotations
@@ -17,12 +21,16 @@ import torch
 from .. import _build
 from . import ref
 
-__all__ = ["cluster_scan", "assign_scan", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["cluster_scan", "assign_scan", "scoring_scan", "grid_scan",
+           "launch_counts", "reset_launch_counts"]
 
-_LAUNCHES = {"cluster_scan": 0, "assign_scan": 0}
+# K3 counts its inserts and its retracts apart
+_LAUNCHES = {"cluster_scan": 0, "assign_scan": 0, "scoring_scan": 0,
+             "scoring_retract": 0, "grid_scan": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_MAX_K = 4096
 
 
 def launch_counts() -> dict[str, int]:
@@ -42,6 +50,18 @@ def _lib():
         lib.cluster_scan_launch.restype = _I
         lib.assign_scan_launch.argtypes = [_P] * 6 + [_I] * 5 + [_P, _P, _P]
         lib.assign_scan_launch.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _scoring_lib():
+    lib = _build.load("scoring_scan")
+    if not getattr(lib, "_typed", False):
+        lib.scoring_scan_launch.argtypes = ([_P] * 3 + [_I] * 6 + [_F, _F]
+                                            + [_P] * 5)
+        lib.scoring_scan_launch.restype = _I
+        lib.grid_scan_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 3
+        lib.grid_scan_launch.restype = _I
         lib._typed = True
     return lib
 
@@ -112,8 +132,8 @@ def assign_scan(load, src, dst, is_head_edge, pcu, pcv, *, max_load,
     dev = src.device
     E = int(src.shape[0])
     k = int(load.shape[0])
-    if not 1 <= k <= 4096:
-        raise ValueError(f"assign_scan takes 1 <= k <= 4096, got {k}")
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"assign_scan takes 1 <= k <= {_MAX_K}, got {k}")
     head = is_head_edge.to(torch.int32).contiguous()
     pin = (torch.full((E,), -1, dtype=torch.int32, device=dev)
            if parts is None else parts)
@@ -131,4 +151,95 @@ def assign_scan(load, src, dst, is_head_edge, pcu, pcv, *, max_load,
         pcv.data_ptr(), pin.data_ptr(), E, limit, int(sign), int(max_load),
         k, load.data_ptr(), out.data_ptr(), _stream_ptr(dev))
     _build.check(code, "assign_scan")
+    return out, load
+
+
+def scoring_scan(src, dst, load, rep, pd=None, lam=None, *, mode: str,
+                 sign: int = 1, parts=None, n_valid=None, eps: float = 1e-3,
+                 k_active: int | None = None):
+    """One Greedy/HDRF chunk (K3): insert (``sign=+1``) or retract
+    (``sign=-1``, with the recorded per-edge ``parts`` and ``n_valid``).
+
+    src/dst: (E,) int32; load: (k,) int32; rep: (V, k) int32 **counted**
+    replica table; pd: (V,) int32 partial degrees (HDRF only); lam: λ
+    (HDRF only).  HDRF scores the first ``k_active`` partitions (default
+    all k), the padded multi-k carry of the reference's oracle.  Updates
+    ``load``/``rep``/``pd`` in place and returns ``(parts (E,), load, rep,
+    pd)``; retract echoes ``parts``.
+    """
+    if mode not in ("greedy", "hdrf"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if sign not in (1, -1):
+        raise ValueError(f"sign must be +1 or -1, got {sign!r}")
+    if sign < 0 and (n_valid is None or parts is None):
+        raise ValueError("retract needs n_valid and recorded parts")
+    hdrf = mode == "hdrf"
+    if hdrf and (pd is None or (sign > 0 and lam is None)):
+        raise ValueError("hdrf needs pd, and lam to insert")
+    if src.device.type == "cpu":
+        return ref.scoring_chunk_oracle(
+            src, dst, load, rep, pd if hdrf else None, lam, mode=mode,
+            sign=sign, parts=parts, n_valid=n_valid, eps=eps,
+            k_active=k_active)
+    if src.device.type != "cuda":
+        raise ValueError(f"scoring_scan runs on cuda or cpu, not {src.device}")
+    dev = src.device
+    E = int(src.shape[0])
+    V, k = (int(x) for x in rep.shape)
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"scoring_scan takes 1 <= k <= {_MAX_K}, got {k}")
+    k_act = k if k_active is None else int(k_active)
+    if not 1 <= k_act <= k:
+        raise ValueError(f"k_active must lie in [1, {k}], got {k_act}")
+    for name, t in (("src", src), ("dst", dst)):
+        _check_int32(name, t, dev, (E,))
+    _check_int32("load", load, dev, (k,))
+    _check_int32("rep", rep, dev, (V, k))
+    if hdrf:
+        _check_int32("pd", pd, dev, (V,))
+    if sign < 0:
+        _check_int32("parts", parts, dev, (E,))
+    out = torch.empty((E,), dtype=torch.int32, device=dev)
+    if E == 0:
+        return out, load, rep, pd if hdrf else None
+    limit = E if sign > 0 else int(n_valid)
+    _LAUNCHES["scoring_scan" if sign > 0 else "scoring_retract"] += 1
+    code = _scoring_lib().scoring_scan_launch(
+        src.data_ptr(), dst.data_ptr(), None if sign > 0 else parts.data_ptr(),
+        E, limit, int(sign), int(hdrf), k, k_act,
+        float(lam) if hdrf and sign > 0 else 0.0, float(eps),
+        load.data_ptr(), rep.data_ptr(), pd.data_ptr() if hdrf else None,
+        out.data_ptr(), _stream_ptr(dev))
+    _build.check(code, "scoring_scan")
+    return out, load, rep, pd if hdrf else None
+
+
+def grid_scan(load, row, col, n_cols: int, src, dst):
+    """One grid chunk (G1), insert only: each edge takes the less-loaded
+    of the cells ``row[u]·c + col[v]`` and ``row[v]·c + col[u]`` (the first
+    on ties); self-loops place nothing and get part -1.  Updates ``load``
+    in place and returns ``(parts (E,), load)``.
+    """
+    if src.device.type == "cpu":
+        return ref.grid_chunk_oracle(load, row, col, n_cols, src, dst)
+    if src.device.type != "cuda":
+        raise ValueError(f"grid_scan runs on cuda or cpu, not {src.device}")
+    dev = src.device
+    E = int(src.shape[0])
+    load_k = int(load.shape[0])
+    if not 1 <= load_k <= _MAX_K:
+        raise ValueError(f"grid_scan takes 1 <= k <= {_MAX_K}, got {load_k}")
+    for name, t in (("src", src), ("dst", dst)):
+        _check_int32(name, t, dev, (E,))
+    _check_int32("load", load, dev, (load_k,))
+    _check_int32("row", row, dev)
+    _check_int32("col", col, dev, tuple(row.shape))
+    out = torch.empty((E,), dtype=torch.int32, device=dev)
+    if E == 0:
+        return out, load
+    _LAUNCHES["grid_scan"] += 1
+    code = _scoring_lib().grid_scan_launch(
+        src.data_ptr(), dst.data_ptr(), row.data_ptr(), col.data_ptr(), E,
+        int(n_cols), load_k, load.data_ptr(), out.data_ptr(), _stream_ptr(dev))
+    _build.check(code, "grid_scan")
     return out, load

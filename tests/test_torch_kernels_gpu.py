@@ -1,5 +1,5 @@
-"""K1, K2, K4a and K4b on the card against their plain PyTorch versions
-(bitwise).  Needs a CUDA device and ``nvcc``; run on a machine with a card:
+"""K1, K2, K3, G1, K4a and K4b on the card against their plain PyTorch
+versions (bitwise).  Needs a CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -100,3 +100,102 @@ def test_s5p_cuda_equals_cpu(cuda):
     gpu = s5p_partition(src, dst, n, S5PConfig(k=8), device=cuda)
     cpu = s5p_partition(src, dst, n, S5PConfig(k=8), device="cpu")
     assert torch.equal(gpu.parts.cpu(), cpu.parts)
+
+
+def _scoring_state(n, k, rng, *, hdrf, load_base=0):
+    """A warm state on the CPU: counted replicas, loads and partial degrees."""
+    rep = torch.from_numpy((rng.random((n, k)) < 0.2).astype(np.int32)
+                           * rng.integers(1, 4, (n, k)).astype(np.int32))
+    load = torch.from_numpy(rng.integers(0, 50, k).astype(np.int32) + load_base)
+    pd = torch.from_numpy(rng.integers(0, 20, n).astype(np.int32)) if hdrf else None
+    return load, rep, pd
+
+
+@pytest.mark.parametrize("mode,k,k_active", [
+    ("greedy", 8, None), ("greedy", 32, None), ("greedy", 100, None),
+    ("hdrf", 8, None), ("hdrf", 32, None), ("hdrf", 100, None),
+    ("hdrf", 32, 29),
+])
+def test_k3_scoring_scan_insert_and_retract(cuda, mode, k, k_active):
+    from repro_torch.kernels.stream_scan import launch_counts, scoring_chunk_oracle, scoring_scan
+
+    src, dst, n = _graph(seed=2)
+    src, dst = src[:3000], dst[:3000]
+    src[::97] = dst[::97]  # self-loops: no placement, pd bumped twice
+    rng = np.random.default_rng(k)
+    hdrf = mode == "hdrf"
+    load, rep, pd = _scoring_state(n, k, rng, hdrf=hdrf)
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    kw = dict(mode=mode, k_active=k_active)
+    lam = 1.1 if hdrf else None
+    want = scoring_chunk_oracle(s, d, load.clone(), rep.clone(),
+                                pd.clone() if hdrf else None, lam, **kw)
+    before = launch_counts()["scoring_scan"]
+    got = scoring_scan(s.to(cuda), d.to(cuda), load.to(cuda), rep.to(cuda),
+                       pd.to(cuda) if hdrf else None, lam, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["scoring_scan"] == before + 1
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b)
+    nv = 2900
+    retracts = launch_counts()["scoring_retract"]
+    back = scoring_scan(s.to(cuda), d.to(cuda), *got[1:3], got[3], mode=mode,
+                        sign=-1, parts=got[0], n_valid=nv)
+    assert launch_counts()["scoring_retract"] == retracts + 1
+    assert launch_counts()["scoring_scan"] == before + 1
+    back_want = scoring_chunk_oracle(s, d, *want[1:3], want[3], mode=mode,
+                                     sign=-1, parts=want[0], n_valid=nv)
+    for a, b in zip(back, back_want):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b)
+
+
+def test_k3_hdrf_equal_large_loads_score_nan(cuda):
+    """Equal active loads >= 2**15 make bal 0/0: every active score is NaN
+    and, as jnp.argmax does, the first active partition wins."""
+    from repro_torch.kernels.stream_scan import scoring_chunk_oracle, scoring_scan
+
+    n, k = 64, 8
+    rng = np.random.default_rng(7)
+    load = torch.full((k,), 40000, dtype=torch.int32)
+    rep = torch.zeros((n, k), dtype=torch.int32)
+    pd = torch.zeros(n, dtype=torch.int32)
+    s = torch.from_numpy(rng.integers(0, n, 200).astype(np.int32))
+    d = torch.from_numpy(rng.integers(0, n, 200).astype(np.int32))
+    want = scoring_chunk_oracle(s, d, load.clone(), rep.clone(), pd.clone(), 1.1,
+                                mode="hdrf", k_active=6)
+    got = scoring_scan(s.to(cuda), d.to(cuda), load.to(cuda), rep.to(cuda),
+                       pd.to(cuda), 1.1, mode="hdrf", k_active=6)
+    assert int(want[0][0]) == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_g1_grid_scan(cuda):
+    from repro_torch.kernels.stream_scan import grid_chunk_oracle, grid_scan, launch_counts
+
+    src, dst, n = _graph(seed=3)
+    src[::50] = dst[::50]
+    k, c = 32, 8
+    rng = np.random.default_rng(0)
+    row = torch.from_numpy(rng.integers(0, k // c, n).astype(np.int32))
+    col = torch.from_numpy(rng.integers(0, c, n).astype(np.int32))
+    load = torch.from_numpy(rng.integers(0, 9, k).astype(np.int32))
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    want = grid_chunk_oracle(load.clone(), row, col, c, s, d)
+    before = launch_counts()["grid_scan"]
+    got = grid_scan(load.to(cuda), row.to(cuda), col.to(cuda), c, s.to(cuda), d.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["grid_scan"] == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("name", ["grid", "greedy", "hdrf", "2ps-l"])
+def test_baselines_cuda_equal_cpu(cuda, name):
+    from repro_torch.core.baselines import PARTITIONERS
+    from repro_torch.graphs import community_graph
+
+    src, dst, n = community_graph(1000, n_communities=16, avg_degree=6, seed=2)
+    kw = {} if name == "2ps-l" else {"chunk_size": 1500}  # several chunks
+    gpu = PARTITIONERS[name](src, dst, n, 8, 0, device=cuda, **kw)
+    cpu = PARTITIONERS[name](src, dst, n, 8, 0, device="cpu", **kw)
+    assert torch.equal(gpu.cpu(), cpu)
