@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # the full run: R-MAT scale 20, k = 32
-    python3 chip_smoke.py --scale 16   # a shorter main path and compare
+    python3 chip_smoke.py --scale 16 --products-scale 0.1   # a shorter run
 
 Phases, each printing one JSON line:
 
@@ -25,13 +25,30 @@ Phases, each printing one JSON line:
               that chunk; then PageRank (10 iterations) on the S5P and HDRF
               partitions: mirror-sync bytes, their ratio, seconds of the
               layout build and of the supersteps;
-5. kernels  — each kernel's wrapper on card tensors at the main path's
+5. serve    — the serving read side with GCN inference: the
+              ``ogbn_products_like(seed=0)`` graph at scale 1.0 (2,449,029
+              vertices), S5P at k = 32, ``build_bundle`` and
+              ``BundleRegistry.publish``, ``GASServer`` for 10 PageRank
+              supersteps, 16 ``query_pagerank`` calls of 16 vertices, one
+              ``query_components(5)``, one ``gcn_forward`` of gcn-cora at
+              d_feat 100 over ``products_features``, ``query_gnn`` for all
+              vertices and then 16 times for 16 vertices; launch counters
+              set to 0 just before and read just after, K5 launched 6 times
+              per forward; the full logits held against the same forward
+              on ``device="cpu"`` (rtol 1e-4, atol 1e-5: only ``x @ W``
+              differs); one line each for the graph, S5P, GAS, latency,
+              GCN and device numbers;
+6. kernels  — each kernel's wrapper on card tensors at the main path's
               shapes against its plain PyTorch version on the same inputs:
               all must be bitwise equal (tolerance 0); times by CUDA
               events, the plain version's time, the bound, and a PyTorch
               library call where one computes the same function.  K3 and
               G1 run 4,096 edges onto the final state of the compare run;
-6. parity   — every partitioner on ``community_graph(2000, 32, 8,
+              K5 runs the serve phase's layer-1 (d = 16) and layer-2
+              (d = 7) aggregations and one over its features in bfloat16
+              (d = 100), with ``torch.sparse.mm`` on the same CSR matrix as
+              the library call;
+7. parity   — every partitioner on ``community_graph(2000, 32, 8,
               seed=5)``, k = 8, on ``cuda`` and on ``cpu``: the parts must be
               identical.
 
@@ -118,21 +135,24 @@ def max_abs_err(a, b) -> int:
     return int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max())
 
 
-def launch_counts() -> dict:
+def _kernel_modules():
     from repro_torch.kernels.cms_sketch import kernel as cms_k
+    from repro_torch.kernels.segment_agg import kernel as seg_k
     from repro_torch.kernels.stream_scan import kernel as scan_k
 
-    counts = scan_k.launch_counts()
-    counts.update(cms_k.launch_counts())
+    return scan_k, cms_k, seg_k
+
+
+def launch_counts() -> dict:
+    counts = {}
+    for mod in _kernel_modules():
+        counts.update(mod.launch_counts())
     return counts
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.cms_sketch import kernel as cms_k
-    from repro_torch.kernels.stream_scan import kernel as scan_k
-
-    scan_k.reset_launch_counts()
-    cms_k.reset_launch_counts()
+    for mod in _kernel_modules():
+        mod.reset_launch_counts()
 
 
 # --------------------------------------------------------------------- phases
@@ -699,19 +719,239 @@ def check_k3_g1(main, compare) -> list[dict]:
     return rows
 
 
-def phase_kernels(main, compare) -> list[dict]:
+def phase_kernels(main, compare, serve) -> list[dict]:
     k1 = check_k1(main)
     k2 = [check_k2(main, k) for k in (8, 32, 256)]
     cms = check_cms(main)
     k3_g1 = check_k3_g1(main, compare)
-    rows = [k1, *k2, *cms, *k3_g1]
+    k5 = check_k5(serve)
+    rows = [k1, *k2, *cms, *k3_g1, *k5]
     for r in rows:
         emit({"phase": "kernel", **r})
-    bad = [r["name"] for r in rows if r["max_abs_err"] != 0]
+    bad = [r["name"] for r in rows
+           if r["max_abs_err"] != 0 or not r["shape"].get("bitwise", True)]
     if bad:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
     main_k2 = next(r for r in k2 if r["shape"]["k"] == main["cfg"].k)
-    return [k1, main_k2, *cms, *k3_g1], rows
+    return [k1, main_k2, *cms, *k3_g1, *k5], rows
+
+
+def _latency(us: list) -> dict:
+    import numpy as np
+
+    a = np.asarray(us, np.float64)
+    return {"n": int(a.size), "mean_us": float(a.mean()), "p99_us": float(np.percentile(a, 99))}
+
+
+def phase_serve(products_scale: float) -> dict:
+    """The serving read side over the products-shaped graph: S5P, bundle,
+    registry, PageRank supersteps and queries, GCN inference through K5."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.core.metrics import load_balance, replication_factor
+    from repro_torch.core.s5p import S5PConfig, s5p_partition
+    from repro_torch.graphs import ogbn_products_like, products_features
+    from repro_torch.models.gnn import gcn_forward, gcn_init
+    from repro_torch.serving import BundleRegistry, GASServer, build_bundle
+
+    t0 = time.perf_counter()
+    g = ogbn_products_like(seed=0, scale=products_scale)
+    graph_s = time.perf_counter() - t0
+    n, E = g.n_vertices, int(g.src.size)
+    t0 = time.perf_counter()
+    feats_np = products_features(np.arange(n), 100, seed=0)
+    feats_s = time.perf_counter() - t0
+    # gcn-cora at the ogb_products shape's d_feat, as launch/cells.py sizes it
+    cfg = dataclasses.replace(get_arch("gcn-cora").config,
+                              d_feat=get_arch("gcn-cora").shapes["ogb_products"]["d_feat"])
+    dev = torch.device("cuda")
+    params = gcn_init(cfg, trandom.PRNGKey(0), device=dev)
+    feats = torch.from_numpy(feats_np).to(dev)
+    rng = np.random.default_rng(0)
+    problems = []
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = s5p_partition(g.src, g.dst, n, S5PConfig(k=32), device=dev)
+    torch.cuda.synchronize()
+    s5p_s = time.perf_counter() - t0
+    s_t, d_t = torch.from_numpy(g.src).to(dev), torch.from_numpy(g.dst).to(dev)
+    rf = replication_factor(s_t, d_t, out.parts, n_vertices=n, k=32)
+    bal = load_balance(out.parts, k=32)
+    del s_t, d_t
+    t0 = time.perf_counter()
+    bundle = build_bundle(1, g.src, g.dst, out.parts.cpu().numpy(), n, 32, rf=rf,
+                          balance=bal, device=dev)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    registry = BundleRegistry()
+    registry.publish(bundle)
+    server = GASServer(registry)
+    t0 = time.perf_counter()
+    server.run(10)
+    torch.cuda.synchronize()
+    supersteps_s = time.perf_counter() - t0
+    lat = server.metrics.query_latency_us
+
+    pr_vals = [server.query_pagerank(rng.integers(0, n, 16)) for _ in range(16)]
+    pr_lat = lat[-16:]
+    labels = server.query_components(5)
+    comp_lat = lat[-1:]
+
+    from repro_torch.kernels.segment_agg import launch_counts as k5_counts
+
+    def k5_delta(fn):
+        before = k5_counts()["segment_agg"]
+        res = fn()
+        return res, k5_counts()["segment_agg"] - before
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_dev, fwd_k5 = k5_delta(lambda: gcn_forward(params, feats, bundle.edge_src,
+                                                      bundle.edge_dst, n, cfg, device=dev))
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    del logits_dev
+    logits, full_k5 = k5_delta(lambda: server.query_gnn(params, feats, cfg))
+    full_lat = lat[-1:]
+    point_k5 = []
+    for _ in range(16):
+        vs = rng.integers(0, n, 16)
+        got, k5 = k5_delta(lambda: server.query_gnn(params, feats, cfg, vertices=vs))
+        point_k5.append(k5)
+        if not np.array_equal(got, logits[vs]):
+            problems.append("query_gnn for 16 vertices differs from the full query's rows")
+    gnn_lat = lat[-16:]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same forward on the CPU, through the plain K5
+    t0 = time.perf_counter()
+    params_cpu = {"layers": [{"w": layer["w"].cpu()} for layer in params["layers"]]}
+    want = gcn_forward(params_cpu, feats_np, g.src, g.dst, n, cfg, device="cpu").numpy()
+    cpu_forward_s = time.perf_counter() - t0
+    close = bool(np.allclose(logits, want, rtol=1e-4, atol=1e-5))
+    max_abs = float(np.abs(logits - want).max())
+
+    n_chunks = math.ceil(E / S5PConfig(k=32).chunk_size)
+    if fwd_k5 != 6 or full_k5 != 6 or any(k != 6 for k in point_k5):
+        problems.append(f"K5 launches per forward {fwd_k5}, {full_k5}, {point_k5}, not 6")
+    if launches["segment_agg"] != 6 * 18:
+        problems.append(f"K5 launched {launches['segment_agg']} times, not 6 x 18")
+    if launches["cluster_scan"] != n_chunks or launches["assign_scan"] != n_chunks:
+        problems.append(f"K1/K2 launches {launches} != {n_chunks} chunks")
+    if launches["cms_update"] < 1 or launches["cms_query"] < 1:
+        problems.append(f"CMS kernels not launched: {launches}")
+    if not close:
+        problems.append(f"cuda logits differ from cpu beyond rtol 1e-4, atol 1e-5 (max {max_abs})")
+    if logits.shape != (n, cfg.n_classes) or not np.isfinite(logits).all():
+        problems.append(f"logits of shape {logits.shape}, or not finite")
+    if not all(np.isfinite(v).all() and (v > 0).all() and v.shape == (16,) for v in pr_vals):
+        problems.append("PageRank values not finite and positive")
+    if labels.shape != (n,) or (labels > np.arange(n)).any() or labels.min() < 0:
+        problems.append("component labels outside [0, v]")
+    if not 1.0 <= rf <= 32:
+        problems.append(f"RF {rf} outside [1, k]")
+    info = {
+        "phase": "serve", "graph": f"ogbn_products_like(seed=0, scale={products_scale})",
+        "V": n, "E": E, "k": 32, "generate_graph_s": graph_s, "generate_features_s": feats_s,
+        "s5p_s": s5p_s, "s5p_seconds": out.timings, "rf": rf, "balance": bal,
+        "sync_bytes_per_superstep": server.metrics.bytes_per_superstep(),
+        "layout_s": layout_s, "supersteps": 10, "supersteps_s": supersteps_s,
+        "latency": {"query_pagerank": _latency(pr_lat),
+                    "query_components": _latency(comp_lat),
+                    "query_gnn_all": _latency(full_lat),
+                    "query_gnn_16": _latency(gnn_lat)},
+        "gcn": {"d_feat": cfg.d_feat, "d_hidden": cfg.d_hidden, "n_classes": cfg.n_classes,
+                "forward_s": forward_s, "k5_per_forward": fwd_k5,
+                "cpu_forward_s": cpu_forward_s, "max_abs_err_vs_cpu": max_abs,
+                "within_rtol_1e-4": close},
+        "components": int(np.unique(labels).size),
+        "max_memory_allocated": peak, "launches": launches,
+    }
+    for step, keys in (("graph", ("graph", "V", "E", "generate_graph_s", "generate_features_s")),
+                       ("s5p", ("k", "rf", "balance", "s5p_s", "s5p_seconds")),
+                       ("gas", ("sync_bytes_per_superstep", "layout_s", "supersteps",
+                                "supersteps_s", "components")),
+                       ("latency", ("latency",)), ("gcn", ("gcn",)),
+                       ("device", ("max_memory_allocated", "launches"))):
+        emit({"phase": "serve", "step": step, **{key: info[key] for key in keys}})
+    if problems:
+        raise SystemExit("chip_smoke serve phase failed: " + "; ".join(problems))
+    return {"info": info, "params": params, "feats": feats, "bundle": bundle, "cfg": cfg,
+            "launches": launches}
+
+
+def check_k5(serve) -> list[dict]:
+    """K5 at the serve phase's shapes against the plain version on the CPU."""
+    import torch
+
+    from repro_torch.kernels.segment_agg import segment_agg
+    from repro_torch.models.gnn import gcn_layer, gcn_norm
+
+    bundle, params, feats = serve["bundle"], serve["params"], serve["feats"]
+    n = bundle.n_vertices
+    norm = gcn_norm(bundle.edge_src, bundle.edge_dst, n, device="cuda")
+    lay = norm.fwd  # the forward direction's layout, the GCN's weights
+    x1 = feats @ params["layers"][0]["w"]
+    x2 = torch.relu(gcn_layer(x1, norm)) @ params["layers"][1]["w"]
+    E = int(lay.src.numel())
+    unit = lay.with_weights(torch.ones(lay.n_edges, device="cuda"))
+    cases = [("K5 segment_agg degrees (d=1, f32)", torch.ones(n, 1, device="cuda"), unit),
+             ("K5 segment_agg layer 1 (d=16, f32)", x1, lay),
+             ("K5 segment_agg layer 2 (d=7, f32)", x2, lay),
+             ("K5 segment_agg features (d=100, bf16)", feats.to(torch.bfloat16), lay)]
+    rows = []
+    for name, x, layout in cases:
+        x = x.contiguous()
+        cpu_lay = layout._replace(src=layout.src.cpu(), dst=layout.dst.cpu(),
+                                  w=layout.w.cpu(), row_ptr=layout.row_ptr.cpu(),
+                                  order=layout.order.cpu())
+        csr = torch.sparse_csr_tensor(layout.row_ptr, layout.src.long(), layout.w,
+                                      size=(n, n))
+        ms = cuda_time_ms(lambda: segment_agg(x, layout), reps=5)
+        got = segment_agg(x, layout)
+        torch.cuda.synchronize()
+        xc = x.cpu()
+        want = {}
+        plain_ms = host_time_ms(lambda: want.__setitem__("out", segment_agg(xc, cpu_lay)))
+        g, w = got.cpu(), want["out"]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise SystemExit(f"chip_smoke: K5 gave {g.shape} {g.dtype}, not {w.shape} {w.dtype}")
+        err = float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+        bits = torch.int32 if g.dtype == torch.float32 else torch.int16
+        bitwise = torch.equal(g.view(bits), w.view(bits))
+        d, esize = int(x.shape[1]), x.element_size()
+        # each input read once, each output written once
+        n_bytes = 8 * E + 8 * (n + 1) + n * d * esize + n * d * esize
+        b, by = bound_ms(n_bytes, 2 * E * d)
+        # no reuse of gathered rows: each costs at least one 32-byte sector
+        sectors = -(-d * esize // 32) * 32
+        no_reuse, _ = bound_ms(8 * E + 8 * (n + 1) + E * sectors + n * d * esize, 0)
+        lib_ms = None
+        if x.dtype == torch.float32:
+            lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, x), reps=5)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/segment_agg/csrc/segment_agg.cu",
+                     "replaces": "src/repro/kernels/segment_agg/kernel.py:61",
+                     "launches": serve["launches"]["segment_agg"], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": lib_ms,
+                     "shape": {"rows": n, "V": n, "d": d, "dtype": str(x.dtype),
+                               "bitwise": bitwise,
+                               "edges": E, "max_row": int(layout.row_ptr.diff().max()),
+                               "no_reuse_bound_ms": no_reuse,
+                               "library": "torch.sparse.mm(CSR of the weights, x)"
+                               if lib_ms is not None else None}})
+    return rows
 
 
 def phase_parity() -> dict:
@@ -743,6 +983,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
                     help="R-MAT scale of the main path (default 20)")
+    ap.add_argument("--products-scale", type=float, default=1.0,
+                    help="scale of the served ogbn_products_like graph (default 1.0)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -757,13 +999,16 @@ def main(argv=None) -> int:
     build = phase_build()
     main_run = phase_main(args.scale)
     compare = phase_compare(main_run)
-    summary, all_rows = phase_kernels(main_run, compare)
+    serve = phase_serve(args.products_scale)
+    summary, all_rows = phase_kernels(main_run, compare, serve)
+    serve_info = serve["info"]
+    del serve
     parity = phase_parity()
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": dev, "build": build, "main": main_run["info"],
                    "compare": compare["rows"], "pagerank": compare["pagerank"],
-                   "kernels": all_rows, "parity": parity,
+                   "serve": serve_info, "kernels": all_rows, "parity": parity,
                    "total_s": time.perf_counter() - t_start}, f, indent=1)
     emit({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in summary]})
     print(nvidia_smi_line(), flush=True)

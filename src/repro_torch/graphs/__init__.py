@@ -1,3 +1,4 @@
+from .datasets import GraphData, cora_like, ogbn_products_like, products_features  # noqa: F401
 from .generators import (  # noqa: F401
     community_graph,
     erdos_renyi_graph,

@@ -3,7 +3,8 @@
 The port's "weights" are the states the reference computes: an Alg. 1
 ``ClusterState``, a ``CMSketch``, the game's ``GameInputs`` plus a start
 assignment, the ``c2p`` table with a load vector, and the scoring
-baselines' carries (Greedy, HDRF, grid).  Each function
+baselines' carries (Greedy, HDRF, grid), and model weights (the GCN's
+parameter tree).  Each function
 takes the reference structure (or anything with the same fields, as
 numpy-convertible arrays) and returns the port's structure on ``device``,
 as fresh copies, so both sides can compute from one state.  Nothing here
@@ -21,7 +22,7 @@ from .core.cms import CMSketch
 from .core.game import GameInputs
 
 __all__ = ["cluster_state", "sketch", "game_inputs", "placement",
-           "greedy_carry", "hdrf_carry", "grid_carry"]
+           "greedy_carry", "hdrf_carry", "grid_carry", "gcn_params"]
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -85,3 +86,18 @@ def grid_carry(carry, device=None):
     load, row, col, n_cols = carry
     return (_tensor(load, torch.int32, dev), _tensor(row, torch.int32, dev),
             _tensor(col, torch.int32, dev), int(n_cols))
+
+
+def gcn_params(params, device=None) -> dict:
+    """The reference's GCN parameters ``{"layers": [{"w": (d_in, d_out)}]}``
+    (arrays in the reference's float type, float32 or bfloat16)."""
+    dev = resolve_device(device)
+    layers = []
+    for layer in params["layers"]:
+        w = np.asarray(layer["w"])
+        if w.dtype.name == "bfloat16":  # NumPy has no bfloat16: go through its bits
+            t = torch.from_numpy(w.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(w, np.float32))
+        layers.append({"w": t.to(dev)})
+    return {"layers": layers}

@@ -1,10 +1,13 @@
 """Bit-exact PyTorch port of the ``jax.random`` calls on the S5P main path.
 
-Covers ``PRNGKey``, ``fold_in``, ``split``, ``uniform`` and ``randint`` of
-the threefry-2x32 implementation in the ``jax_threefry_partitionable=True``
-mode (JAX 0.9's default), where element ``i`` of a draw of shape ``s`` is
-``threefry2x32(key, (hi(i), lo(i)))`` of the flat index ``i`` — so any
-slice of a draw can be computed on its own.  The other mode is not ported.
+Covers ``PRNGKey``, ``fold_in``, ``split``, ``uniform``, ``randint``,
+``normal`` and ``truncated_normal`` of the threefry-2x32 implementation in
+the ``jax_threefry_partitionable=True`` mode (JAX 0.9's default), where
+element ``i`` of a draw of shape ``s`` is ``threefry2x32(key, (hi(i),
+lo(i)))`` of the flat index ``i`` — so any slice of a draw can be computed
+on its own.  The other mode is not ported.  ``normal`` and
+``truncated_normal`` draw JAX's uniform bits exactly but use PyTorch's
+erfinv (a few ulp from XLA's).
 
 uint32 is emulated in int64 masked with ``0xFFFFFFFF``: PyTorch's CPU
 uint32 lacks ``>>``, ``%``, ``+`` and ``min``.  The threefry rounds work
@@ -18,10 +21,14 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from ._fp32 import fma_f32
+
 __all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
-           "bits_to_uniform", "uniform", "randint", "mul32"]
+           "bits_to_uniform", "uniform", "randint", "mul32", "normal",
+           "truncated_normal"]
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -92,9 +99,45 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def uniform(key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` (float32 on [0, 1))."""
-    return bits_to_uniform(random_bits(key, shape, device))
+def uniform(key, shape, device="cpu", minval=0.0, maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` (float32).
+
+    JAX scales the [0, 1) draw as ``max(lo, f·(hi − lo) + lo)``, and XLA's
+    CPU backend contracts that into an FMA; the port computes the FMA too,
+    so the draw is bitwise equal on any range."""
+    floats = bits_to_uniform(random_bits(key, shape, device))
+    if (minval, maxval) == (0.0, 1.0):
+        return floats
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=floats.device)
+    scaled = fma_f32(floats, (hi - lo).expand_as(floats), lo.expand_as(floats))
+    return torch.maximum(lo, scaled)
+
+
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+
+def normal(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32): ``√2·erfinv(u)`` of a
+    uniform draw on (−1, 1).  The uniform draw is bitwise JAX's; the
+    erfinv is PyTorch's, another approximation than XLA's, so a value may
+    differ from JAX's by a few ulp (the tests hold it to a relative 1e-5)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return _SQRT2 * torch.erfinv(uniform(key, shape, device, lo, 1.0))
+
+
+def truncated_normal(key, lower: float, upper: float, shape,
+                     device="cpu") -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` (float32):
+    a uniform draw over ``(erf(lower/√2), erf(upper/√2))``, then ``√2·erfinv``,
+    clipped into the open interval.  Same ulp caveat as :func:`normal`."""
+    lower32 = torch.tensor(lower, dtype=torch.float32)
+    upper32 = torch.tensor(upper, dtype=torch.float32)
+    a = torch.erf(lower32 / _SQRT2)
+    b = torch.erf(upper32 / _SQRT2)
+    out = _SQRT2 * torch.erfinv(uniform(key, shape, device, a.to(device), b.to(device)))
+    return out.clamp(float(np.nextafter(np.float32(lower), np.float32(np.inf))),
+                     float(np.nextafter(np.float32(upper), np.float32(-np.inf))))
 
 
 def randint(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:

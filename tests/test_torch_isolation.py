@@ -22,6 +22,9 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.core.s5p" in mods and "repro_torch.launch.partition" in mods
+    assert {"repro_torch.serving.server", "repro_torch.models.gnn",
+            "repro_torch.kernels.segment_agg.ops", "repro_torch.graphs.datasets",
+            "repro_torch.configs.gcn_cora"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -48,7 +51,18 @@ def _entry_points():
     src = np.array([0, 1, 2], np.int32)
     dst = np.array([1, 2, 0], np.int32)
     z = np.zeros(3, np.int32)
+    from repro_torch.kernels.segment_agg import segment_aggregate
+    from repro_torch.models.gnn import GCNConfig, gcn_forward, gcn_init
+    from repro_torch.serving import build_bundle
+
+    cfg = GCNConfig(n_layers=2, d_hidden=2, d_feat=2, n_classes=2)
+    params = {"layers": [{"w": torch.ones(2, 2)}, {"w": torch.ones(2, 2)}]}
     return {
+        "build_bundle": lambda: build_bundle(1, src, dst, z, 3, 2),
+        "gcn_init": lambda: gcn_init(cfg, (0, 0)),
+        "gcn_forward": lambda: gcn_forward(params, np.ones((3, 2), np.float32), src, dst,
+                                           3, cfg),
+        "segment_aggregate": lambda: segment_aggregate(np.ones((3, 2), np.float32), src, dst),
         "s5p_partition": lambda: s5p_partition(src, dst, 3, S5PConfig(k=2)),
         "cluster_stream": lambda: cluster_stream(src, dst, 3, xi=1, kappa=4),
         "assign_edges_stream": lambda: assign_edges_stream(
@@ -58,7 +72,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["s5p_partition", "cluster_stream",
-                                  "assign_edges_stream", "cli"])
+                                  "assign_edges_stream", "cli", "build_bundle",
+                                  "gcn_init", "gcn_forward", "segment_aggregate"])
 def test_entry_points_need_a_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

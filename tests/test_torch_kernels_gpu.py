@@ -1,5 +1,5 @@
-"""K1, K2, K3, G1, K4a and K4b on the card against their plain PyTorch
-versions (bitwise).  Needs a CUDA device and ``nvcc``; run on a machine with a card:
+"""K1, K2, K3, G1, K4a, K4b and K5 on the card against their plain PyTorch
+versions (bitwise), and the GCN on cuda against cpu.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -199,3 +199,67 @@ def test_baselines_cuda_equal_cpu(cuda, name):
     gpu = PARTITIONERS[name](src, dst, n, 8, 0, device=cuda, **kw)
     cpu = PARTITIONERS[name](src, dst, n, 8, 0, device="cpu", **kw)
     assert torch.equal(gpu.cpu(), cpu)
+
+
+def _k5_inputs(V, d, seed, hub=100_000):
+    """A power-law-ish edge list with a hub row of ``hub`` edges, empty
+    rows, ``dst = -1`` padding and ``n_rows > max(dst) + 1``."""
+    rng = np.random.default_rng(seed)
+    E = hub + 20 * V
+    dst = np.concatenate([np.full(hub, 3), rng.integers(0, V // 2, E - hub)]).astype(np.int32)
+    rng.shuffle(dst)
+    dst[::97] = -1
+    src = rng.integers(0, V, E).astype(np.int32)
+    x = (rng.standard_normal((V, d)) * np.exp(rng.uniform(-8, 8, (V, d)))).astype(np.float32)
+    w = rng.standard_normal(E).astype(np.float32)
+    return x, src, dst, w, V + 17
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 7, 16, 100])
+def test_k5_segment_agg(cuda, d, dtype):
+    from repro_torch.kernels.segment_agg import launch_counts, segment_agg, segment_layout
+
+    x, src, dst, w, n_rows = _k5_inputs(5000, d, seed=d)
+    xt = torch.from_numpy(x).to(dtype)
+    want = segment_agg(xt, segment_layout(src, dst, n_rows, w, device="cpu"))
+    lay = segment_layout(src, dst, n_rows, w, device=cuda)
+    before = launch_counts()["segment_agg"]
+    got = segment_agg(xt.to(cuda), lay)
+    torch.cuda.synchronize()
+    assert launch_counts()["segment_agg"] == before + 1
+    assert got.dtype == dtype and got.shape == (n_rows, d)
+    assert torch.equal(got.cpu(), want)  # bitwise: same order, same rounding
+    assert not got[n_rows - 17:].any() and not got[5000 // 2:5000].any()
+
+
+def test_k5_refuses_other_dtypes(cuda):
+    from repro_torch.kernels.segment_agg import segment_agg, segment_layout
+
+    lay = segment_layout([0, 1], [1, 0], 2, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        segment_agg(torch.ones(2, 3, dtype=torch.float64, device=cuda), lay)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_gcn_forward_cuda_equals_cpu(cuda, masked):
+    """Only ``x @ W`` differs (cuBLAS against the CPU's BLAS, both in full
+    float32): rtol 1e-4, atol 1e-5."""
+    from repro_torch import random as trandom
+    from repro_torch.graphs import ogbn_products_like, products_features
+    from repro_torch.kernels.segment_agg import launch_counts
+    from repro_torch.models.gnn import GCNConfig, gcn_forward, gcn_init
+
+    g = ogbn_products_like(seed=0, scale=2e-3)
+    n = g.n_vertices
+    cfg = GCNConfig(n_layers=2, d_hidden=16, d_feat=100, n_classes=7)
+    feats = products_features(np.arange(n), 100, seed=0)
+    mask = (np.random.default_rng(0).random(g.src.size) < 0.9).astype(np.float32) \
+        if masked else None
+    params = gcn_init(cfg, trandom.PRNGKey(0), device="cpu")
+    want = gcn_forward(params, feats, g.src, g.dst, n, cfg, mask, device="cpu")
+    before = launch_counts()["segment_agg"]
+    got = gcn_forward(params, feats, g.src, g.dst, n, cfg, mask, device=cuda)
+    torch.cuda.synchronize()
+    assert launch_counts()["segment_agg"] == before + 6
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
