@@ -40,17 +40,42 @@ Phases, each printing one JSON line:
               GCN and device numbers;
 6. kernels  — each kernel's wrapper on card tensors at the main path's
               shapes against its plain PyTorch version on the same inputs:
-              all must be bitwise equal (tolerance 0); times by CUDA
+              K1–K5 bitwise equal (tolerance 0), K6 within the tolerance
+              its row states (below); times by CUDA
               events, the plain version's time, the bound, and a PyTorch
               library call where one computes the same function.  K3 and
               G1 run 4,096 edges onto the final state of the compare run;
               K5 runs the serve phase's layer-1 (d = 16) and layer-2
               (d = 7) aggregations and one over its features in bfloat16
               (d = 100), with ``torch.sparse.mm`` on the same CSR matrix as
-              the library call;
-7. parity   — every partitioner on ``community_graph(2000, 32, 8,
+              the library call (for bf16 a CSR of bf16 weights; where
+              PyTorch refuses it, the row records the error text);
+7. lm       — the LM serving path at full width: ``serve_lm`` of
+              ``llama3-8b`` (32 layers, 8,030,261,248 parameters, bf16,
+              seed 0) over 4 prompts of 4,096 tokens, then 32 greedy
+              tokens, with the launch counters set to 0 just before and
+              read just after: init seconds and peak memory, prefill seconds
+              and tokens/s, decode ms per token (mean, p99), K6 launched
+              exactly once per layer of the prefill (32), the logits finite;
+              then a float32 check at full width and 2 layers: the logits
+              of ``prefill(prompt[:S])`` against ``prefill(prompt[:S-1])``
+              followed by ``decode_step(prompt[S-1])`` within atol 2e-3,
+              rtol 1e-3 (the reference's decode-against-forward
+              tolerance), which holds K6 against the plain decode path.
+              Phase ``kernels`` then holds K6 against its plain version
+              (``flash_attention_ref`` on the same card tensors, float32
+              products in full float32, no TF32) at llama3-8b's prefill
+              layer, qwen3-14b's 5-head groups, Mixtral's 4,096 window
+              over 8,192 tokens and a ragged, padded float32 case, within
+              ``K6_LIMITS`` (bf16: per-row and mean relative error), shows
+              that a dropped kv tile and q, p left in float32 fail those
+              limits, and times ``scaled_dot_product_attention`` beside it
+              (a boolean mask from the positions where not causal alone);
+8. parity   — every partitioner on ``community_graph(2000, 32, 8,
               seed=5)``, k = 8, on ``cuda`` and on ``cpu``: the parts must be
               identical.
+
+The kernel checks of phase 6 run after phase 7.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -77,6 +102,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # the 32-bit integer work of these kernels.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 
 
 def emit(obj) -> None:
@@ -119,9 +145,10 @@ def host_time_ms(fn, reps: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = SCALAR_OPS_PER_S
+             ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -137,10 +164,11 @@ def max_abs_err(a, b) -> int:
 
 def _kernel_modules():
     from repro_torch.kernels.cms_sketch import kernel as cms_k
+    from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.segment_agg import kernel as seg_k
     from repro_torch.kernels.stream_scan import kernel as scan_k
 
-    return scan_k, cms_k, seg_k
+    return scan_k, cms_k, seg_k, fa_k
 
 
 def launch_counts() -> dict:
@@ -719,21 +747,31 @@ def check_k3_g1(main, compare) -> list[dict]:
     return rows
 
 
-def phase_kernels(main, compare, serve) -> list[dict]:
+def phase_kernels(main, compare, serve, lm) -> list[dict]:
     k1 = check_k1(main)
     k2 = [check_k2(main, k) for k in (8, 32, 256)]
     cms = check_cms(main)
     k3_g1 = check_k3_g1(main, compare)
     k5 = check_k5(serve)
-    rows = [k1, *k2, *cms, *k3_g1, *k5]
+    k6 = check_k6(lm)
+    rows = [k1, *k2, *cms, *k3_g1, *k5, *k6]
+    _check_rows(rows)
+    main_k2 = next(r for r in k2 if r["shape"]["k"] == main["cfg"].k)
+    return [k1, main_k2, *cms, *k3_g1, *k5, k6[0]], rows
+
+
+def _check_rows(rows) -> None:
+    """Each row within its stated limits, or else its tolerance (0 unless it
+    states one)."""
     for r in rows:
         emit({"phase": "kernel", **r})
     bad = [r["name"] for r in rows
-           if r["max_abs_err"] != 0 or not r["shape"].get("bitwise", True)]
+           if (not _within(r["shape"]["errors"], r["shape"]["limits"])
+               if "limits" in r["shape"] else
+               r["max_abs_err"] > r["shape"].get("tolerance", 0)
+               or not r["shape"].get("bitwise", True))]
     if bad:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
-    main_k2 = next(r for r in k2 if r["shape"]["k"] == main["cfg"].k)
-    return [k1, main_k2, *cms, *k3_g1, *k5], rows
 
 
 def _latency(us: list) -> dict:
@@ -936,9 +974,14 @@ def check_k5(serve) -> list[dict]:
         # no reuse of gathered rows: each costs at least one 32-byte sector
         sectors = -(-d * esize // 32) * 32
         no_reuse, _ = bound_ms(8 * E + 8 * (n + 1) + E * sectors + n * d * esize, 0)
-        lib_ms = None
-        if x.dtype == torch.float32:
+        lib_ms, lib_error = None, None
+        if x.dtype == torch.bfloat16:  # the same CSR with bf16 weights, as x's type
+            csr = torch.sparse_csr_tensor(layout.row_ptr, layout.src.long(),
+                                          layout.w.to(torch.bfloat16), size=(n, n))
+        try:
             lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, x), reps=5)
+        except RuntimeError as e:  # a yardstick only: record why there is none
+            lib_error = str(e).splitlines()[0]
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/segment_agg/csrc/segment_agg.cu",
                      "replaces": "src/repro/kernels/segment_agg/kernel.py:61",
@@ -949,8 +992,8 @@ def check_k5(serve) -> list[dict]:
                                "bitwise": bitwise,
                                "edges": E, "max_row": int(layout.row_ptr.diff().max()),
                                "no_reuse_bound_ms": no_reuse,
-                               "library": "torch.sparse.mm(CSR of the weights, x)"
-                               if lib_ms is not None else None}})
+                               "library": "torch.sparse.mm(CSR of the weights, x)",
+                               "library_error": lib_error}})
     return rows
 
 
@@ -979,6 +1022,256 @@ def phase_parity() -> dict:
     return info
 
 
+def _highest_f32() -> None:
+    """Float32 matmuls in full float32 on the card (no TF32), stated."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def phase_lm(prompt_len: int = 4096, batch: int = 4, gen_tokens: int = 32,
+             f32_layers: int = 2) -> dict:
+    """The LM serving path at full width (llama3-8b), then the float32
+    prefill-against-decode check at full width and ``f32_layers`` layers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import lm as LM
+
+    _highest_f32()
+    arch = "llama3-8b"
+    cfg = get_arch(arch).config
+    dev = torch.device("cuda")
+    problems = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    seqs = serve_lm(arch, prompt_len=prompt_len, gen_tokens=gen_tokens, batch=batch,
+                    smoke=False, seed=0, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = np.asarray(stats["decode_s"]) * 1e3
+    first, last = stats.pop("prefill_logits"), stats.pop("last_logits")
+    finite = bool(torch.isfinite(first).all()) and bool(torch.isfinite(last).all())
+    toks = seqs.cpu().numpy()
+    info = {
+        "phase": "lm", "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": LM.count_params(cfg), "dtype": str(cfg.dtype), "seed": 0,
+        "batch": batch, "prompt_len": prompt_len, "gen_tokens": gen_tokens,
+        "init_s": stats["init_s"], "init_peak_bytes": stats["init_peak_bytes"],
+        "prefill_s": stats["prefill_s"],
+        "prefill_tokens_per_s": batch * prompt_len / stats["prefill_s"],
+        "decode_ms_per_token": {"n": int(decode_ms.size), "mean": float(decode_ms.mean()),
+                                "p99": float(np.percentile(decode_ms, 99))},
+        "decode_tokens_per_s": batch / float(decode_ms.mean()) * 1e3,
+        "wall_s": wall, "max_memory_allocated": peak, "launches": launches,
+        "logits_finite": finite, "logits_abs_max": float(first.float().abs().max()),
+        "tokens_head": toks[:, :8].tolist(),
+    }
+    emit(info)
+    if launches["flash_attention"] != cfg.n_layers:
+        problems.append(f"K6 launched {launches['flash_attention']} times in the prefill, "
+                        f"not once per layer ({cfg.n_layers})")
+    if toks.shape != (batch, gen_tokens) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        problems.append(f"tokens of shape {toks.shape} or outside the vocabulary")
+    if not finite:
+        problems.append("logits not finite")
+
+    # float32 at full width, f32_layers layers: K6 (prefill) against the plain
+    # decode path on the same card
+    cfg32 = dataclasses.replace(cfg, n_layers=f32_layers, dtype=torch.float32)
+    key = trandom.PRNGKey(0)
+    torch.cuda.reset_peak_memory_stats()
+    params = LM.init_params(cfg32, key, device=dev)
+    prompts = trandom.randint(key, (batch, prompt_len), 0, cfg.vocab, device=dev)
+    reset_launch_counts()
+    with torch.inference_mode():
+        want, _ = LM.prefill(params, prompts, cfg32, max_seq=prompt_len, device=dev)
+        _, cache = LM.prefill(params, prompts[:, :-1], cfg32, max_seq=prompt_len, device=dev)
+        pos = torch.full((batch,), prompt_len - 1, dtype=torch.int32, device=dev)
+        got, _ = LM.decode_step(params, cache, prompts[:, -1], pos, cfg32, device=dev)
+    torch.cuda.synchronize()
+    k6_f32 = launch_counts()["flash_attention"]
+    err = float((got - want).abs().max())
+    close = bool(torch.allclose(got, want, atol=2e-3, rtol=1e-3))
+    check = {"phase": "lm", "step": "float32 prefill against decode",
+             "layers": f32_layers, "d_model": cfg.d_model, "batch": batch,
+             "prompt_len": prompt_len, "max_abs_err": err,
+             "logits_abs_max": float(want.abs().max()), "within_atol_2e-3_rtol_1e-3": close,
+             "k6_launches": k6_f32, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit(check)
+    del params, cache, prompts
+    if not close or not math.isfinite(err):
+        problems.append(f"float32 prefill and decode logits differ by {err}")
+    if k6_f32 != 2 * f32_layers:
+        problems.append(f"K6 launched {k6_f32} times in two float32 prefills of "
+                        f"{f32_layers} layers")
+    if problems:
+        raise SystemExit("chip_smoke lm phase failed: " + "; ".join(problems))
+    return {"info": info, "f32_check": check, "launches": launches}
+
+
+def _visible_pairs(q_pos, kv_pos, causal, window) -> int:
+    """Visible (query, key) pairs per head, summed over the batch rows: for
+    each query, the keys with ``kv_pos >= 0`` and ``q − window < kv_pos <= q``
+    (as the masks say), counted on sorted key positions."""
+    import torch
+
+    total = 0
+    for qp, kp in zip(q_pos.long(), kv_pos.long()):
+        keys = torch.sort(kp[kp >= 0]).values
+        hi = torch.searchsorted(keys, qp, right=True) if causal else \
+            torch.full_like(qp, keys.numel())
+        lo = torch.searchsorted(keys, qp - window, right=True) if window is not None else \
+            torch.zeros_like(qp)
+        total += int((hi - lo).clamp(min=0).sum())
+    return total
+
+
+# K6's limits against its plain version.  float32: atol 2e-5, as the flash
+# sweep of tests/test_kernels.py.  bfloat16, where a flat atol would be as
+# large as a typical output of a long row: per (query, head) row, the
+# largest |got − want| over the row's largest |want| (two bf16 ulps of it;
+# one output rounding flipped is at most one), and mean |got − want| over
+# mean |want|.  The mean limit lies between what K6 reads on the H100
+# (about 1e-5) and what q and p left unrounded read (about 2e-3; PERF.md
+# §6).  Every check also shows that two planted faults fail the limits.
+K6_LIMITS = {"bfloat16": {"row_rel_err": 2**-6, "mean_rel_err": 2**-13},
+             "float32": {"max_abs_err": 2e-5}}
+
+
+def _k6_errs(got, want, hd: int) -> dict:
+    d = (got.float() - want.float()).abs().view(-1, hd)
+    w = want.float().abs().view(-1, hd)
+    return {"max_abs_err": float(d.max()),
+            "row_rel_err": float((d.amax(1) / w.amax(1).clamp(min=1e-30)).max()),
+            "mean_rel_err": float(d.mean() / w.mean())}
+
+
+def _within(errs: dict, limits: dict) -> bool:
+    return all(errs[k] <= v for k, v in limits.items())
+
+
+def check_k6(lm) -> list[dict]:
+    """K6 at the LM's shapes against ``flash_attention_ref`` on the same
+    card tensors (float32 products in full float32), within ``K6_LIMITS``.
+    The plain version runs over K6's 64-key tiles, so each row's running
+    max, and with it each p rounded to bf16, is K6's: over other tiles the
+    two would round p apart, as far apart as a p left unrounded.
+    Two planted faults, computed by the plain version on altered inputs,
+    must fail those limits: one kv tile in the middle dropped (its keys
+    masked), and, in bf16, q and p kept in float32 (the inputs upcast).
+    ``scaled_dot_product_attention`` is the yardstick: ``is_causal`` where
+    the mask is causal alone, else a boolean mask built from the positions
+    (every query row sees a key, so the sentinel decides nothing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_ref
+
+    _highest_f32()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [  # name, B, S, T, H, KV, dtype, window, padded keys
+        ("K6 flash_attention llama3-8b prefill (bf16, causal)", 4, 4096, 4096, 32, 8,
+         torch.bfloat16, None, 0),
+        ("K6 flash_attention qwen3-14b groups G=5 (bf16, causal)", 1, 4096, 4096, 40, 8,
+         torch.bfloat16, None, 0),
+        ("K6 flash_attention Mixtral window 4096 over 8192 (bf16)", 1, 8192, 8192, 32, 8,
+         torch.bfloat16, 4096, 0),
+        ("K6 flash_attention ragged, padded keys (f32, causal)", 2, 1000, 1100, 32, 8,
+         torch.float32, None, 37),
+    ]
+    rows = []
+    hd = 128
+    for name, B, S, T, H, KV, dt, window, pad in cases:
+        G = H // KV
+        q = torch.randn(B * KV, S, G * hd, device="cuda", generator=gen).to(dt)
+        k = torch.randn(B * KV, T, hd, device="cuda", generator=gen).to(dt)
+        v = torch.randn(B * KV, T, hd, device="cuda", generator=gen).to(dt)
+        qp = torch.arange(T - S, T, dtype=torch.int32, device="cuda").expand(B * KV, S).contiguous()
+        kp = torch.arange(T, dtype=torch.int32, device="cuda").expand(B * KV, T).contiguous()
+        if pad:  # the last keys are padding
+            kp[:, T - pad:] = -(2**30)
+        ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, qp, kp, causal=True,
+                                                      window=window), reps=10)
+        got = flash_attention_fwd(q, k, v, qp, kp, causal=True, window=window)
+        torch.cuda.synchronize()
+        out = {}
+
+        def plain(qq=q, kk=k, vv=v, kpos=kp):
+            return flash_attention_ref(qq, kk, vv, qp, kpos, causal=True, window=window,
+                                       block_q=1024, block_k=64)
+
+        plain_ms = cuda_time_ms(lambda: out.__setitem__("ref", plain()), reps=2)
+        dtn = str(dt).removeprefix("torch.")
+        limits = K6_LIMITS[dtn]
+        errs = _k6_errs(got, out["ref"], hd)
+        j0 = (T // 2) // 64 * 64
+        kp_drop = kp.clone()
+        kp_drop[:, j0:j0 + 64] = -1
+        faults = {f"kv tile {j0}..{j0 + 63} dropped": _k6_errs(got, plain(kpos=kp_drop), hd)}
+        if dt == torch.bfloat16:
+            faults["q and p kept in float32"] = _k6_errs(
+                got, plain(q.float(), k.float(), v.float()).to(dt), hd)
+        passed = [f for f, e in faults.items() if _within(e, limits)]
+        if passed:
+            raise SystemExit(f"chip_smoke: {name}: the limits {limits} do not see the "
+                             f"planted faults {passed}: {faults}")
+        ql = q.view(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, H, S, hd)
+        kl, vl = k.view(B, KV, T, hd), v.view(B, KV, T, hd)
+        if window is None and not pad and S == T:
+            library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True, enable_gqa=True), reps=10)
+        else:
+            library = ("scaled_dot_product_attention(attn_mask=(B, 1, S, T) bool from the "
+                       "positions, enable_gqa=True)")
+            dp = qp[::KV, :, None] - kp[::KV, None, :]
+            mask = (kp[::KV, None, :] >= 0) & (dp >= 0)
+            if window is not None:
+                mask &= dp < window
+            mask = mask[:, None]
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, enable_gqa=True), reps=10)
+            del mask, dp
+        pairs = _visible_pairs(qp[::KV], kp[::KV], True, window) * H
+        es = q.element_size()
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * es + 4 * (qp.numel() + kp.numel())
+        n_ops = 4 * hd * pairs  # q·k and p·v per visible pair
+        peak = BF16_TENSOR_OPS_PER_S if dt == torch.bfloat16 else SCALAR_OPS_PER_S
+        b, by = bound_ms(n_bytes, n_ops, peak)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/kernel.py:36",
+                     "launches": lm["launches"]["flash_attention"],
+                     "max_abs_err": errs["max_abs_err"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": lib_ms,
+                     "shape": {"B": B, "S": S, "T": T, "H": H, "KV": KV, "hd": hd,
+                               "dtype": dtn, "window": window, "padded_keys": pad,
+                               "errors": errs, "limits": limits, "planted_faults": faults,
+                               "visible_pairs_per_head": pairs // H,
+                               "flops": n_ops, "bytes": n_bytes,
+                               "tflops_per_s": n_ops / ms / 1e9,
+                               "plain": "flash_attention_ref(block_q=1024, block_k=64), "
+                                        "on the card, TF32 off",
+                               "library": library,
+                               "launches_on": "llama3-8b prefill (phase lm)"}})
+        del q, k, v, ql, got, out
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -997,19 +1290,21 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     dev = phase_device()
     build = phase_build()
+    results = {"device": dev, "build": build}
     main_run = phase_main(args.scale)
     compare = phase_compare(main_run)
     serve = phase_serve(args.products_scale)
-    summary, all_rows = phase_kernels(main_run, compare, serve)
-    serve_info = serve["info"]
+    lm = phase_lm()
+    summary, all_rows = phase_kernels(main_run, compare, serve, lm)
+    results.update(main=main_run["info"], compare=compare["rows"],
+                   pagerank=compare["pagerank"], serve=serve["info"])
     del serve
-    parity = phase_parity()
+    results["parity"] = phase_parity()
+    results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], kernels=all_rows,
+                   total_s=time.perf_counter() - t_start)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"device": dev, "build": build, "main": main_run["info"],
-                   "compare": compare["rows"], "pagerank": compare["pagerank"],
-                   "serve": serve_info, "kernels": all_rows, "parity": parity,
-                   "total_s": time.perf_counter() - t_start}, f, indent=1)
+        json.dump(results, f, indent=1)
     emit({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in summary]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

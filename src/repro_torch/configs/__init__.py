@@ -1,10 +1,11 @@
 """--arch registry of the port: the architectures ported so far
-(``gcn-cora``).  Any other name raises ``KeyError``, as an unknown name
-does in ``repro.configs``."""
-from . import gcn_cora
+(``gcn-cora`` and the dense LMs ``llama3-8b``, ``qwen2.5-14b``,
+``qwen3-14b``).  Any other name raises ``KeyError``, as an unknown name
+does in ``repro.configs``; the Mixtral configs wait for the MoE slice."""
+from . import gcn_cora, llama3_8b, qwen2_5_14b, qwen3_14b
 from .base import ArchSpec  # noqa: F401
 
-REGISTRY = {m.ARCH.name: m.ARCH for m in (gcn_cora,)}
+REGISTRY = {m.ARCH.name: m.ARCH for m in (qwen2_5_14b, llama3_8b, qwen3_14b, gcn_cora)}
 
 
 def get_arch(name: str) -> ArchSpec:

@@ -4,7 +4,7 @@ The port's "weights" are the states the reference computes: an Alg. 1
 ``ClusterState``, a ``CMSketch``, the game's ``GameInputs`` plus a start
 assignment, the ``c2p`` table with a load vector, and the scoring
 baselines' carries (Greedy, HDRF, grid), and model weights (the GCN's
-parameter tree).  Each function
+and the LM's parameter trees).  Each function
 takes the reference structure (or anything with the same fields, as
 numpy-convertible arrays) and returns the port's structure on ``device``,
 as fresh copies, so both sides can compute from one state.  Nothing here
@@ -22,7 +22,7 @@ from .core.cms import CMSketch
 from .core.game import GameInputs
 
 __all__ = ["cluster_state", "sketch", "game_inputs", "placement",
-           "greedy_carry", "hdrf_carry", "grid_carry", "gcn_params"]
+           "greedy_carry", "hdrf_carry", "grid_carry", "gcn_params", "lm_params"]
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -88,16 +88,30 @@ def grid_carry(carry, device=None):
             _tensor(col, torch.int32, dev), int(n_cols))
 
 
+def _leaf(w, dev) -> torch.Tensor:
+    """A reference float array as a float32 or bfloat16 tensor on ``dev``."""
+    w = np.asarray(w)
+    if w.dtype.name == "bfloat16":  # NumPy has no bfloat16: go through its bits
+        return torch.from_numpy(w.view(np.uint16).astype(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(w, np.float32)).to(dev)
+
+
 def gcn_params(params, device=None) -> dict:
     """The reference's GCN parameters ``{"layers": [{"w": (d_in, d_out)}]}``
     (arrays in the reference's float type, float32 or bfloat16)."""
     dev = resolve_device(device)
-    layers = []
-    for layer in params["layers"]:
-        w = np.asarray(layer["w"])
-        if w.dtype.name == "bfloat16":  # NumPy has no bfloat16: go through its bits
-            t = torch.from_numpy(w.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(w, np.float32))
-        layers.append({"w": t.to(dev)})
-    return {"layers": layers}
+    return {"layers": [{"w": _leaf(layer["w"], dev)} for layer in params["layers"]]}
+
+
+def lm_params(params, device=None) -> dict:
+    """The reference's LM parameter tree (nested dicts of arrays, stacked
+    (L, …) layer leaves, float32 or bfloat16) as the port's dict on
+    ``device``, key for key."""
+    dev = resolve_device(device)
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        return _leaf(tree, dev)
+
+    return convert(params)

@@ -30,6 +30,7 @@ SOURCES = {
     "scoring_scan": _PKG / "stream_scan" / "csrc" / "scoring_scan.cu",
     "cms_sketch": _PKG / "cms_sketch" / "csrc" / "cms_sketch.cu",
     "segment_agg": _PKG / "segment_agg" / "csrc" / "segment_agg.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

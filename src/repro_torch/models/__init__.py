@@ -1,5 +1,5 @@
 """Models of the port.  Ported so far: the shared primitives
-(``common``) and the GCN of ``gnn``; the LM, recsys, SchNet, EGNN and
-DimeNet models are not."""
+(``common``), the GCN of ``gnn``, and the dense LM (``lm``, with
+``attention``); the MoE block, recsys, SchNet, EGNN and DimeNet are not."""
 
-from . import common, gnn  # noqa: F401
+from . import attention, common, gnn, lm  # noqa: F401

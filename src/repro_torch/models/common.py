@@ -19,12 +19,18 @@ __all__ = ["dense_init", "rms_norm", "layer_norm", "swish", "gelu", "softmax_xen
 def dense_init(key, shape, scale: float | None = None, dtype=torch.float32,
                device=None) -> torch.Tensor:
     """Truncated-normal fan-in init on [−2, 2], times ``1/√fan_in`` unless
-    ``scale`` is given; on ``device`` (default ``cuda``)."""
+    ``scale`` is given; on ``device`` (default ``cuda``).
+
+    ``fan_in`` is ``shape[0]``, as in the reference: for the LM's stacked
+    (L, D, F) weights that is the layer count L, not D.  The draw is made
+    slice by slice straight into ``dtype`` on the device
+    (``truncated_normal(out=...)``), bitwise the whole draw's cast."""
     dev = resolve_device(device)
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = 1.0 / (fan_in ** 0.5)
-    return (jrandom.truncated_normal(key, -2.0, 2.0, tuple(shape), dev) * scale).to(dtype)
+    out = torch.empty(tuple(shape), dtype=dtype, device=dev)
+    return jrandom.truncated_normal(key, -2.0, 2.0, tuple(shape), dev, out=out, scale=scale)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -5,7 +5,11 @@ Covers ``PRNGKey``, ``fold_in``, ``split``, ``uniform``, ``randint``,
 the ``jax_threefry_partitionable=True`` mode (JAX 0.9's default), where
 element ``i`` of a draw of shape ``s`` is ``threefry2x32(key, (hi(i),
 lo(i)))`` of the flat index ``i`` — so any slice of a draw can be computed
-on its own.  The other mode is not ported.  ``normal`` and
+on its own: :func:`random_bits` takes a flat-index range ``[start, stop)``
+and :func:`truncated_normal` can fill a preallocated output slice by slice,
+bitwise equal to the whole draw (a draw of 10^9 elements would otherwise
+keep several int64 arrays of that size alive at once).  The other mode is
+not ported.  ``normal`` and
 ``truncated_normal`` draw JAX's uniform bits exactly but use PyTorch's
 erfinv (a few ulp from XLA's).
 
@@ -28,9 +32,10 @@ from ._fp32 import fma_f32
 
 __all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
            "bits_to_uniform", "uniform", "randint", "mul32", "normal",
-           "truncated_normal"]
+           "truncated_normal", "SLICE_ELEMS"]
 
 M32 = 0xFFFFFFFF
+SLICE_ELEMS = 1 << 26  # elements per slice of a draw filled into ``out``
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -80,17 +85,29 @@ def split(key, num: int = 2) -> list[tuple[int, int]]:
     return [threefry2x32(key[0], key[1], 0, j) for j in range(num)]
 
 
-def _counters(n: int, device):
-    if n >= 2**32:
-        raise NotImplementedError("draws of 2**32 elements or more")
-    return torch.arange(n, dtype=torch.int64, device=device)
+def _counters(start: int, stop: int, device):
+    if stop > 2**32:
+        raise NotImplementedError("draws of more than 2**32 elements")
+    return torch.arange(start, stop, dtype=torch.int64, device=device)
 
 
-def random_bits(key, shape, device="cpu") -> torch.Tensor:
-    """32 random bits per element of ``shape`` (uint32 values in int64)."""
+def random_bits(key, shape, device="cpu", start: int = 0,
+                stop: int | None = None) -> torch.Tensor:
+    """32 random bits per element of ``shape`` (uint32 values in int64).
+
+    With ``start``/``stop`` only the flat elements ``[start, stop)`` of
+    the draw are computed, as a 1-D tensor: element ``i`` depends on ``i``
+    alone, so the slice is bitwise the whole draw's ``reshape(-1)[start:stop]``.
+    """
     n = math.prod(shape)
-    y0, y1 = threefry2x32(key[0], key[1], 0, _counters(n, device))
-    return (y0 ^ y1).reshape(shape)
+    if start == 0 and stop is None:
+        y0, y1 = threefry2x32(key[0], key[1], 0, _counters(0, n, device))
+        return (y0 ^ y1).reshape(shape)
+    stop = n if stop is None else stop
+    if not 0 <= start <= stop <= n:
+        raise ValueError(f"range [{start}, {stop}) outside a draw of {n} elements")
+    y0, y1 = threefry2x32(key[0], key[1], 0, _counters(start, stop, device))
+    return y0 ^ y1
 
 
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
@@ -99,13 +116,15 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def uniform(key, shape, device="cpu", minval=0.0, maxval=1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, minval=, maxval=)`` (float32).
+def uniform(key, shape, device="cpu", minval=0.0, maxval=1.0, start: int = 0,
+            stop: int | None = None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` (float32), or
+    the flat elements ``[start, stop)`` of it (see :func:`random_bits`).
 
     JAX scales the [0, 1) draw as ``max(lo, f·(hi − lo) + lo)``, and XLA's
     CPU backend contracts that into an FMA; the port computes the FMA too,
     so the draw is bitwise equal on any range."""
-    floats = bits_to_uniform(random_bits(key, shape, device))
+    floats = bits_to_uniform(random_bits(key, shape, device, start, stop))
     if (minval, maxval) == (0.0, 1.0):
         return floats
     lo = torch.as_tensor(minval, dtype=torch.float32, device=floats.device)
@@ -126,18 +145,39 @@ def normal(key, shape, device="cpu") -> torch.Tensor:
     return _SQRT2 * torch.erfinv(uniform(key, shape, device, lo, 1.0))
 
 
-def truncated_normal(key, lower: float, upper: float, shape,
-                     device="cpu") -> torch.Tensor:
+def truncated_normal(key, lower: float, upper: float, shape, device="cpu", *,
+                     out: torch.Tensor | None = None, scale: float | None = None,
+                     slice_elems: int = SLICE_ELEMS) -> torch.Tensor:
     """``jax.random.truncated_normal(key, lower, upper, shape)`` (float32):
     a uniform draw over ``(erf(lower/√2), erf(upper/√2))``, then ``√2·erfinv``,
-    clipped into the open interval.  Same ulp caveat as :func:`normal`."""
+    clipped into the open interval.  Same ulp caveat as :func:`normal`.
+
+    With ``out`` (a contiguous tensor of ``shape``, any float type, on any
+    device) the draw is made ``slice_elems`` elements at a time, each
+    multiplied by ``scale`` in float32 if given and cast into ``out``:
+    bitwise ``(truncated_normal(...) * scale).to(out.dtype)``, without the
+    whole float32 draw or its int64 counters ever alive at once."""
+    if out is None:
+        return _truncated_normal_slice(key, lower, upper, shape, device, 0, None, scale)
+    if tuple(out.shape) != tuple(shape) or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous tensor of shape {tuple(shape)}")
+    flat = out.view(-1)
+    for a in range(0, flat.numel(), slice_elems):
+        b = min(a + slice_elems, flat.numel())
+        flat[a:b] = _truncated_normal_slice(key, lower, upper, shape, out.device, a, b, scale)
+    return out
+
+
+def _truncated_normal_slice(key, lower, upper, shape, device, start, stop, scale):
     lower32 = torch.tensor(lower, dtype=torch.float32)
     upper32 = torch.tensor(upper, dtype=torch.float32)
     a = torch.erf(lower32 / _SQRT2)
     b = torch.erf(upper32 / _SQRT2)
-    out = _SQRT2 * torch.erfinv(uniform(key, shape, device, a.to(device), b.to(device)))
-    return out.clamp(float(np.nextafter(np.float32(lower), np.float32(np.inf))),
-                     float(np.nextafter(np.float32(upper), np.float32(-np.inf))))
+    u = uniform(key, shape, device, a.to(device), b.to(device), start, stop)
+    out = (_SQRT2 * torch.erfinv(u)).clamp(
+        float(np.nextafter(np.float32(lower), np.float32(np.inf))),
+        float(np.nextafter(np.float32(upper), np.float32(-np.inf))))
+    return out if scale is None else out * scale
 
 
 def randint(key, shape, minval: int, maxval: int, device="cpu") -> torch.Tensor:

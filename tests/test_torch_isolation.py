@@ -24,7 +24,10 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.core.s5p" in mods and "repro_torch.launch.partition" in mods
     assert {"repro_torch.serving.server", "repro_torch.models.gnn",
             "repro_torch.kernels.segment_agg.ops", "repro_torch.graphs.datasets",
-            "repro_torch.configs.gcn_cora"} <= set(mods)
+            "repro_torch.configs.gcn_cora", "repro_torch.models.lm",
+            "repro_torch.models.attention", "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.kernel", "repro_torch.launch.serve",
+            "repro_torch.configs.llama3_8b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -55,7 +58,13 @@ def _entry_points():
     from repro_torch.models.gnn import GCNConfig, gcn_forward, gcn_init
     from repro_torch.serving import build_bundle
 
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import lm
+
     cfg = GCNConfig(n_layers=2, d_hidden=2, d_feat=2, n_classes=2)
+    lm_cfg = get_arch("llama3-8b").smoke_config
+    lm_params = {"embed": torch.ones(lm_cfg.vocab, lm_cfg.d_model)}
     params = {"layers": [{"w": torch.ones(2, 2)}, {"w": torch.ones(2, 2)}]}
     return {
         "build_bundle": lambda: build_bundle(1, src, dst, z, 3, 2),
@@ -68,12 +77,16 @@ def _entry_points():
         "assign_edges_stream": lambda: assign_edges_stream(
             src, dst, z.astype(bool), z, z, torch.zeros(1, dtype=torch.int32), 2, 2),
         "cli": lambda: run("toy", 2),
+        "init_params": lambda: lm.init_params(lm_cfg, (0, 0)),
+        "prefill": lambda: lm.prefill(lm_params, np.zeros((1, 4), np.int32), lm_cfg, 8),
+        "serve_lm": lambda: serve_lm("llama3-8b"),
     }
 
 
 @pytest.mark.parametrize("name", ["s5p_partition", "cluster_stream",
                                   "assign_edges_stream", "cli", "build_bundle",
-                                  "gcn_init", "gcn_forward", "segment_aggregate"])
+                                  "gcn_init", "gcn_forward", "segment_aggregate",
+                                  "init_params", "prefill", "serve_lm"])
 def test_entry_points_need_a_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

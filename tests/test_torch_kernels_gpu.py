@@ -1,5 +1,6 @@
 """K1, K2, K3, G1, K4a, K4b and K5 on the card against their plain PyTorch
-versions (bitwise), and the GCN on cuda against cpu.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
+versions (bitwise), K6 against its plain version within a stated tolerance,
+and the GCN and the LM on cuda against cpu.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -263,3 +264,116 @@ def test_gcn_forward_cuda_equals_cpu(cuda, masked):
     torch.cuda.synchronize()
     assert launch_counts()["segment_agg"] == before + 6
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def _k6_inputs(BK, S, T, G, hd, dtype, seed, *, rolling=False, pad_keys=0):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((BK, S, G * hd), np.float32)).to(dtype)
+    k = torch.from_numpy(rng.standard_normal((BK, T, hd), np.float32)).to(dtype)
+    v = torch.from_numpy(rng.standard_normal((BK, T, hd), np.float32)).to(dtype)
+    qp = np.broadcast_to(np.arange(T - S, T, dtype=np.int32), (BK, S)).copy()
+    kp = np.broadcast_to(np.arange(T, dtype=np.int32), (BK, T)).copy()
+    if rolling:  # a rolled cache: slots hold positions out of order
+        kp = np.roll(kp, 37, axis=1)
+    if pad_keys:  # the first keys of every row are padding (never a query's only key)
+        kp[:, :pad_keys] = -(2**30)
+    return q, k, v, torch.from_numpy(qp), torch.from_numpy(kp)
+
+
+@pytest.fixture
+def highest_f32():
+    """The plain version's float32 products in full float32 (no TF32)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev[0]
+    torch.set_float32_matmul_precision(prev[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("G,window,causal,case", [
+    (4, None, True, "plain"), (5, None, True, "plain"), (1, 64, True, "plain"),
+    (2, None, True, "ragged"), (3, 48, True, "rolling"), (2, 40, False, "padded"),
+])
+def test_k6_flash_attention(cuda, highest_f32, dtype, hd, G, window, causal, case):
+    """K6 against ``flash_attention_ref`` on the same card tensors: atol 2e-5
+    in float32 and 2e-2 in bfloat16 (tests/test_kernels.py's flash sweep):
+    the kernel sums in another order and takes ``__expf``."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_ref, launch_counts)
+
+    S, T = {"ragged": (77, 141)}.get(case, (192, 192))
+    q, k, v, qp, kp = _k6_inputs(3, S, T, G, hd, dtype, seed=hd + G,
+                                 rolling=case == "rolling",
+                                 pad_keys=5 if case == "padded" else 0)
+    args = [t.to(cuda) for t in (q, k, v, qp, kp)]
+    before = launch_counts()["flash_attention"]
+    got = flash_attention_fwd(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    want = flash_attention_ref(*args, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_k6_model_layout_and_refusals(cuda, highest_f32):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_fwd
+
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 100, 8, 64), np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 100, 2, 64), np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 100, 2, 64), np.float32))
+    pos = torch.arange(100, dtype=torch.int32).expand(2, 100)
+    want = flash_attention(q, k, v, pos, pos, causal=True, window=None)
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), pos.to(cuda), pos.to(cuda),
+                          causal=True, window=None)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-5)
+    small = [t.to(cuda) for t in _k6_inputs(1, 8, 8, 1, 8, torch.float32, 0)]
+    with pytest.raises(ValueError, match="d_head"):
+        flash_attention_fwd(*small)
+    half = [t.to(cuda) for t in _k6_inputs(1, 8, 8, 1, 16, torch.float16, 0)]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_fwd(*half)
+    x = torch.ones(1, 16, 32, device=cuda, requires_grad=True)
+    p16 = torch.arange(16, dtype=torch.int32, device=cuda)[None]
+    out = flash_attention_fwd(x, x.detach(), x.detach(), p16, p16)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-14b", "qwen3-14b"])
+def test_lm_prefill_and_decode_cuda_equal_cpu(cuda, highest_f32, arch):
+    """The smoke configs in float32: prefill through K6 (one launch per
+    layer) and decode on cuda against cpu, atol 2e-3, rtol 1e-3 (the
+    reference's decode-against-forward tolerance)."""
+    import dataclasses
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import launch_counts
+    from repro_torch.models import lm as LM
+
+    cfg = dataclasses.replace(get_arch(arch).smoke_config, dtype=torch.float32)
+    params = LM.init_params(cfg, trandom.PRNGKey(0), device="cpu")
+    toks = trandom.randint(trandom.PRNGKey(1), (2, 40), 0, cfg.vocab)
+    want, cache = LM.prefill(params, toks, cfg, max_seq=48, device="cpu")
+    gparams = _to(params, cuda)
+    before = launch_counts()["flash_attention"]
+    got, gcache = LM.prefill(gparams, toks.to(cuda), cfg, max_seq=48, device=cuda)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=2e-3)
+    nxt = torch.argmax(want, -1).to(torch.int32)
+    pos = torch.full((2,), 40, dtype=torch.int32)
+    want2, _ = LM.decode_step(params, cache, nxt, pos, cfg, device="cpu")
+    got2, _ = LM.decode_step(gparams, gcache, nxt.to(cuda), pos.to(cuda), cfg, device=cuda)
+    torch.testing.assert_close(got2.cpu(), want2, rtol=1e-3, atol=2e-3)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
