@@ -71,11 +71,30 @@ Phases, each printing one JSON line:
               that a dropped kv tile and q, p left in float32 fail those
               limits, and times ``scaled_dot_product_attention`` beside it
               (a boolean mask from the positions where not causal alone);
-8. parity   — every partitioner on ``community_graph(2000, 32, 8,
+8. recsys   — the recsys serving path at xDeepFM's published config (39
+              fields, embed 10, CIN 200-200-200, MLP 400-400, float32,
+              50,453,809 parameters, seed 0): ``serve_recsys`` (init and the
+              first ``serve_p99`` request), 16 more requests of 512 samples
+              (ids drawn from ``PRNGKey(r)`` as the reference draws them), 2
+              ``serve_bulk`` requests of 262,144 samples and a retrieval of
+              1 query against 1,000,000 candidates (top 100, twice: the
+              first call pays the first use of its kernels), each ending in
+              a copy to the host, with the launch counters set to 0 just
+              before and read just after: init seconds, latency mean and
+              p99, samples/s, peak memory, K7 launched exactly 3 times per
+              forward; the last p99 request and the first 1,024 rows of the
+              last bulk request again on the CPU forward: logits within rtol
+              1e-4, atol 1e-6 and each CIN layer's pools within 1e-5 of its
+              max (the logits cannot see a K7 that drops a term).  Phase
+              ``kernels`` then holds K7 against ``cin_layer_ref`` at layer
+              1's and layer 2's shapes (B = 512, float32 and bf16) and a
+              ragged B = 1,000, within ``K7_LIMITS``, shows that a dropped h
+              slice fails them, and times one ``torch.einsum`` beside it;
+9. parity   — every partitioner on ``community_graph(2000, 32, 8,
               seed=5)``, k = 8, on ``cuda`` and on ``cpu``: the parts must be
               identical.
 
-The kernel checks of phase 6 run after phase 7.
+The kernel checks of phase 6 run after phases 7 and 8.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -163,12 +182,13 @@ def max_abs_err(a, b) -> int:
 
 
 def _kernel_modules():
+    from repro_torch.kernels.cin import kernel as cin_k
     from repro_torch.kernels.cms_sketch import kernel as cms_k
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.segment_agg import kernel as seg_k
     from repro_torch.kernels.stream_scan import kernel as scan_k
 
-    return scan_k, cms_k, seg_k, fa_k
+    return scan_k, cms_k, seg_k, fa_k, cin_k
 
 
 def launch_counts() -> dict:
@@ -747,17 +767,18 @@ def check_k3_g1(main, compare) -> list[dict]:
     return rows
 
 
-def phase_kernels(main, compare, serve, lm) -> list[dict]:
+def phase_kernels(main, compare, serve, lm, recsys) -> list[dict]:
     k1 = check_k1(main)
     k2 = [check_k2(main, k) for k in (8, 32, 256)]
     cms = check_cms(main)
     k3_g1 = check_k3_g1(main, compare)
     k5 = check_k5(serve)
     k6 = check_k6(lm)
-    rows = [k1, *k2, *cms, *k3_g1, *k5, *k6]
+    k7 = check_k7(recsys)
+    rows = [k1, *k2, *cms, *k3_g1, *k5, *k6, *k7]
     _check_rows(rows)
     main_k2 = next(r for r in k2 if r["shape"]["k"] == main["cfg"].k)
-    return [k1, main_k2, *cms, *k3_g1, *k5, k6[0]], rows
+    return [k1, main_k2, *cms, *k3_g1, *k5, k6[0], k7[1]], rows
 
 
 def _check_rows(rows) -> None:
@@ -1272,6 +1293,269 @@ def check_k6(lm) -> list[dict]:
     return rows
 
 
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [tree]
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _pool_errs(got: list, want: list) -> list:
+    """Each CIN layer's max |got − want| over the layer's max |want|."""
+    return [float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+
+
+XDEEPFM_PARAMS = 50_453_809
+
+
+def phase_recsys(p99_requests: int = 16, bulk_batch: int = 262_144, bulk_requests: int = 2,
+                 n_candidates: int = 1_000_000, cpu_rows: int = 1024) -> dict:
+    """The recsys serving path at xDeepFM's published config: ``serve_recsys``
+    (the first ``serve_p99`` request), ``p99_requests`` more of 512 samples,
+    ``bulk_requests`` of ``bulk_batch``, one retrieval of 1 query against
+    ``n_candidates``; then the last p99 request and the first ``cpu_rows``
+    rows of the last bulk request again on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import recsys_ids, serve_recsys
+    from repro_torch.models import recsys as R
+
+    _highest_f32()
+    arch = "xdeepfm"
+    cfg = get_arch(arch).config
+    dev = torch.device("cuda")
+    problems = []
+
+    def request(ids):
+        """One request: the forward and a copy of the scores to the host."""
+        pools = []
+        torch.cuda.synchronize()
+        c0 = launch_counts()["cin"]
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            host = R.xdeepfm_forward(params, ids, cfg, pools=pools).cpu()
+        return time.perf_counter() - t0, host, pools, launch_counts()["cin"] - c0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    serve_recsys(arch, batch=512, smoke=False, seed=0, device=dev, stats=stats)
+    first_scores = stats["scores"].cpu()
+    first_s = time.perf_counter() - t0
+    params = stats["params"]
+    n_params = sum(t.numel() for t in _tree_leaves(params))
+    per_forward = [launch_counts()["cin"]]
+    finite = bool(torch.isfinite(first_scores).all())
+
+    p99_s = []
+    for r in range(1, p99_requests + 1):
+        ids = recsys_ids(trandom.PRNGKey(r), cfg, 512, dev)
+        s, host, pools, k7 = request(ids)
+        p99_s.append(s)
+        per_forward.append(k7)
+        finite &= bool(torch.isfinite(host).all())
+    p99_check = (ids, host, pools)
+
+    bulk_s = []
+    for r in range(bulk_requests):
+        ids = recsys_ids(trandom.PRNGKey(p99_requests + 1 + r), cfg, bulk_batch, dev)
+        s, host, pools, k7 = request(ids)
+        bulk_s.append(s)
+        per_forward.append(k7)
+        finite &= bool(torch.isfinite(host).all()) and host.shape == (bulk_batch,)
+    bulk_check = (ids[:cpu_rows], host[:cpu_rows], [p[:cpu_rows] for p in pools])
+    del pools
+
+    query = recsys_ids(trandom.PRNGKey(p99_requests + bulk_requests + 1), cfg, 1, dev)
+    cand = trandom.normal(trandom.PRNGKey(p99_requests + bulk_requests + 2),
+                          (n_candidates, cfg.embed_dim), dev)
+    retrieval_s = []  # the first call pays the first use of its kernels
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            top_v, top_i = R.retrieval_scores(params, query, cand, cfg, top_k=100)
+            top_v, top_i = top_v.cpu(), top_i.cpu()
+        retrieval_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same requests on the CPU forward, same parameters and ids
+    cpu_params = _tree_to(params, "cpu")
+    checks = {}
+    for name, (ids, got, got_pools) in (("serve_p99 last request", p99_check),
+                                        (f"serve_bulk first {cpu_rows} rows", bulk_check)):
+        want_pools = []
+        t0 = time.perf_counter()
+        want = R.xdeepfm_forward(cpu_params, ids.cpu(), cfg, pools=want_pools)
+        checks[name] = {
+            "rows": int(want.shape[0]), "cpu_forward_s": time.perf_counter() - t0,
+            "logits_max_abs_err": float((got - want).abs().max()),
+            "logits_abs_max": float(want.abs().max()),
+            "logits_within_rtol_1e-4_atol_1e-6": bool(torch.allclose(got, want, rtol=1e-4,
+                                                                     atol=1e-6)),
+            "pool_rel_errs": _pool_errs(got_pools, want_pools),
+            "pool_abs_max": [float(w.abs().max()) for w in want_pools]}
+    # every candidate scored on the CPU: the card's top 100 must carry the
+    # CPU's top values, in order (a near-tie may swap two indices)
+    all_v, all_i = R.retrieval_scores(cpu_params, query.cpu(), cand.cpu(), cfg,
+                                      top_k=n_candidates)
+    cpu_score = torch.empty(n_candidates)
+    cpu_score[all_i[0].long()] = all_v[0]
+    want_v = all_v[0, :100]
+    retrieval_ok = bool(torch.allclose(top_v[0], want_v, rtol=1e-4, atol=1e-6)
+                        and torch.allclose(cpu_score[top_i[0].long()], want_v, rtol=1e-4,
+                                           atol=1e-6)
+                        and (top_v[0].diff() <= 0).all())
+
+    p99_ms = np.asarray(p99_s) * 1e3
+    info = {
+        "phase": "recsys", "arch": arch, "params": n_params, "dtype": str(cfg.dtype),
+        "seed": 0, "n_fields": cfg.n_fields, "embed_dim": cfg.embed_dim,
+        "cin_layers": list(cfg.cin_layers), "mlp_dims": list(cfg.mlp_dims),
+        "embedding_rows": sum(cfg.vocabs()),
+        "init_s": stats["init_s"], "init_peak_bytes": stats["init_peak_bytes"],
+        "first_request_s": first_s, "first_forward_s": stats["forward_s"],
+        "serve_p99": {"batch": 512, "requests": p99_requests,
+                      "latency_ms": {"mean": float(p99_ms.mean()),
+                                     "p99": float(np.percentile(p99_ms, 99)),
+                                     "min": float(p99_ms.min())}},
+        "serve_bulk": {"batch": bulk_batch, "requests": bulk_requests, "seconds": bulk_s,
+                       "samples_per_s": [bulk_batch / s for s in bulk_s]},
+        "retrieval": {"queries": 1, "candidates": n_candidates, "top_k": 100,
+                      "latency_ms": retrieval_s[1] * 1e3,
+                      "first_call_ms": retrieval_s[0] * 1e3, "matches_cpu": retrieval_ok},
+        "k7_per_forward": per_forward, "launches": launches,
+        "max_memory_allocated": peak, "logits_finite": finite, "cpu_checks": checks,
+    }
+    emit(info)
+    n_forwards = 1 + p99_requests + bulk_requests
+    if n_params != XDEEPFM_PARAMS:
+        problems.append(f"{n_params} parameters, not {XDEEPFM_PARAMS}")
+    if any(k != len(cfg.cin_layers) for k in per_forward) or \
+            launches["cin"] != len(cfg.cin_layers) * n_forwards:
+        problems.append(f"K7 launched {per_forward} times per forward ({launches['cin']} in "
+                        f"all), not {len(cfg.cin_layers)} per forward")
+    if not finite:
+        problems.append("logits not finite")
+    for name, c in checks.items():
+        if not c["logits_within_rtol_1e-4_atol_1e-6"]:
+            problems.append(f"{name}: logits differ from the CPU beyond rtol 1e-4, atol 1e-6")
+        if not all(e <= 1e-5 for e in c["pool_rel_errs"]):
+            problems.append(f"{name}: CIN pools differ from the CPU by {c['pool_rel_errs']} "
+                            "of their max, above 1e-5")
+    if not retrieval_ok:
+        problems.append("retrieval top 100 differs from the CPU")
+    if problems:
+        raise SystemExit("chip_smoke recsys phase failed: " + "; ".join(problems))
+    return {"info": info, "launches": launches}
+
+
+# K7's limits against its plain version.  float32: max |Δ| over max |want|
+# (the reference's jnp CIN, the Pallas kernel and the plain version agree
+# to ~6e-7 of it at the published shapes).  bfloat16: per element
+# |Δ| ≤ 2^-7·|want| + 2^-15·max |want| (one output rounding, and the
+# float32 sums' disagreement near zero), as the ratio ``elem_ratio`` ≤ 1;
+# and mean |Δ| over mean |want| ≤ 2^-16, about 10× what K7 read at layer
+# 2's shape on an NVIDIA H100 80GB HBM3 at 700 W (1.42e-6) and 1/3,700 of
+# a dropped h slice (0.056; PERF.md §6).
+K7_LIMITS = {"float32": {"rel_err": 1e-5},
+             "bfloat16": {"elem_ratio": 1.0, "mean_rel_err": 2**-16}}
+
+
+def _k7_errs(got, want) -> dict:
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    top = w.max()
+    return {"max_abs_err": float(d.max()), "rel_err": float(d.max() / top),
+            "elem_ratio": float((d / (2**-7 * w + 2**-15 * top)).max()),
+            "mean_rel_err": float(d.mean() / w.mean())}
+
+
+def check_k7(recsys) -> list[dict]:
+    """K7 at the recsys path's shapes against ``cin_layer_ref`` on the same
+    card tensors (float32 products in full float32), within ``K7_LIMITS``.
+    A planted fault, the plain version with one h slice of ``xk`` zeroed,
+    must fail those limits.  The yardstick is one ``torch.einsum`` of the
+    same function with TF32 off."""
+    import torch
+
+    from repro_torch.kernels.cin import cin_layer, cin_layer_ref
+
+    _highest_f32()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [  # name, B, Hk, dtype: m = 39, H' = 200, D = 10 (the published widths)
+        ("K7 cin serve_p99 layer 1 (B=512, f32)", 512, 39, torch.float32),
+        ("K7 cin serve_p99 layer 2 (B=512, f32)", 512, 200, torch.float32),
+        ("K7 cin serve_p99 layer 2 (B=512, bf16)", 512, 200, torch.bfloat16),
+        ("K7 cin ragged layer 2 (B=1000, f32)", 1000, 200, torch.float32),
+    ]
+    m, Hn, D = 39, 200, 10
+    rows = []
+    for name, B, Hk, dt in cases:
+        # the model's scales: embeddings 0.01, layer-1 outputs ~5e-4, w 0.1
+        x0 = (0.01 * torch.randn(B, m, D, device="cuda", generator=gen)).to(dt)
+        xk = x0 if Hk == m else \
+            (5e-4 * torch.randn(B, Hk, D, device="cuda", generator=gen)).to(dt)
+        w = (0.1 * torch.randn(Hk * m, Hn, device="cuda", generator=gen)).to(dt)
+        ms = cuda_time_ms(lambda: cin_layer(xk, x0, w), reps=10)
+        got = cin_layer(xk, x0, w)
+        torch.cuda.synchronize()
+        out = {}
+        plain_ms = cuda_time_ms(lambda: out.__setitem__("ref", cin_layer_ref(xk, x0, w)),
+                                reps=3)
+        dtn = str(dt).removeprefix("torch.")
+        limits = K7_LIMITS[dtn]
+        errs = _k7_errs(got, out["ref"])
+        h_drop = Hk // 2
+        xk_drop = xk.clone()
+        xk_drop[:, h_drop] = 0
+        fault = _k7_errs(got, cin_layer_ref(xk_drop, x0, w))
+        if _within(fault, limits):
+            raise SystemExit(f"chip_smoke: {name}: the limits {limits} do not see the "
+                             f"planted fault (h = {h_drop} dropped): {fault}")
+        w3 = w.view(Hk, m, Hn)
+        lib_ms = cuda_time_ms(lambda: torch.einsum("bhd,bmd,hmn->bnd", xk, x0, w3), reps=10)
+        n_ops = 2 * B * D * Hk * m * Hn
+        n_bytes = (xk.numel() + x0.numel() + w.numel() + B * Hn * D) * xk.element_size()
+        b, by = bound_ms(n_bytes, n_ops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/cin/csrc/cin.cu",
+                     "replaces": "src/repro/kernels/cin/kernel.py:39",
+                     "launches": recsys["launches"]["cin"],
+                     "max_abs_err": errs["max_abs_err"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": lib_ms,
+                     "shape": {"B": B, "Hk": Hk, "m": m, "H'": Hn, "D": D, "dtype": dtn,
+                               "errors": errs, "limits": limits,
+                               "planted_faults": {f"h = {h_drop} dropped": fault},
+                               "flops": n_ops, "bytes": n_bytes,
+                               "tflops_per_s": n_ops / ms / 1e9,
+                               "plain": "cin_layer_ref on the card, TF32 off",
+                               "library": "torch.einsum('bhd,bmd,hmn->bnd'), TF32 off, "
+                                          "opt_einsum "
+                                          + ("on" if torch.backends.opt_einsum.enabled
+                                             else "off"),
+                               "launches_on": "xDeepFM serving (phase recsys)"}})
+        del x0, xk, w, got, out, xk_drop
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -1295,13 +1579,14 @@ def main(argv=None) -> int:
     compare = phase_compare(main_run)
     serve = phase_serve(args.products_scale)
     lm = phase_lm()
-    summary, all_rows = phase_kernels(main_run, compare, serve, lm)
+    recsys = phase_recsys()
+    summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys)
     results.update(main=main_run["info"], compare=compare["rows"],
                    pagerank=compare["pagerank"], serve=serve["info"])
     del serve
     results["parity"] = phase_parity()
-    results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], kernels=all_rows,
-                   total_s=time.perf_counter() - t_start)
+    results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], recsys=recsys["info"],
+                   kernels=all_rows, total_s=time.perf_counter() - t_start)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)

@@ -39,14 +39,16 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _summary(prof, wall: float) -> dict:
+def _summary(prof, wall: float, group=_group) -> dict:
+    """Busy share, device time by ``group(kernel name)``, top kernels and
+    host operators of one profiled window of ``wall`` seconds."""
     events = prof.key_averages()
     kernels = [e for e in events if _dev_us(e) > 0 and e.device_type is not None
                and "cuda" in str(e.device_type).lower()]
     busy_us = sum(_dev_us(e) for e in kernels)
     groups: dict[str, float] = {}
     for e in kernels:
-        groups[_group(e.key)] = groups.get(_group(e.key), 0.0) + _dev_us(e) / 1e6
+        groups[group(e.key)] = groups.get(group(e.key), 0.0) + _dev_us(e) / 1e6
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
     ops = sorted((e for e in events if e not in kernels),
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:12]

@@ -3,8 +3,8 @@
 The port's "weights" are the states the reference computes: an Alg. 1
 ``ClusterState``, a ``CMSketch``, the game's ``GameInputs`` plus a start
 assignment, the ``c2p`` table with a load vector, and the scoring
-baselines' carries (Greedy, HDRF, grid), and model weights (the GCN's
-and the LM's parameter trees).  Each function
+baselines' carries (Greedy, HDRF, grid), and model weights (the GCN's,
+the LM's and xDeepFM's parameter trees).  Each function
 takes the reference structure (or anything with the same fields, as
 numpy-convertible arrays) and returns the port's structure on ``device``,
 as fresh copies, so both sides can compute from one state.  Nothing here
@@ -22,7 +22,8 @@ from .core.cms import CMSketch
 from .core.game import GameInputs
 
 __all__ = ["cluster_state", "sketch", "game_inputs", "placement",
-           "greedy_carry", "hdrf_carry", "grid_carry", "gcn_params", "lm_params"]
+           "greedy_carry", "hdrf_carry", "grid_carry", "gcn_params", "lm_params",
+           "xdeepfm_params"]
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -115,3 +116,20 @@ def lm_params(params, device=None) -> dict:
         return _leaf(tree, dev)
 
     return convert(params)
+
+
+def xdeepfm_params(params, device=None) -> dict:
+    """The reference's xDeepFM tree (``tables``, ``lin_tables``, ``cin``:
+    lists of arrays; ``mlp``: a list of ``{"w", "b"}``; ``cin_out``,
+    ``mlp_out``, ``bias``) as the port's on ``device``, leaf for leaf."""
+    dev = resolve_device(device)
+    return {
+        "tables": [_leaf(t, dev) for t in params["tables"]],
+        "lin_tables": [_leaf(t, dev) for t in params["lin_tables"]],
+        "cin": [_leaf(w, dev) for w in params["cin"]],
+        "cin_out": _leaf(params["cin_out"], dev),
+        "mlp": [{"w": _leaf(layer["w"], dev), "b": _leaf(layer["b"], dev)}
+                for layer in params["mlp"]],
+        "mlp_out": _leaf(params["mlp_out"], dev),
+        "bias": _leaf(params["bias"], dev),
+    }

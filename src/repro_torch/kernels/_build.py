@@ -31,6 +31,7 @@ SOURCES = {
     "cms_sketch": _PKG / "cms_sketch" / "csrc" / "cms_sketch.cu",
     "segment_agg": _PKG / "segment_agg" / "csrc" / "segment_agg.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "cin": _PKG / "cin" / "csrc" / "cin.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

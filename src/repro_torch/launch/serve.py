@@ -1,15 +1,19 @@
-"""Serving entry point of the port: batched greedy decoding of a dense LM.
+"""Serving entry point of the port: batched greedy decoding of a dense LM,
+and batched scoring of the recsys model.
 
   python -m repro_torch.launch.serve --arch llama3-8b --tokens 16 --device cpu
   python -m repro_torch.launch.serve --arch llama3-8b --full --batch 4 --prompt-len 4096 --tokens 32
+  python -m repro_torch.launch.serve --arch xdeepfm --device cpu
+  python -m repro_torch.launch.serve --arch xdeepfm --full --batch 512
 
 ``serve_lm`` draws the parameters and the prompts from one key, runs
 ``prefill`` over the prompts (K6 in every layer on the card) and then one
-``decode_step`` per generated token, and prints the reference's line
+``decode_step`` per generated token.  ``serve_recsys`` draws xDeepFM's
+parameters and one id column per field from one key and scores them
+(K7 in every CIN layer on the card).  Both print the reference's line
 (``repro.launch.serve``).  The smoke config runs unless ``--full`` asks for
 the published one.  Runs on ``cuda`` unless ``--device`` names another
-device.  ``serve_recsys`` waits for the recsys slice (xDeepFM, K7) and
-``--graph`` for the incremental slice (``S5PWindowChain``).
+device.  ``--graph`` waits for the incremental slice (``S5PWindowChain``).
 """
 
 from __future__ import annotations
@@ -23,10 +27,9 @@ from .. import random as jrandom
 from .._device import resolve_device
 from ..configs import get_arch
 from ..models import lm as LM
+from ..models import recsys as R
 
-__all__ = ["serve_lm", "serve_recsys", "serve_graph", "main"]
-
-_RECSYS = ("xdeepfm",)
+__all__ = ["serve_lm", "serve_recsys", "recsys_ids", "serve_graph", "main"]
 
 
 def _sync(dev) -> None:
@@ -89,9 +92,50 @@ def serve_lm(arch: str, prompt_len: int = 32, gen_tokens: int = 16, batch: int =
     return seqs
 
 
-def serve_recsys(arch: str = "xdeepfm", batch: int = 64, smoke: bool = True, seed: int = 0):
-    raise NotImplementedError("serve_recsys (xDeepFM with the CIN kernel K7) is ported "
-                              "with the recsys serving slice")
+def recsys_ids(key, cfg: R.XDeepFMConfig, batch: int, device) -> torch.Tensor:
+    """(batch, n_fields) int32 ids as the reference draws a request: field
+    ``f`` is ``randint(fold_in(key, f), (batch,), 0, vocab_f)``."""
+    cols = [jrandom.randint(jrandom.fold_in(key, f), (batch,), 0, v, device=device)
+            for f, v in enumerate(cfg.vocabs())]
+    return torch.stack(cols, dim=1)
+
+
+def serve_recsys(arch: str = "xdeepfm", batch: int = 64, smoke: bool = True, seed: int = 0,
+                 device=None, stats: dict | None = None) -> torch.Tensor:
+    """Score one request of ``batch`` samples; returns the (batch,) logits.
+    Parameters and ids come from ``PRNGKey(seed)`` as in the reference.
+
+    With a ``stats`` dict the run also records, on the host clock around
+    work that ends in a device synchronise: ``init_s`` (parameters and
+    ids), ``forward_s``, the ``scores``, the ``params`` and ``ids`` it
+    drew, each CIN layer's ``pools`` and, on the card, the peak device
+    memory after the parameters are drawn (``init_peak_bytes``) and after
+    the forward (``peak_bytes``)."""
+    dev = resolve_device(device)
+    spec = get_arch(arch)
+    cfg = spec.smoke_config if smoke else spec.config
+    key = jrandom.PRNGKey(seed)
+    timed = stats is not None
+    t0 = time.perf_counter()
+    params = R.xdeepfm_init(cfg, key, device=dev)
+    ids = recsys_ids(key, cfg, batch, dev)
+    if timed:
+        _sync(dev)
+        stats["init_s"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            stats["init_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    pools = [] if timed else None
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        scores = R.xdeepfm_forward(params, ids, cfg, pools=pools)
+        _sync(dev)
+    dt = time.perf_counter() - t0
+    if timed:
+        stats.update(forward_s=dt, scores=scores, params=params, ids=ids, pools=pools)
+        if dev.type == "cuda":
+            stats["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(f"[serve] {arch}: scored {batch} in {dt * 1e3:.1f} ms")
+    return scores
 
 
 def serve_graph(graph: str = "block-rmat", **kwargs):
@@ -114,8 +158,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.graph is not None:
         serve_graph(args.graph)
-    elif args.arch in _RECSYS:
-        serve_recsys(args.arch, batch=args.batch)
+    elif get_arch(args.arch).family == "recsys":
+        serve_recsys(args.arch, batch=args.batch, smoke=not args.full, seed=args.seed,
+                     device=args.device)
     else:
         serve_lm(args.arch, prompt_len=args.prompt_len, gen_tokens=args.tokens,
                  batch=args.batch, smoke=not args.full, seed=args.seed,

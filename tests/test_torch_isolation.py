@@ -27,7 +27,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.configs.gcn_cora", "repro_torch.models.lm",
             "repro_torch.models.attention", "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.flash_attention.kernel", "repro_torch.launch.serve",
-            "repro_torch.configs.llama3_8b"} <= set(mods)
+            "repro_torch.configs.llama3_8b", "repro_torch.models.recsys",
+            "repro_torch.kernels.cin.kernel", "repro_torch.kernels.cin.ops",
+            "repro_torch.kernels.cin.ref", "repro_torch.configs.xdeepfm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -59,8 +61,9 @@ def _entry_points():
     from repro_torch.serving import build_bundle
 
     from repro_torch.configs import get_arch
-    from repro_torch.launch.serve import serve_lm
-    from repro_torch.models import lm
+    from repro_torch.kernels.cin import cin_layer_kernel
+    from repro_torch.launch.serve import serve_lm, serve_recsys
+    from repro_torch.models import lm, recsys
 
     cfg = GCNConfig(n_layers=2, d_hidden=2, d_feat=2, n_classes=2)
     lm_cfg = get_arch("llama3-8b").smoke_config
@@ -80,13 +83,19 @@ def _entry_points():
         "init_params": lambda: lm.init_params(lm_cfg, (0, 0)),
         "prefill": lambda: lm.prefill(lm_params, np.zeros((1, 4), np.int32), lm_cfg, 8),
         "serve_lm": lambda: serve_lm("llama3-8b"),
+        "serve_recsys": lambda: serve_recsys("xdeepfm"),
+        "xdeepfm_init": lambda: recsys.xdeepfm_init(get_arch("xdeepfm").smoke_config, (0, 0)),
+        "cin_layer_kernel": lambda: cin_layer_kernel(np.ones((2, 3, 4), np.float32),
+                                                     np.ones((2, 3, 4), np.float32),
+                                                     np.ones((9, 5), np.float32)),
     }
 
 
 @pytest.mark.parametrize("name", ["s5p_partition", "cluster_stream",
                                   "assign_edges_stream", "cli", "build_bundle",
                                   "gcn_init", "gcn_forward", "segment_aggregate",
-                                  "init_params", "prefill", "serve_lm"])
+                                  "init_params", "prefill", "serve_lm", "serve_recsys",
+                                  "xdeepfm_init", "cin_layer_kernel"])
 def test_entry_points_need_a_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

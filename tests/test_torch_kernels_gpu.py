@@ -1,6 +1,6 @@
 """K1, K2, K3, G1, K4a, K4b and K5 on the card against their plain PyTorch
-versions (bitwise), K6 against its plain version within a stated tolerance,
-and the GCN and the LM on cuda against cpu.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
+versions (bitwise), K6 and K7 against their plain versions within stated
+tolerances, and the GCN, the LM and xDeepFM on cuda against cpu.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -376,4 +376,117 @@ def test_lm_prefill_and_decode_cuda_equal_cpu(cuda, highest_f32, arch):
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def _k7_inputs(B, Hk, m, D, Hn, dtype, seed):
+    rng = np.random.default_rng(seed)
+    xk = torch.from_numpy(rng.standard_normal((B, Hk, D), np.float32)).to(dtype)
+    x0 = torch.from_numpy(rng.standard_normal((B, m, D), np.float32)).to(dtype)
+    w = torch.from_numpy((0.1 * rng.standard_normal((Hk * m, Hn))).astype(np.float32))
+    return xk, x0, w.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hk,m,D,Hn", [
+    (64, 6, 6, 4, 8), (77, 8, 6, 4, 8), (64, 10, 6, 8, 12), (512, 39, 39, 10, 200),
+    (300, 200, 39, 10, 200), (1000, 200, 39, 10, 200), (5, 3, 2, 1, 41),
+])
+def test_k7_cin_layer(cuda, highest_f32, dtype, B, Hk, m, D, Hn):
+    """K7 against ``cin_layer_ref`` on the same card tensors: float32 max
+    |Δ| ≤ 1e-5 of max |want|; bfloat16 per element ≤ 2^-7·|want| (one
+    output rounding) + 2^-15·max |want| (the float32 sums near zero)."""
+    from repro_torch.kernels.cin import cin_layer, cin_layer_ref, launch_counts
+
+    xk, x0, w = (t.to(cuda) for t in _k7_inputs(B, Hk, m, D, Hn, dtype, seed=B + Hk))
+    before = launch_counts()["cin"]
+    got = cin_layer(xk, x0, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["cin"] == before + 1
+    want = cin_layer_ref(xk, x0, w)
+    assert got.dtype == dtype and got.shape == (B, Hn, D)
+    d = (got.float() - want.float()).abs()
+    top = want.float().abs().max()
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-5 * float(top)
+    else:
+        assert bool((d <= 2**-7 * want.float().abs() + 2**-15 * top).all())
+
+
+def test_k7_refusals_and_backward(cuda):
+    from repro_torch.kernels.cin import cin_layer, cin_layer_kernel
+
+    xk, x0, w = (t.to(cuda) for t in _k7_inputs(4, 3, 2, 5, 6, torch.float32, seed=0))
+    with pytest.raises(ValueError, match="contiguous"):
+        cin_layer(xk.transpose(0, 1).contiguous().transpose(0, 1), x0, w)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cin_layer(xk.half(), x0.half(), w.half())
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.ones(1, 400, 1, device=cuda)
+        cin_layer(big[:, :1], big, torch.ones(400, 2, device=cuda))
+    torch.testing.assert_close(cin_layer_kernel(xk.transpose(1, 2).contiguous()
+                                                .transpose(1, 2), x0, w),
+                               cin_layer(xk, x0, w), rtol=0, atol=0)
+    w.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        cin_layer(xk, x0, w).sum().backward()
+
+
+def _published_xdeepfm():
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("xdeepfm").config,
+                               field_vocabs=(64, 32) * 19 + (48,))
+
+
+def test_xdeepfm_forward_cuda_equals_cpu(cuda, highest_f32):
+    """The published widths with small vocabularies: three K7 launches per
+    forward; logits within rtol 1e-4, atol 1e-6 of the CPU forward on the
+    same parameters and ids (only cuBLAS against the CPU's matmul and K7's
+    sum order differ); each CIN layer's pools within 1e-5 of its max."""
+    from repro_torch import random as trandom
+    from repro_torch.kernels.cin import launch_counts
+    from repro_torch.launch.serve import recsys_ids
+    from repro_torch.models import recsys as R
+
+    cfg = _published_xdeepfm()
+    params = R.xdeepfm_init(cfg, trandom.PRNGKey(0), device="cpu")
+    ids = recsys_ids(trandom.PRNGKey(1), cfg, 300, "cpu")
+    want_pools, got_pools = [], []
+    want = R.xdeepfm_forward(params, ids, cfg, pools=want_pools)
+    before = launch_counts()["cin"]
+    got = R.xdeepfm_forward(_to(params, cuda), ids.to(cuda), cfg, pools=got_pools)
+    torch.cuda.synchronize()
+    assert launch_counts()["cin"] == before + 3
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6)
+    for g, w in zip(got_pools, want_pools):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_serve_recsys_cuda_equals_cpu(cuda, highest_f32):
+    from repro_torch.launch.serve import serve_recsys
+
+    want, got = {}, {}
+    serve_recsys("xdeepfm", batch=100, smoke=True, seed=3, device="cpu", stats=want)
+    serve_recsys("xdeepfm", batch=100, smoke=True, seed=3, device=cuda, stats=got)
+    assert torch.equal(got["ids"].cpu(), want["ids"])
+    torch.testing.assert_close(got["scores"].cpu(), want["scores"], rtol=1e-4, atol=1e-6)
+    for g, w in zip(got["pools"], want["pools"]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    assert got["peak_bytes"] > 0
+
+
+def test_s5p_row_placement_cuda_equals_cpu(cuda):
+    from repro_torch.models.recsys import s5p_row_placement
+
+    rng = np.random.default_rng(0)
+    rows = (rng.zipf(1.3, 3200) % 64).astype(np.int64)
+    samples = np.repeat(np.arange(800), 4)
+    shard_c, mat_c = s5p_row_placement(rows, samples, 64, k=4, device="cpu")
+    shard_g, mat_g = s5p_row_placement(rows, samples, 64, k=4, device=cuda)
+    np.testing.assert_array_equal(shard_g, shard_c)
+    np.testing.assert_array_equal(mat_g, mat_c)

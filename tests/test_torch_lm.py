@@ -297,5 +297,5 @@ def test_cli(capsys):
     assert "[serve] qwen3-14b: 1×3 tokens in" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="incremental slice"):
         tserve.main(["--graph", "block-rmat"])
-    with pytest.raises(NotImplementedError, match="recsys serving slice"):
-        tserve.main(["--arch", "xdeepfm"])
+    tserve.main(["--arch", "xdeepfm", "--batch", "3", "--device", "cpu"])
+    assert "[serve] xdeepfm: scored 3 in" in capsys.readouterr().out
