@@ -12,7 +12,9 @@ Phases, each printing one JSON line:
               stream) on the Graph500 R-MAT (a=0.57, b=c=0.19, seed 0),
               k = 32, with every kernel launch counter set to 0 just before
               and read just after; max load must hold and every kernel of
-              the path (K1, K2, K4a, K4b) must have launched;
+              the path (K1, K2, K4a, K4b, and K5 twice for the game's
+              cluster degrees) must have launched; the game's δ on the
+              card must have the CPU's bits (``game_audit``);
 4. compare  — every other entry of ``PARTITIONERS`` on the main path's
               graph and k (the S5P row is the main run's), each with the
               launch counters set to 0 just before and read just after:
@@ -34,7 +36,9 @@ Phases, each printing one JSON line:
               d_feat 100 over ``products_features``, ``query_gnn`` for all
               vertices and then 16 times for 16 vertices; launch counters
               set to 0 just before and read just after, K5 launched 6 times
-              per forward; the full logits held against the same forward
+              per forward (and twice in S5P's game); one more ``query_gnn``
+              under ``torch.profiler``, its device time split into K5 and
+              the rest; the full logits held against the same forward
               on ``device="cpu"`` (rtol 1e-4, atol 1e-5: only ``x @ W``
               differs); one line each for the graph, S5P, GAS, latency,
               GCN and device numbers;
@@ -45,9 +49,11 @@ Phases, each printing one JSON line:
               events, the plain version's time, the bound, and a PyTorch
               library call where one computes the same function.  K3 and
               G1 run 4,096 edges onto the final state of the compare run;
-              K5 runs the serve phase's layer-1 (d = 16) and layer-2
-              (d = 7) aggregations and one over its features in bfloat16
-              (d = 100), with ``torch.sparse.mm`` on the same CSR matrix as
+              K5 runs the serve phase's degree counts (d = 1, every long
+              row on the tree), layer-1 (d = 16) and layer-2 (d = 7)
+              aggregations and one over its features in bfloat16 (d = 100),
+              recording the long rows, the tree rows and the compiled
+              kernel's registers, with ``torch.sparse.mm`` on the same CSR matrix as
               the library call (for bf16 a CSR of bf16 weights; where
               PyTorch refuses it, the row records the error text);
 7. lm       — the LM serving path at full width: ``serve_lm`` of
@@ -92,7 +98,8 @@ Phases, each printing one JSON line:
               slice fails them, and times one ``torch.einsum`` beside it;
 9. parity   — every partitioner on ``community_graph(2000, 32, 8,
               seed=5)``, k = 8, on ``cuda`` and on ``cpu``: the parts must be
-              identical.
+              identical; and the game's δ where Σ(degs + sizes) passes 2**24
+              (Θ scaled by 3001), on both: the same bits and assignment.
 
 The kernel checks of phase 6 run after phases 7 and 8.
 
@@ -237,6 +244,43 @@ def phase_build() -> dict:
     return info
 
 
+def _game_audit(out) -> dict:
+    """The game's float32 totals on this run's inputs, in float64: a sum of
+    integer-valued float32 terms is exact in any order only below 2**24.
+    δ's two sums follow the reference's order; the per-cluster degrees,
+    W[i, p] and the part sizes are atomics on the card, exact while each
+    total is below 2**24.  δ on the card against δ on the CPU, bitwise."""
+    import torch
+
+    from repro_torch.core import game as G
+
+    st = out.aux["incremental"]
+    sizes, pa, pb, pw = st["sizes"], st["pair_a"], st["pair_b"], st["pair_w"]
+    C, k = out.n_clusters, out.k
+    a, b = pa.long().clamp(max=C), pb.long().clamp(max=C)
+    w64 = pw.double()
+    deg = torch.zeros(C + 1, dtype=torch.float64, device=pw.device)
+    deg = deg.index_add(0, a, w64).index_add(0, b, w64)[:C]
+    assign = torch.as_tensor(out.cluster_assignment, device=pw.device).long()
+    ext = torch.cat([assign, assign.new_zeros(1)])
+    wip = torch.zeros((C + 1) * k, dtype=torch.float64, device=pw.device)
+    wip.index_add_(0, a * k + ext[b], w64).index_add_(0, b * k + ext[a], w64)
+    parts = torch.zeros(k, dtype=torch.float64, device=pw.device).index_add_(
+        0, assign, sizes.double())
+    inputs = G.GameInputs(sizes, pa, pb, pw, 0, k)
+    d_dev = G.compute_delta(sizes, G._cluster_degrees(inputs, C), k)
+    cpu = G.GameInputs(sizes.cpu(), pa.cpu(), pb.cpu(), pw.cpu(), 0, k)
+    d_cpu = G.compute_delta(cpu.sizes, G._cluster_degrees(cpu, C), k)
+    total = float(deg.sum() + sizes.double().sum())
+    return {"sum_degs_sizes": total, "max_cluster_degree": float(deg.max()),
+            "max_w_ip": float(wip.max()), "max_part_size": float(parts.max()),
+            "delta_bits_cuda": int(d_dev.cpu().view(torch.int32)),
+            "delta_bits_cpu": int(d_cpu.view(torch.int32)),
+            "delta_sum_above_2^24": total >= 2**24,
+            "atomic_totals_below_2^24": max(float(deg.max()), float(wip.max()),
+                                            float(parts.max())) < 2**24}
+
+
 def phase_main(scale: int) -> dict:
     import torch
 
@@ -278,17 +322,22 @@ def phase_main(scale: int) -> dict:
         "clustering_edges_per_s": E / out.timings["clustering"],
         "placement_edges_per_s": E / out.timings["postprocess"],
         "max_memory_allocated": peak, "launches": launches,
-        "pairs": out.aux["n_pairs"],
+        "pairs": out.aux["n_pairs"], "game_audit": _game_audit(out),
     }
     emit(info)
     n_chunks = math.ceil(E / cfg.chunk_size)
     problems = []
     if info["max_load"] > out.max_load:
         problems.append(f"max load {info['max_load']} > cap {out.max_load}")
+    audit = info["game_audit"]
+    if audit["delta_bits_cuda"] != audit["delta_bits_cpu"]:
+        problems.append(f"the game's δ differs between cuda and cpu: {audit}")
     if launches["cluster_scan"] != n_chunks or launches["assign_scan"] != n_chunks:
         problems.append(f"K1/K2 launches {launches} != {n_chunks} chunks")
     if launches["cms_update"] < 1 or launches["cms_query"] < 1:
         problems.append(f"CMS kernels not launched: {launches}")
+    if launches["segment_agg"] != 2:
+        problems.append(f"K5 launched {launches['segment_agg']} times by the game, not 2")
     p = parts.cpu().numpy()
     if p.shape != (E,) or p.min() < 0 or p.max() >= cfg.k:
         problems.append("parts outside [0, k) on a graph without self-loops")
@@ -841,6 +890,7 @@ def phase_serve(products_scale: float) -> dict:
     out = s5p_partition(g.src, g.dst, n, S5PConfig(k=32), device=dev)
     torch.cuda.synchronize()
     s5p_s = time.perf_counter() - t0
+    game_k5 = launch_counts()["segment_agg"]  # the game's two degree sums
     s_t, d_t = torch.from_numpy(g.src).to(dev), torch.from_numpy(g.dst).to(dev)
     rf = replication_factor(s_t, d_t, out.parts, n_vertices=n, k=32)
     bal = load_balance(out.parts, k=32)
@@ -891,6 +941,10 @@ def phase_serve(products_scale: float) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    gnn_profile = _profile_query_gnn(server, params, feats, cfg)
+    audit = _game_audit(out)
+    if audit["delta_bits_cuda"] != audit["delta_bits_cpu"]:
+        problems.append(f"the game's δ differs between cuda and cpu: {audit}")
 
     # the same forward on the CPU, through the plain K5
     t0 = time.perf_counter()
@@ -903,8 +957,9 @@ def phase_serve(products_scale: float) -> dict:
     n_chunks = math.ceil(E / S5PConfig(k=32).chunk_size)
     if fwd_k5 != 6 or full_k5 != 6 or any(k != 6 for k in point_k5):
         problems.append(f"K5 launches per forward {fwd_k5}, {full_k5}, {point_k5}, not 6")
-    if launches["segment_agg"] != 6 * 18:
-        problems.append(f"K5 launched {launches['segment_agg']} times, not 6 x 18")
+    if game_k5 != 2 or launches["segment_agg"] - game_k5 != 6 * 18:
+        problems.append(f"K5 launched {launches['segment_agg']} times, {game_k5} in S5P's "
+                        "game: not 2 + 6 x 18")
     if launches["cluster_scan"] != n_chunks or launches["assign_scan"] != n_chunks:
         problems.append(f"K1/K2 launches {launches} != {n_chunks} chunks")
     if launches["cms_update"] < 1 or launches["cms_query"] < 1:
@@ -935,12 +990,13 @@ def phase_serve(products_scale: float) -> dict:
                 "within_rtol_1e-4": close},
         "components": int(np.unique(labels).size),
         "max_memory_allocated": peak, "launches": launches,
+        "query_gnn_profile": gnn_profile, "game_audit": audit,
     }
     for step, keys in (("graph", ("graph", "V", "E", "generate_graph_s", "generate_features_s")),
-                       ("s5p", ("k", "rf", "balance", "s5p_s", "s5p_seconds")),
+                       ("s5p", ("k", "rf", "balance", "s5p_s", "s5p_seconds", "game_audit")),
                        ("gas", ("sync_bytes_per_superstep", "layout_s", "supersteps",
                                 "supersteps_s", "components")),
-                       ("latency", ("latency",)), ("gcn", ("gcn",)),
+                       ("latency", ("latency", "query_gnn_profile")), ("gcn", ("gcn",)),
                        ("device", ("max_memory_allocated", "launches"))):
         emit({"phase": "serve", "step": step, **{key: info[key] for key in keys}})
     if problems:
@@ -949,11 +1005,48 @@ def phase_serve(products_scale: float) -> dict:
             "launches": launches}
 
 
+def _profile_query_gnn(server, params, feats, cfg) -> dict:
+    """One more ``query_gnn`` (all vertices) under ``torch.profiler``: its
+    device time split into K5, the sorts of ``gcn_norm``'s two layouts, the
+    matmuls and the rest, against the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def group(name: str) -> str:
+        low = name.lower()
+        if "segment_agg_kernel" in name:
+            return "k5"
+        if "sort" in low or "radix" in low or "onesweep" in low:
+            return "sort"
+        if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90_")):
+            return "matmul"
+        return "other"
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.query_gnn(params, feats, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups: dict[str, float] = {}
+    kernels = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.device_type is not None and "cuda" in str(e.device_type).lower():
+            groups[group(e.key)] = groups.get(group(e.key), 0.0) + us / 1e3
+            kernels.append({"name": e.key[:90], "calls": e.count, "device_ms": us / 1e3})
+    busy = sum(groups.values())
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_ms_by_group": groups, "k5_ms": groups.get("k5", 0.0),
+            "rest_device_ms": busy - groups.get("k5", 0.0),
+            "top_kernels": sorted(kernels, key=lambda k: -k["device_ms"])[:10]}
+
+
 def check_k5(serve) -> list[dict]:
     """K5 at the serve phase's shapes against the plain version on the CPU."""
     import torch
 
-    from repro_torch.kernels.segment_agg import segment_agg
+    from repro_torch.kernels.segment_agg import kernel_attributes, segment_agg
     from repro_torch.models.gnn import gcn_layer, gcn_norm
 
     bundle, params, feats = serve["bundle"], serve["params"], serve["feats"]
@@ -973,7 +1066,10 @@ def check_k5(serve) -> list[dict]:
         x = x.contiguous()
         cpu_lay = layout._replace(src=layout.src.cpu(), dst=layout.dst.cpu(),
                                   w=layout.w.cpu(), row_ptr=layout.row_ptr.cpu(),
-                                  order=layout.order.cpu())
+                                  order=layout.order.cpu(), long_rows=layout.long_rows.cpu())
+        n_long = int(layout.long_rows.numel())
+        flags = torch.zeros(n_long, dtype=torch.int32, device="cuda")
+        segment_agg(x, layout, tree_flags=flags)
         csr = torch.sparse_csr_tensor(layout.row_ptr, layout.src.long(), layout.w,
                                       size=(n, n))
         ms = cuda_time_ms(lambda: segment_agg(x, layout), reps=5)
@@ -1012,6 +1108,8 @@ def check_k5(serve) -> list[dict]:
                      "shape": {"rows": n, "V": n, "d": d, "dtype": str(x.dtype),
                                "bitwise": bitwise,
                                "edges": E, "max_row": int(layout.row_ptr.diff().max()),
+                               "long_row_edges": layout.long_row_edges, "n_long": n_long,
+                               "tree_rows": int(flags.sum()), "kernel": kernel_attributes(x),
                                "no_reuse_bound_ms": no_reuse,
                                "library": "torch.sparse.mm(CSR of the weights, x)",
                                "library_error": lib_error}})
@@ -1034,13 +1132,51 @@ def phase_parity() -> dict:
         seconds[name] = [t1 - t0, time.perf_counter() - t1]
         differing[name] = int((gpu != cpu).sum()) if gpu.shape == cpu.shape else -1
     same = all(v == 0 for v in differing.values())
+    delta = _delta_above_2_24()
     info = {"phase": "parity", "graph": "community_graph(2000, 32, 8, seed=5)",
             "k": 8, "E": int(src.shape[0]), "parts_identical": same,
-            "differing_edges": differing, "cuda_cpu_s": seconds}
+            "differing_edges": differing, "cuda_cpu_s": seconds, "delta_above_2^24": delta}
     emit(info)
     if not same:
         raise SystemExit(f"chip_smoke: cuda and cpu parts differ on the community graph: {differing}")
+    if not delta["same"]:
+        raise SystemExit(f"chip_smoke: the game's δ above 2**24 differs, cuda vs cpu: {delta}")
     return info
+
+
+def _delta_above_2_24() -> dict:
+    """The game's δ where Σ(degs + sizes) passes 2**24: the Θ inputs of
+    ``community_graph(600, 8, 6, seed=3)`` at k = 8 (CMS Θ, two-stage),
+    sizes and Θ scaled by 3001, on the card and on the CPU; δ's bits and
+    the game's assignment must agree (the reference gives 0x371b42d7)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import clustering as cl
+    from repro_torch.core import game as G
+    from repro_torch.core.s5p import cluster_statistics
+    from repro_torch.graphs import community_graph
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    s, d = torch.from_numpy(src).int(), torch.from_numpy(dst).int()
+    deg = cl.compute_degrees(s, d, n)
+    xi, kappa = int(2.0 * src.size / n), max(int(np.ceil(2.0 * src.size / 8)), 2)
+    res = cl.compact_clusters(cl.cluster_stream(s, d, n, xi=xi, kappa=kappa, device="cpu"),
+                              deg, xi)
+    sizes, pa, pb, pw, _ = cluster_statistics(s, d, res, deg, xi, use_cms=True,
+                                              cms_epsilon=0.1, cms_nu=0.01, seed=0)
+    C = res.n_clusters
+    cpu = G.GameInputs(sizes * 3001, pa, pb, pw * 3001, res.n_head, 8)
+    dev = G.GameInputs(*(t.cuda() for t in cpu[:4]), res.n_head, 8)
+    bits = [int(G.compute_delta(g.sizes, G._cluster_degrees(g, C), 8).cpu().view(torch.int32))
+            for g in (dev, cpu)]
+    kw = dict(batch_size=G.default_batch_size(256, C), accept_prob=0.9, seed=3)
+    g_dev, g_cpu = G.run_game(dev, C, **kw), G.run_game(cpu, C, **kw)
+    total = float((G._cluster_degrees(cpu, C) + cpu.sizes).double().sum())
+    same = (bits[0] == bits[1] and g_dev.rounds == g_cpu.rounds
+            and torch.equal(g_dev.assignment.cpu(), g_cpu.assignment))
+    return {"sum_degs_sizes": total, "delta_bits_cuda": hex(bits[0]),
+            "delta_bits_cpu": hex(bits[1]), "game_rounds": g_cpu.rounds, "same": same}
 
 
 def _highest_f32() -> None:

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fma_f32"]
+__all__ = ["fma_f32", "xla_sum_f32"]
 
 
 def fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -26,3 +26,34 @@ def fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     toward = torch.where((err > 0) == (s > 0), 1, -1)  # grow or shrink |s|
     s = torch.where(even_inexact, bits + toward, bits).view(torch.float64)
     return s.to(torch.float32)
+
+
+def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum of every element of ``x``, in the order of the
+    reference's ``jnp.sum`` on XLA's CPU backend, on any device.
+
+    XLA 0.9's CPU backend rewrites a reduction of more than 32 values into
+    windows of 32 (its tree-reduction rewrite, then the reduce emitter):
+    while more than 32 values are left, they are padded with zeros to a
+    multiple of 32, ⌊pad/2⌋ of them in front and the rest behind, and each
+    window is summed in sequence from 0; the last ≤ 32 values are then
+    summed in sequence from 0.  Read from ``--xla_dump_to`` dumps (f32[118]
+    → ``reduce-window(size=32 stride=32 pad=5_5)`` → f32[4] → ``reduce``).
+    The match depends on that emitter, as :func:`fma_f32`'s on its fusions.
+    Only elementwise float32 adds are used, so the bits are the same on
+    the CPU and on ``cuda``.
+    """
+    x = x.reshape(-1).to(torch.float32)
+    while x.numel() > 32:
+        n = x.numel()
+        n_win = -(-n // 32)
+        pad = n_win * 32 - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).view(n_win, 32)
+        acc = torch.zeros(n_win, dtype=torch.float32, device=x.device)
+        for j in range(32):
+            acc = acc + x[:, j]
+        x = acc
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(x.numel()):
+        acc = acc + x[j]
+    return acc

@@ -17,11 +17,15 @@ Only the rows of the batch can move, so each batch computes ``W`` for its
 own rows from a cluster-sorted adjacency (CSR) instead of for all C rows;
 the cost matrix is the reference's expression in its operation order,
 rounded as the reference's compiled program rounds it (:func:`_costs`).
-Θ is integer-valued, so the float32 scatter-adds are exact in any order
-while the sums stay below 2**24.  This is plain PyTorch: the reference
-computes the game outside any Pallas kernel.  The masked game
-(``leader_mask``/``move_mask``/``move_cost``) waits for the touch-up and
-incremental slice.
+Θ is integer-valued, so the float32 scatter-adds of ``W[i, p]`` and the
+partition sizes are exact in any order while each total stays below
+2**24; the cluster degrees (a CMS Θ overestimates them past 2**24 at
+R-MAT scale 20) are summed in the reference's order on K5, and the
+whole-array sums of δ and of the objective in the reference's order too
+(:func:`~.._fp32.xla_sum_f32`).
+This is plain PyTorch: the reference computes the game outside any Pallas
+kernel.  The masked game (``leader_mask``/``move_mask``/``move_cost``)
+waits for the touch-up and incremental slice.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import torch
 
 from .. import random as _random
 from .._fp32 import fma_f32 as _fma_f32
+from .._fp32 import xla_sum_f32 as _xla_sum
+from ..kernels.segment_agg import segment_agg, segment_layout
 
 __all__ = [
     "GameInputs",
@@ -79,17 +85,28 @@ def init_assignment(sizes, k: int) -> np.ndarray:
 
 
 def compute_delta(sizes: torch.Tensor, degs: torch.Tensor, k: int) -> torch.Tensor:
-    """δ_max of paper Eq. (12): k·Σ(F(c_i)+|c_i|) / (Σ|c_i|)²."""
-    num = k * torch.sum(degs + sizes)
-    den = torch.square(torch.sum(sizes))
+    """δ_max of paper Eq. (12): k·Σ(F(c_i)+|c_i|) / (Σ|c_i|)², both sums
+    in the reference's order (they pass 2**24 on large graphs, where the
+    order decides the last bits)."""
+    num = k * _xla_sum(degs + sizes)
+    den = torch.square(_xla_sum(sizes))
     return num / torch.clamp(den, min=1.0)
+
+
+def _segment_sum(w: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.ops.segment_sum(w, ids, n)`` as XLA's CPU scatter adds it: each
+    segment in index order, one float32 add at a time.  That is K5's
+    function (products ``w·1``), so on the card it runs on K5, where
+    atomics would add in another order once a total passes 2**24."""
+    ones = torch.ones((1, 1), dtype=torch.float32, device=w.device)
+    lay = segment_layout(torch.zeros_like(ids), ids, n, w, device=w.device)
+    return segment_agg(ones, lay)[:, 0]
 
 
 def _cluster_degrees(inputs: GameInputs, n_clusters: int) -> torch.Tensor:
     """deg_i = Σ_j Θ(i, j)."""
-    z = torch.zeros(n_clusters + 1, dtype=torch.float32, device=inputs.pair_w.device)
-    deg = z.index_add(0, inputs.pair_a.long(), inputs.pair_w)
-    deg = deg + z.index_add(0, inputs.pair_b.long(), inputs.pair_w)
+    deg = _segment_sum(inputs.pair_w, inputs.pair_a, n_clusters + 1)
+    deg = deg + _segment_sum(inputs.pair_w, inputs.pair_b, n_clusters + 1)
     return deg[:n_clusters]
 
 
@@ -234,10 +251,10 @@ def social_welfare(inputs: GameInputs, assign: torch.Tensor, delta) -> torch.Ten
     part_sizes = torch.zeros(k, dtype=torch.float32, device=assign.device)
     part_sizes.index_add_(0, assign.long(), inputs.sizes)
     assign_ext = torch.cat([assign.long(), assign.new_zeros(1, dtype=torch.long)])
-    cut = torch.sum(inputs.pair_w * (assign_ext[inputs.pair_a.long()]
+    cut = _xla_sum(inputs.pair_w * (assign_ext[inputs.pair_a.long()]
                                      != assign_ext[inputs.pair_b.long()]).to(torch.float32))
-    load = delta * torch.sum(torch.square(part_sizes)) / k
-    comm = (2.0 * cut + torch.sum(part_sizes)) / k
+    load = delta * _xla_sum(torch.square(part_sizes)) / k
+    comm = (2.0 * cut + _xla_sum(part_sizes)) / k
     return load + comm
 
 

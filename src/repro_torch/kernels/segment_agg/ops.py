@@ -7,7 +7,9 @@ back to ``jax.ops.segment_sum``; the port has no such fallback: the card
 runs K5 at any size, or raises.  The edges are laid out once
 (:func:`segment_layout`: stable sort by destination, ``row_ptr``) and the
 layout can be reused for every aggregation over the same edges, with new
-weights through :meth:`SegmentLayout.with_weights`.
+weights through :meth:`SegmentLayout.with_weights`.  The layout also lists
+the rows of more than :data:`LONG_ROW_EDGES` edges, to which K5 gives a
+block each.
 """
 
 from __future__ import annotations
@@ -19,7 +21,12 @@ import torch
 from ..._device import resolve_device
 from .kernel import segment_agg
 
-__all__ = ["SegmentLayout", "segment_layout", "segment_aggregate"]
+__all__ = ["LONG_ROW_EDGES", "SegmentLayout", "segment_layout", "segment_aggregate"]
+
+# T: a row of more than T edges is long, and K5 gives it a block for each
+# 32-byte slice of its columns (a tree or a chain); shorter rows go to a
+# group of threads or a warp.  Chosen from a sweep on the card (PERF.md, K5).
+LONG_ROW_EDGES = 4096
 
 
 class SegmentLayout(NamedTuple):
@@ -33,6 +40,8 @@ class SegmentLayout(NamedTuple):
     n_rows: int
     n_src: int  # 1 + the largest src id (0 without edges)
     n_edges: int  # length of the caller's edge list, padding included
+    long_rows: torch.Tensor  # (n_long,) int32: rows of more than T edges, longest first
+    long_row_edges: int  # T
 
     def with_weights(self, w) -> "SegmentLayout":
         """The same edges under new per-edge weights, given in the caller's
@@ -66,6 +75,9 @@ def segment_layout(src, dst, n_rows: int, w=None, *, device=None) -> SegmentLayo
         raise ValueError(f"a dst id is >= n_rows = {n_rows}")
     row_ptr = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
     torch.cumsum(counts, 0, out=row_ptr[1:])
+    long_rows = torch.nonzero(counts > LONG_ROW_EDGES)[:, 0]
+    by_length = torch.sort(counts[long_rows], descending=True, stable=True).indices
+    long_rows = long_rows[by_length].to(torch.int32)
     n_src = 0
     if src_sorted.numel():
         lo, hi = torch.aminmax(src_sorted)
@@ -74,7 +86,8 @@ def segment_layout(src, dst, n_rows: int, w=None, *, device=None) -> SegmentLayo
         n_src = int(hi) + 1
     return SegmentLayout(src=src_sorted.contiguous(), dst=dst_sorted.contiguous(),
                          w=w[order].contiguous(), row_ptr=row_ptr, order=order,
-                         n_rows=int(n_rows), n_src=n_src, n_edges=int(src.numel()))
+                         n_rows=int(n_rows), n_src=n_src, n_edges=int(src.numel()),
+                         long_rows=long_rows.contiguous(), long_row_edges=LONG_ROW_EDGES)
 
 
 def segment_aggregate(x, src, dst, w=None, n_rows=None, *, device=None) -> torch.Tensor:

@@ -108,3 +108,72 @@ def test_masked_game_raises():
     with pytest.raises(NotImplementedError, match="slice 5"):
         tgame.run_game(interop.game_inputs(inputs, device="cpu"), C,
                        move_mask=np.ones(C, bool))
+
+
+@pytest.mark.parametrize("scale", [3001, 4097, 4099, 7919, 8191])
+def test_delta_and_game_above_2_24(scale):
+    """Θ and the sizes scaled so that Σ(degs + sizes) passes 2**24: there
+    the order of δ's sums decides its last bits, so the port sums in the
+    order of the reference's ``jnp.sum`` (:func:`repro_torch._fp32.xla_sum_f32`)."""
+    inputs, C = _game_inputs(_graph("community"), 8, True, False)
+    inputs = inputs._replace(sizes=inputs.sizes * scale, pair_w=inputs.pair_w * scale)
+    sizes, pw = np.asarray(inputs.sizes), np.asarray(inputs.pair_w)
+    assert np.all(pw == np.round(pw)) and pw.max() < 2**24 and sizes.max() < 2**24
+    assert 2 * pw.astype(np.float64).sum() + sizes.astype(np.float64).sum() > 2**24
+    port_inputs = interop.game_inputs(inputs, device="cpu")
+    degs_ref = jgame._cluster_degrees(inputs, C)
+    degs = tgame._cluster_degrees(port_inputs, C)
+    np.testing.assert_array_equal(np.asarray(degs_ref), degs.numpy())
+    d_ref = jgame.compute_delta(inputs.sizes, degs_ref, 8)
+    d = tgame.compute_delta(port_inputs.sizes, degs, 8)
+    assert np.float32(d_ref).view(np.uint32) == d.numpy().view(np.uint32)
+    kw = dict(batch_size=jgame.default_batch_size(256, C), max_rounds=64,
+              accept_prob=0.9, seed=3)
+    ref = jgame.run_game(inputs, C, **kw)
+    port = tgame.run_game(port_inputs, C, **kw)
+    np.testing.assert_array_equal(np.asarray(ref.assignment), port.assignment.numpy())
+    assert (int(ref.rounds), bool(ref.converged)) == (port.rounds, port.converged)
+    s_ref = np.float32(jgame.social_welfare(inputs, ref.assignment, d_ref))
+    s = tgame.social_welfare(port_inputs, port.assignment, d).numpy()
+    assert s_ref.view(np.uint32) == s.view(np.uint32)
+
+
+@pytest.mark.parametrize("kind", ["integer", "normal"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 118, 1023, 1024, 1025, 1420, 32769, 100_000])
+def test_xla_sum_order_equals_jnp_sum(n, kind):
+    """Lengths on both sides of the 32-wide windows, one to three levels."""
+    from repro_torch._fp32 import xla_sum_f32
+
+    rng = np.random.default_rng(n)
+    if kind == "integer":  # partial sums pass 2**24, so the order shows
+        v = rng.integers(0, 3001 * 64, n).astype(np.float32)
+    else:
+        v = rng.standard_normal(n).astype(np.float32)
+    want = np.float32(jnp.sum(jnp.asarray(v))).view(np.uint32)
+    assert xla_sum_f32(torch.from_numpy(v)).numpy().view(np.uint32) == want
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cluster_degrees_above_2_24(seed):
+    """Cluster degrees ~100× 2**24 (a CMS Θ overestimates them past 2**24 at
+    R-MAT scale 20): each segment summed in the reference's order, which
+    is not the exact sum."""
+    rng = np.random.default_rng(seed)
+    C = 50
+    a, b = rng.integers(0, C, 20_000), rng.integers(0, C, 20_000)
+    a, b = np.minimum(a, b)[a != b], np.maximum(a, b)[a != b]
+    w = (rng.integers(1, 3000, a.size) * rng.choice([1, 7, 4099], a.size)).astype(np.float32)
+    sizes = rng.integers(1, 100, C).astype(np.float32)
+    ji = jgame.GameInputs(jnp.asarray(sizes), jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32),
+                          jnp.asarray(w), 5, 8)
+    ti = interop.game_inputs(ji, device="cpu")
+    want = np.asarray(jgame._cluster_degrees(ji, C))
+    got = tgame._cluster_degrees(ti, C).numpy()
+    exact = np.zeros(C)
+    np.add.at(exact, a, w.astype(np.float64))
+    np.add.at(exact, b, w.astype(np.float64))
+    assert exact.max() > 2**24 and not np.array_equal(want, exact.astype(np.float32))
+    np.testing.assert_array_equal(got, want)
+    d_ref = jgame.compute_delta(ji.sizes, jnp.asarray(want), 8)
+    assert np.float32(d_ref).view(np.uint32) == tgame.compute_delta(
+        ti.sizes, torch.from_numpy(got), 8).numpy().view(np.uint32)

@@ -242,6 +242,173 @@ def test_k5_refuses_other_dtypes(cuda):
         segment_agg(torch.ones(2, 3, dtype=torch.float64, device=cuda), lay)
 
 
+def _k5_long_inputs(d, seed):
+    """Rows of 392,195 (the served graph's hub row), 2T, T + 1, T and T − 1
+    edges, one layout, among 3,000 short rows; x spans 16 binades."""
+    from repro_torch.kernels.segment_agg import LONG_ROW_EDGES as T
+
+    rng = np.random.default_rng(seed)
+    V = 3000
+    lengths = {5: 392_195, 9: 2 * T, 17: T + 1, 33: T, 65: T - 1}
+    rest = np.setdiff1d(np.arange(V), list(lengths))  # ~20 edges a row
+    dst = np.concatenate([np.full(m, r) for r, m in lengths.items()]
+                         + [rng.choice(rest, 20 * V)]).astype(np.int32)
+    rng.shuffle(dst)
+    src = rng.integers(0, V, dst.size).astype(np.int32)
+    x = (rng.standard_normal((V, d)) * np.exp(rng.uniform(-8, 8, (V, d)))).astype(np.float32)
+    w = rng.standard_normal(dst.size).astype(np.float32)
+    return x, src, dst, w, V
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 7, 16, 33, 100])
+def test_k5_long_rows(cuda, d, dtype):
+    """Long rows of every kind in one launch, bitwise equal to the plain
+    version; float products take the chain."""
+    from repro_torch.kernels.segment_agg import (LONG_ROW_EDGES, launch_counts, segment_agg,
+                                                 segment_layout)
+
+    x, src, dst, w, V = _k5_long_inputs(d, seed=100 + d)
+    xt = torch.from_numpy(x).to(dtype)
+    want = segment_agg(xt, segment_layout(src, dst, V, w, device="cpu"))
+    lay = segment_layout(src, dst, V, w, device=cuda)
+    counts = np.bincount(dst, minlength=V)
+    assert counts[[17, 33, 65]].tolist() == [LONG_ROW_EDGES + 1, LONG_ROW_EDGES, LONG_ROW_EDGES - 1]
+    assert lay.long_rows.tolist() == [5, 9, 17]
+    flags = torch.full((lay.long_rows.numel(),), -1, dtype=torch.int32, device=cuda)
+    before = launch_counts()["segment_agg"]
+    got = segment_agg(xt.to(cuda), lay, tree_flags=flags)
+    torch.cuda.synchronize()
+    assert launch_counts()["segment_agg"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert flags.tolist() == [0] * lay.long_rows.numel()
+
+
+def _tree_case(name, T):
+    """One long row (row 1 of 4) of more than T edges, d = 1, with products
+    on either side of the tree's rule.  n divides 2**24 − 1, so n equal
+    products c sum to 2**24 − 1 with n·max|p| < 2**24: the tree."""
+    n = next(m for m in range(T + 1, 2**24) if (2**24 - 1) % m == 0)
+    c = (2**24 - 1) // n
+    x = np.ones((n, 1), np.float32)
+    w = np.ones(n, np.float32)
+    if name == "sum_2^24-1":
+        w[:] = c
+    elif name == "sum_2^24+1":  # one product c + 2: n·max|p| > 2**24, the chain
+        w[:] = c
+        w[100] = c + 2
+    elif name == "inf":
+        x[7] = np.inf
+    elif name == "nan":
+        x[7] = np.nan
+    elif name == "neg_zero":
+        w[:] = -0.0
+    return x, np.arange(n, dtype=np.int32), np.ones(n, np.int32), w, n
+
+
+@pytest.mark.parametrize("name,tree", [("sum_2^24-1", 1), ("sum_2^24+1", 0), ("inf", 0),
+                                       ("nan", 0), ("neg_zero", 1), ("degrees", 1)])
+def test_k5_tree_and_chain_routes(cuda, name, tree):
+    """Both long-row routes, bitwise equal to the plain version; the route
+    K5 took is the one :func:`tree_exact` gives on the CPU."""
+    from repro_torch.kernels.segment_agg import (LONG_ROW_EDGES, segment_agg, segment_layout,
+                                                 tree_exact)
+
+    x, src, dst, w, n = _tree_case(name, LONG_ROW_EDGES)
+    assert n > LONG_ROW_EDGES
+    xt = torch.from_numpy(x)
+    cpu_lay = segment_layout(src, dst, 4, w, device="cpu")
+    want = segment_agg(xt, cpu_lay)
+    products = xt[cpu_lay.src.long()] * cpu_lay.w[:, None]
+    assert bool(tree_exact(products).all()) == bool(tree)
+    lay = segment_layout(src, dst, 4, w, device=cuda)
+    flags = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    got = segment_agg(xt.to(cuda), lay, tree_flags=flags)
+    torch.cuda.synchronize()
+    assert flags.tolist() == [tree]
+    if name == "nan":  # the card's float units return the canonical NaN, the CPU its input's
+        assert torch.isnan(got.cpu()).equal(torch.isnan(want)) and bool(torch.isnan(want[1]))
+        got, want = got.cpu().nan_to_num(), want.nan_to_num()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_k5_tree_columns_mixed(cuda):
+    """d = 33: integer columns pass, one float column fails, so the row
+    runs the chain; all columns integer, it takes the tree."""
+    from repro_torch.kernels.segment_agg import LONG_ROW_EDGES, segment_agg, segment_layout
+
+    rng = np.random.default_rng(7)
+    n, V = 3 * LONG_ROW_EDGES, 500
+    src = rng.integers(0, V, n).astype(np.int32)
+    dst = np.zeros(n, np.int32)
+    x = rng.integers(-64, 64, (V, 33)).astype(np.float32)
+    w = rng.integers(-8, 8, n).astype(np.float32)
+    for float_col, tree in ((True, 0), (False, 1)):
+        xc = x.copy()
+        if float_col:
+            xc[:, 20] = rng.standard_normal(V)
+        xt = torch.from_numpy(xc)
+        want = segment_agg(xt, segment_layout(src, dst, 1, w, device="cpu"))
+        flags = torch.zeros(1, dtype=torch.int32, device=cuda)
+        got = segment_agg(xt.to(cuda), segment_layout(src, dst, 1, w, device=cuda),
+                          tree_flags=flags)
+        torch.cuda.synchronize()
+        assert flags.tolist() == [tree]
+        assert torch.equal(got.cpu(), want)
+
+
+def test_compute_delta_cuda_equals_cpu_above_2_24(cuda):
+    """The game's δ on the card equals the CPU's bits where Σ(degs + sizes)
+    passes 2**24 (Θ and the sizes scaled by 3001), and so does the game."""
+    from repro_torch.core import clustering as cl
+    from repro_torch.core import game as tgame
+    from repro_torch.core.s5p import cluster_statistics
+    from repro_torch.graphs import community_graph
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    s, d = torch.from_numpy(src).int(), torch.from_numpy(dst).int()
+    deg = cl.compute_degrees(s, d, n)
+    xi, kappa = int(2.0 * src.size / n), max(int(np.ceil(2.0 * src.size / 8)), 2)
+    res = cl.compact_clusters(cl.cluster_stream(s, d, n, xi=xi, kappa=kappa, device="cpu"),
+                              deg, xi)
+    sizes, pa, pb, pw, _ = cluster_statistics(s, d, res, deg, xi, use_cms=True,
+                                              cms_epsilon=0.1, cms_nu=0.01, seed=0)
+    C = res.n_clusters
+    inputs = tgame.GameInputs(sizes=sizes * 3001, pair_a=pa, pair_b=pb, pair_w=pw * 3001,
+                              n_head=res.n_head, k=8)
+    assert float((tgame._cluster_degrees(inputs, C) + inputs.sizes).double().sum()) > 2**24
+    on = tgame.GameInputs(*(t.to(cuda) for t in inputs[:4]), inputs.n_head, 8)
+    d_cpu = tgame.compute_delta(inputs.sizes, tgame._cluster_degrees(inputs, C), 8)
+    d_gpu = tgame.compute_delta(on.sizes, tgame._cluster_degrees(on, C), 8)
+    assert d_cpu.view(torch.int32).item() == d_gpu.cpu().view(torch.int32).item() == 0x371B42D7
+    kw = dict(batch_size=tgame.default_batch_size(256, C), accept_prob=0.9, seed=3)
+    cpu, gpu = tgame.run_game(inputs, C, **kw), tgame.run_game(on, C, **kw)
+    assert torch.equal(gpu.assignment.cpu(), cpu.assignment) and gpu.rounds == cpu.rounds
+
+
+def test_cluster_degrees_cuda_equal_cpu_above_2_24(cuda):
+    """The game's cluster degrees run on K5 on the card, in the CPU's (the
+    reference's) order, where atomics would round differently."""
+    from repro_torch.core import game as tgame
+    from repro_torch.kernels.segment_agg import launch_counts
+
+    rng = np.random.default_rng(3)
+    C = 50
+    a, b = rng.integers(0, C, 200_000), rng.integers(0, C, 200_000)
+    a, b = np.minimum(a, b)[a != b], np.maximum(a, b)[a != b]
+    w = (rng.integers(1, 3000, a.size) * rng.choice([1, 7, 4099], a.size)).astype(np.float32)
+    t = [torch.from_numpy(v) for v in (rng.integers(1, 100, C).astype(np.float32),
+                                         a.astype(np.int32), b.astype(np.int32), w)]
+    cpu = tgame.GameInputs(*t, 5, 8)
+    gpu = tgame.GameInputs(*(v.to(cuda) for v in t), 5, 8)
+    want = tgame._cluster_degrees(cpu, C)
+    before = launch_counts()["segment_agg"]
+    got = tgame._cluster_degrees(gpu, C)
+    torch.cuda.synchronize()
+    assert launch_counts()["segment_agg"] == before + 2
+    assert float(want.max()) > 2**24 and torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_gcn_forward_cuda_equals_cpu(cuda, masked):
     """Only ``x @ W`` differs (cuBLAS against the CPU's BLAS, both in full

@@ -22,6 +22,14 @@ from repro.kernels.segment_agg import segment_aggregate as jaggregate
 from repro_torch.kernels.segment_agg import (segment_agg, segment_agg_ref,
                                              segment_aggregate, segment_layout)
 
+try:  # optional, as in tests/test_carry.py
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    HAVE_HYPOTHESIS = True
+except ImportError:
+    HAVE_HYPOTHESIS = False
+
 SWEEP = [(200, 1000, 32), (513, 4097, 64), (64, 100, 16)]
 
 
@@ -138,3 +146,89 @@ def test_bad_ids_and_devices_raise():
                         row_ptr=lay.row_ptr.to("meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         segment_agg(torch.zeros(20, 2, device="meta"), meta)
+
+
+def test_long_rows_listed_longest_first_and_carried():
+    """Rows of more than T edges, longest first (ties by row id), carried
+    by ``with_weights``; none when no row passes T."""
+    from repro_torch.kernels.segment_agg import LONG_ROW_EDGES as T
+
+    rng = np.random.default_rng(11)
+    lengths = {3: T + 40, 8: T + 12, 1: T + 40, 6: T + 1, 0: T, 5: 7}
+    dst = np.concatenate([np.full(m, r) for r, m in lengths.items()]).astype(np.int32)
+    rng.shuffle(dst)
+    src = rng.integers(0, 9, dst.size).astype(np.int32)
+    lay = segment_layout(src, dst, 9, device="cpu")
+    assert lay.long_rows.dtype == torch.int32 and lay.long_row_edges == T
+    assert lay.long_rows.tolist() == [1, 3, 8, 6]
+    again = lay.with_weights(rng.standard_normal(dst.size).astype(np.float32))
+    assert torch.equal(again.long_rows, lay.long_rows) and again.long_row_edges == T
+    short = segment_layout(src[dst == 0], dst[dst == 0], 9, device="cpu")
+    assert short.long_rows.numel() == 0
+
+
+def _edge_order_sum(p):
+    """The plain version's sum of each column, edge by edge from +0.0."""
+    n = p.shape[0]
+    return segment_agg_ref(p, torch.arange(n), torch.zeros(n, dtype=torch.long),
+                           torch.ones(n), 1)[0]
+
+
+def _pairwise_sum(p):
+    while p.shape[0] > 1:
+        if p.shape[0] % 2:
+            p = torch.cat([p, torch.zeros_like(p[:1])])
+        p = p[0::2] + p[1::2]
+    return 0.0 + p[0]
+
+
+if HAVE_HYPOTHESIS:
+    @given(n=st.integers(1, 400), q=st.integers(-140, 100), bits=st.integers(1, 24),
+           seed=st.integers(0, 2**31 - 1))
+    @settings(max_examples=300, deadline=None, database=None)
+    def test_tree_rule_accepts_only_order_free_rows(n, q, bits, seed):
+        """Products m·2^q with |m| < 2^bits (exact in float32): where the rule accepts a column,
+        a reversed and a pairwise sum give the edge-order sum's bits."""
+        from repro_torch.kernels.segment_agg import tree_exact
+
+        rng = np.random.default_rng(seed)
+        m = rng.integers(-(2**bits) + 1, 2**bits, (n, 3)).astype(np.float64)
+        p = torch.from_numpy(np.ldexp(m, q).astype(np.float32))
+        ok = tree_exact(p)
+        chain = _edge_order_sum(p)
+        for c in torch.nonzero(ok)[:, 0].tolist():
+            col = p[:, c:c + 1]
+            assert _edge_order_sum(col.flip(0)).view(torch.int32) == chain[c].view(torch.int32)
+            assert _pairwise_sum(col).view(torch.int32) == chain[c].view(torch.int32)
+        big = np.abs(m).max(axis=0) * n < 2.0**24  # the rule, by integers, where q is the floor
+        exact_q = (m != 0).any(axis=0) & (np.gcd.reduce(m.astype(np.int64), axis=0) % 2 == 1)
+        if np.isfinite(np.ldexp(m, q).astype(np.float32)).all():
+            for c in np.nonzero(exact_q)[0]:
+                top = np.ldexp(np.abs(m[:, c]).max() * n, q)
+                assert bool(ok[c]) == bool(big[c] and top < 2.0**128)
+
+
+@pytest.mark.parametrize("n,top,accepted", [(4, 2**22 - 1, True), (4, 2**22, False),
+                                            (4097, 4095, True), (4097, 4096, False),
+                                            (3, 2**23 - 1, False)])
+def test_tree_rule_edge(n, top, accepted):
+    """n·max|p| against 2^(24+q): just below is accepted, at it refused,
+    at every scale q."""
+    from repro_torch.kernels.segment_agg import tree_exact
+
+    for q in (-100, -3, 0, 7, 80):
+        col = np.full(n, 1.0)
+        col[n // 2] = top
+        p = torch.from_numpy(np.ldexp(col, q).astype(np.float32))[:, None]
+        assert bool(tree_exact(p)[0]) == accepted
+
+
+def test_tree_rule_refuses_non_finite_and_overflow_accepts_zeros():
+    from repro_torch.kernels.segment_agg import tree_exact
+
+    p = torch.ones(10, 5)
+    p[3, 1], p[4, 2] = float("inf"), float("nan")
+    p[:, 3] = -0.0
+    p[:, 4] = 2.0**126  # 10·2^126 > 2^128: a partial sum would overflow
+    assert tree_exact(p).tolist() == [True, False, False, True, False]
+    assert _edge_order_sum(p[:, 3:4]).view(torch.int32).item() == 0  # +0.0
