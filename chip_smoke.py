@@ -69,14 +69,17 @@ Phases, each printing one JSON line:
               rtol 1e-3 (the reference's decode-against-forward
               tolerance), which holds K6 against the plain decode path.
               Phase ``kernels`` then holds K6 against its plain version
-              (``flash_attention_ref`` on the same card tensors, float32
-              products in full float32, no TF32) at llama3-8b's prefill
-              layer, qwen3-14b's 5-head groups, Mixtral's 4,096 window
-              over 8,192 tokens and a ragged, padded float32 case, within
-              ``K6_LIMITS`` (bf16: per-row and mean relative error), shows
-              that a dropped kv tile and q, p left in float32 fail those
-              limits, and times ``scaled_dot_product_attention`` beside it
-              (a boolean mask from the positions where not causal alone);
+              (``flash_attention_ref`` over K6's key tiles on the same card
+              tensors, float32 products in full float32, no TF32) at
+              llama3-8b's prefill layer, qwen3-14b's 5-head groups,
+              Mixtral's 4,096 window over 8,192 tokens and a ragged,
+              padded float32 case, within ``K6_LIMITS`` (bf16: per-row and
+              mean relative error), shows that a dropped kv tile and q, p
+              left in float32 fail those limits, times
+              ``scaled_dot_product_attention`` beside it (a boolean mask
+              from the positions where not causal alone), and states the
+              tile classes (``kv_tile_classes``) and the compiled kernel's
+              registers, spills and shared memory;
 8. recsys   — the recsys serving path at xDeepFM's published config (39
               fields, embed 10, CIN 200-200-200, MLP 400-400, float32,
               50,453,809 parameters, seed 0): ``serve_recsys`` (init and the
@@ -239,9 +242,49 @@ def phase_build() -> dict:
             f.write(f"== {name}\n{log}\n")
     info = {"phase": "build", "seconds": res["seconds"],
             "sources": {n: os.path.relpath(str(p), ROOT)
-                        for n, p in _build.SOURCES.items()}}
+                        for n, p in _build.SOURCES.items()},
+            "k6_kernels": ptxas_kernels(res["logs"].get("flash_attention", ""))}
     emit(info)
     return info
+
+
+def _kernel_label(mangled: str) -> str:
+    """``_ZN12_GLOBAL__N_111fa_fwd_bf16ILi128EEEv…`` → ``fa_fwd_bf16<128>``:
+    the last of the length-prefixed names, and its int template argument."""
+    import re
+
+    pos, name = re.match(r"_ZN?", mangled).end() if mangled.startswith("_Z") else 0, mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:])
+        pos += n.end()
+        name, pos = mangled[pos:pos + int(n.group())], pos + int(n.group())
+    t = re.match(r"ILi(\d+)E", mangled[pos:])
+    return f"{name}<{t.group(1)}>" if t else name
+
+
+def ptxas_kernels(log: str) -> dict:
+    """``-Xptxas -v``'s figures per kernel of one source: registers, spill
+    stores and loads (bytes), stack frame (bytes); templates named as
+    ``fa_fwd_bf16<128>``."""
+    import re
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(_kernel_label(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def _game_audit(out) -> dict:
@@ -816,13 +859,13 @@ def check_k3_g1(main, compare) -> list[dict]:
     return rows
 
 
-def phase_kernels(main, compare, serve, lm, recsys) -> list[dict]:
+def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
     k1 = check_k1(main)
     k2 = [check_k2(main, k) for k in (8, 32, 256)]
     cms = check_cms(main)
     k3_g1 = check_k3_g1(main, compare)
     k5 = check_k5(serve)
-    k6 = check_k6(lm)
+    k6 = check_k6(lm, build)
     k7 = check_k7(recsys)
     rows = [k1, *k2, *cms, *k3_g1, *k5, *k6, *k7]
     _check_rows(rows)
@@ -1320,46 +1363,82 @@ def _within(errs: dict, limits: dict) -> bool:
     return all(errs[k] <= v for k, v in limits.items())
 
 
-def check_k6(lm) -> list[dict]:
+K6_CASES = [  # name, B, S, T, H, KV, dtype, window, padded keys
+    ("K6 flash_attention llama3-8b prefill (bf16, causal)", 4, 4096, 4096, 32, 8,
+     "bfloat16", None, 0),
+    ("K6 flash_attention qwen3-14b groups G=5 (bf16, causal)", 1, 4096, 4096, 40, 8,
+     "bfloat16", None, 0),
+    ("K6 flash_attention Mixtral window 4096 over 8192 (bf16)", 1, 8192, 8192, 32, 8,
+     "bfloat16", 4096, 0),
+    ("K6 flash_attention ragged, padded keys (f32, causal)", 2, 1000, 1100, 32, 8,
+     "float32", None, 37),
+]
+K6_HD = 128
+
+
+def k6_inputs(case, gen) -> tuple:
+    """q (B·KV, S, G·hd), k, v (B·KV, T, hd) from ``gen`` on the card, and
+    the positions: queries at the last S of T, the last keys padding."""
+    import torch
+
+    _, B, S, T, H, KV, dtn, _, pad = case
+    dt, G, hd = getattr(torch, dtn), H // KV, K6_HD
+    q = torch.randn(B * KV, S, G * hd, device="cuda", generator=gen).to(dt)
+    k = torch.randn(B * KV, T, hd, device="cuda", generator=gen).to(dt)
+    v = torch.randn(B * KV, T, hd, device="cuda", generator=gen).to(dt)
+    qp = torch.arange(T - S, T, dtype=torch.int32, device="cuda").expand(B * KV, S).contiguous()
+    kp = torch.arange(T, dtype=torch.int32, device="cuda").expand(B * KV, T).contiguous()
+    if pad:  # the last keys are padding
+        kp[:, T - pad:] = -(2**30)
+    return q, k, v, qp, kp
+
+
+def k6_tile_classes(case, qp, kp) -> dict:
+    """How many (q tile, kv tile) pairs of one kv head K6 skips, masks and
+    takes whole, from ``kv_tile_classes`` (the kernel's rule in torch)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    _, B, S, T, H, KV, dtn, window, _ = case
+    dt = getattr(torch, dtn)
+    cls = fa_ref.kv_tile_classes(qp[::KV], kp[::KV], H // KV, fa_k.ROW_TILE[dt],
+                                 fa_k.KEY_TILE[dt], causal=True, window=window)
+    return {"rows": fa_k.ROW_TILE[dt], "keys": fa_k.KEY_TILE[dt],
+            "skip": int((cls == fa_ref.SKIP).sum()), "partial": int((cls == fa_ref.PARTIAL).sum()),
+            "full": int((cls == fa_ref.FULL).sum())}
+
+
+def check_k6(lm, build) -> list[dict]:
     """K6 at the LM's shapes against ``flash_attention_ref`` on the same
     card tensors (float32 products in full float32), within ``K6_LIMITS``.
-    The plain version runs over K6's 64-key tiles, so each row's running
-    max, and with it each p rounded to bf16, is K6's: over other tiles the
-    two would round p apart, as far apart as a p left unrounded.
+    The plain version runs over K6's key tiles (``KEY_TILE``), so each
+    row's running max, and with it each p rounded to bf16, is K6's: over
+    other tiles the two would round p apart, as far apart as a p left
+    unrounded.
     Two planted faults, computed by the plain version on altered inputs,
     must fail those limits: one kv tile in the middle dropped (its keys
     masked), and, in bf16, q and p kept in float32 (the inputs upcast).
     ``scaled_dot_product_attention`` is the yardstick: ``is_causal`` where
     the mask is causal alone, else a boolean mask built from the positions
-    (every query row sees a key, so the sentinel decides nothing)."""
+    (every query row sees a key, so the sentinel decides nothing).  Each
+    row also states the tile classes and the compiled kernel's registers,
+    spills and shared memory."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_ref
 
     _highest_f32()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [  # name, B, S, T, H, KV, dtype, window, padded keys
-        ("K6 flash_attention llama3-8b prefill (bf16, causal)", 4, 4096, 4096, 32, 8,
-         torch.bfloat16, None, 0),
-        ("K6 flash_attention qwen3-14b groups G=5 (bf16, causal)", 1, 4096, 4096, 40, 8,
-         torch.bfloat16, None, 0),
-        ("K6 flash_attention Mixtral window 4096 over 8192 (bf16)", 1, 8192, 8192, 32, 8,
-         torch.bfloat16, 4096, 0),
-        ("K6 flash_attention ragged, padded keys (f32, causal)", 2, 1000, 1100, 32, 8,
-         torch.float32, None, 37),
-    ]
     rows = []
-    hd = 128
-    for name, B, S, T, H, KV, dt, window, pad in cases:
-        G = H // KV
-        q = torch.randn(B * KV, S, G * hd, device="cuda", generator=gen).to(dt)
-        k = torch.randn(B * KV, T, hd, device="cuda", generator=gen).to(dt)
-        v = torch.randn(B * KV, T, hd, device="cuda", generator=gen).to(dt)
-        qp = torch.arange(T - S, T, dtype=torch.int32, device="cuda").expand(B * KV, S).contiguous()
-        kp = torch.arange(T, dtype=torch.int32, device="cuda").expand(B * KV, T).contiguous()
-        if pad:  # the last keys are padding
-            kp[:, T - pad:] = -(2**30)
+    hd = K6_HD
+    for case in K6_CASES:
+        name, B, S, T, H, KV, dtn, window, pad = case
+        dt, G = getattr(torch, dtn), H // KV
+        q, k, v, qp, kp = k6_inputs(case, gen)
         ms = cuda_time_ms(lambda: flash_attention_fwd(q, k, v, qp, kp, causal=True,
                                                       window=window), reps=10)
         got = flash_attention_fwd(q, k, v, qp, kp, causal=True, window=window)
@@ -1368,10 +1447,9 @@ def check_k6(lm) -> list[dict]:
 
         def plain(qq=q, kk=k, vv=v, kpos=kp):
             return flash_attention_ref(qq, kk, vv, qp, kpos, causal=True, window=window,
-                                       block_q=1024, block_k=64)
+                                       block_q=1024, block_k=fa_k.KEY_TILE[dt])
 
         plain_ms = cuda_time_ms(lambda: out.__setitem__("ref", plain()), reps=2)
-        dtn = str(dt).removeprefix("torch.")
         limits = K6_LIMITS[dtn]
         errs = _k6_errs(got, out["ref"], hd)
         j0 = (T // 2) // 64 * 64
@@ -1408,6 +1486,9 @@ def check_k6(lm) -> list[dict]:
         n_ops = 4 * hd * pairs  # q·k and p·v per visible pair
         peak = BF16_TENSOR_OPS_PER_S if dt == torch.bfloat16 else SCALAR_OPS_PER_S
         b, by = bound_ms(n_bytes, n_ops, peak)
+        kern = f"fa_fwd_{'bf16' if dt == torch.bfloat16 else 'f32'}<{hd}>"
+        compiled = dict(build.get("k6_kernels", {}).get(kern, {}),
+                        smem_bytes=fa_k.smem_bytes(hd, dt))
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/kernel.py:36",
@@ -1419,10 +1500,12 @@ def check_k6(lm) -> list[dict]:
                                "dtype": dtn, "window": window, "padded_keys": pad,
                                "errors": errs, "limits": limits, "planted_faults": faults,
                                "visible_pairs_per_head": pairs // H,
+                               "tile_classes": k6_tile_classes(case, qp, kp),
+                               "kernel": kern, "compiled": compiled,
                                "flops": n_ops, "bytes": n_bytes,
                                "tflops_per_s": n_ops / ms / 1e9,
-                               "plain": "flash_attention_ref(block_q=1024, block_k=64), "
-                                        "on the card, TF32 off",
+                               "plain": f"flash_attention_ref(block_q=1024, "
+                                        f"block_k={fa_k.KEY_TILE[dt]}), on the card, TF32 off",
                                "library": library,
                                "launches_on": "llama3-8b prefill (phase lm)"}})
         del q, k, v, ql, got, out
@@ -1716,7 +1799,7 @@ def main(argv=None) -> int:
     serve = phase_serve(args.products_scale)
     lm = phase_lm()
     recsys = phase_recsys()
-    summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys)
+    summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build)
     results.update(main=main_run["info"], compare=compare["rows"],
                    pagerank=compare["pagerank"], serve=serve["info"])
     del serve

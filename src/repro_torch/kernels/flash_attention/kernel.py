@@ -10,6 +10,12 @@ launch; on CPU tensors it runs :func:`.ref.flash_attention_ref`.  A CUDA
 tensor never takes the plain path: a failed build or launch raises.  K6 has
 no backward kernel yet: a gradient through it raises (the training slice
 ports ``_fa_bwd``).
+
+K6 tiles the flattened (query, head) rows by ``ROW_TILE`` and the keys by
+``KEY_TILE``, per dtype.  p is rounded to bf16 against the running max of
+each key tile, so a plain version that is to match K6 in bf16 runs over
+``block_k=KEY_TILE[dtype]``; :func:`.ref.kv_tile_classes` mirrors which of
+those tiles K6 skips, masks or takes whole.
 """
 
 from __future__ import annotations
@@ -21,9 +27,12 @@ import torch
 from .. import _build
 from . import ref
 
-__all__ = ["flash_attention_fwd", "launch_counts", "reset_launch_counts", "HEAD_DIMS"]
+__all__ = ["flash_attention_fwd", "launch_counts", "reset_launch_counts", "smem_bytes",
+           "HEAD_DIMS", "KEY_TILE", "ROW_TILE"]
 
 HEAD_DIMS = (16, 32, 64, 128)
+KEY_TILE = {torch.bfloat16: 128, torch.float32: 32}  # keys per kv tile (csrc kBfKeys, kF32Keys)
+ROW_TILE = {torch.bfloat16: 128, torch.float32: 64}  # flattened rows per block (kBfRows, kRows)
 _LAUNCHES = {"flash_attention": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,8 +53,17 @@ def _lib():
         lib.flash_attention_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                                ctypes.c_float, _I, _I, _I, _I, _P]
         lib.flash_attention_launch.restype = _I
+        lib.flash_attention_smem_bytes.argtypes = [_I, _I]
+        lib.flash_attention_smem_bytes.restype = _I
         lib._typed = True
     return lib
+
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K6 block at ``hd`` in ``dtype`` (builds K6)."""
+    if hd not in HEAD_DIMS or dtype not in KEY_TILE:
+        raise ValueError(f"K6 takes d_head in {HEAD_DIMS} and float32 or bfloat16")
+    return int(_lib().flash_attention_smem_bytes(hd, int(dtype == torch.bfloat16)))
 
 
 def _check(q, k, v, q_pos, kv_pos) -> tuple[int, int, int, int, int]:
@@ -83,6 +101,8 @@ class _K6(torch.autograd.Function):
         for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("kv_pos", kv_pos)):
             if not t.is_contiguous():
                 raise ValueError(f"K6 takes contiguous tensors; {name} is not")
+        if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("K6 takes 16-byte aligned bfloat16 q, k and v (its TMA maps)")
         out = torch.empty_like(q)
         if S == 0 or BK == 0:
             return out
@@ -111,7 +131,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Positions lie in [−2^30, 2^30); a key is visible where ``kv_pos >= 0``,
     ``q_pos − kv_pos >= 0`` (``causal``) and ``q_pos − kv_pos < window``.
     A row that sees no key returns garbage.  ``block_q``/``block_k`` block
-    the plain version on CPU tensors; K6 tiles by itself."""
+    the plain version on CPU tensors; K6 tiles by itself (``KEY_TILE``)."""
     dev = q.device
     if dev.type == "cpu":
         _check(q, k, v, q_pos, kv_pos)

@@ -19,15 +19,21 @@ side by side in q's last axis.
 Masks are built from positions: a key is visible where ``kv_pos >= 0``,
 ``q_pos − kv_pos >= 0`` (causal) and ``q_pos − kv_pos < window`` (sliding
 window), in int32 arithmetic as the reference's.
+
+:func:`kv_tile_classes` is the rule by which K6's bf16 kernel sorts its kv
+tiles into ``SKIP`` (not loaded), ``PARTIAL`` (masked element by element)
+and ``FULL`` (every pair visible: no mask), stated in torch.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "flash_attention_ref", "NEG"]
+__all__ = ["attention_ref", "flash_attention_ref", "kv_tile_classes", "NEG", "SKIP",
+           "PARTIAL", "FULL"]
 
 NEG = -1e30
+SKIP, PARTIAL, FULL = 0, 1, 2  # csrc/flash_attention.cu kSkip, kPartial, kFull
 
 
 def _visible(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool, window) -> torch.Tensor:
@@ -90,3 +96,46 @@ def flash_attention_ref(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
             m = m_new
         out[:, rows] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     return out.reshape(BK, S, Ghd)
+
+
+def kv_tile_classes(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int, rows: int, keys: int,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """(BK, S) and (BK, T) positions → (BK, ⌈S·G/rows⌉, ⌈T/keys⌉) int8 of
+    ``SKIP``, ``PARTIAL`` or ``FULL``, for q tiles of ``rows`` flattened
+    (query, head) rows and kv tiles of ``keys`` keys (keys past T are
+    padding, position −1).  With [qmin, qmax] the positions of a q tile's
+    rows below S·G: a kv tile is SKIP where no key is valid and inside
+    [qmin − window + 1, qmax]; FULL where every key is valid, the largest
+    key ≤ qmin (causal) and qmax − the smallest < window; else PARTIAL.
+    Positions lie in [−2^30, 2^30), where these bounds need no wrap."""
+    BK, S = q_pos.shape
+    T = kv_pos.shape[1]
+    nq, nk = -(-S * G // rows), -(-T // keys)
+    big = 2**40
+    qp = torch.repeat_interleave(q_pos.long(), G, dim=1)
+    qp_lo = torch.full((BK, nq * rows), big, dtype=torch.int64, device=qp.device)
+    qp_hi = torch.full((BK, nq * rows), -big, dtype=torch.int64, device=qp.device)
+    qp_lo[:, :S * G] = qp
+    qp_hi[:, :S * G] = qp
+    qmin = qp_lo.view(BK, nq, rows).amin(-1)[:, :, None]  # (BK, nq, 1)
+    qmax = qp_hi.view(BK, nq, rows).amax(-1)[:, :, None]
+    kp = torch.full((BK, nk * keys), -1, dtype=torch.int64, device=kv_pos.device)
+    kp[:, :T] = kv_pos.long()
+    kp = kp.view(BK, nk, keys)
+    valid = kp >= 0
+    seen = valid[:, None]  # (BK, 1, nk, keys): could a row of the q tile see the key?
+    if causal:
+        seen = seen & (qmax[..., None] - kp[:, None] >= 0)
+    if window is not None:
+        seen = seen & (qmin[..., None] - kp[:, None] < window)
+    kmin = torch.where(valid, kp, big).amin(-1)[:, None]  # (BK, 1, nk)
+    kmax = torch.where(valid, kp, -big).amax(-1)[:, None]
+    full = valid.all(-1)[:, None].expand(BK, nq, nk)
+    if causal:
+        full = full & (kmax <= qmin)
+    if window is not None:
+        full = full & (qmax - kmin < window)
+    cls = torch.full((BK, nq, nk), PARTIAL, dtype=torch.int8, device=q_pos.device)
+    cls[full] = FULL
+    cls[~seen.any(-1)] = SKIP
+    return cls

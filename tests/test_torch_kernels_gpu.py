@@ -463,15 +463,18 @@ def highest_f32():
 @pytest.mark.parametrize("G,window,causal,case", [
     (4, None, True, "plain"), (5, None, True, "plain"), (1, 64, True, "plain"),
     (2, None, True, "ragged"), (3, 48, True, "rolling"), (2, 40, False, "padded"),
+    (4, None, True, "long"), (2, 300, True, "long"),
 ])
 def test_k6_flash_attention(cuda, highest_f32, dtype, hd, G, window, causal, case):
-    """K6 against ``flash_attention_ref`` on the same card tensors: atol 2e-5
-    in float32 and 2e-2 in bfloat16 (tests/test_kernels.py's flash sweep):
-    the kernel sums in another order and takes ``__expf``."""
+    """K6 against ``flash_attention_ref`` over K6's key tiles on the same
+    card tensors: atol 2e-5 in float32 and 2e-2 in bfloat16
+    (tests/test_kernels.py's flash sweep): the kernel sums in another order
+    and takes exp2 of log2e-scaled differences."""
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_ref, launch_counts)
+    from repro_torch.kernels.flash_attention.kernel import KEY_TILE
 
-    S, T = {"ragged": (77, 141)}.get(case, (192, 192))
+    S, T = {"ragged": (77, 141), "long": (1000, 1000)}.get(case, (192, 192))
     q, k, v, qp, kp = _k6_inputs(3, S, T, G, hd, dtype, seed=hd + G,
                                  rolling=case == "rolling",
                                  pad_keys=5 if case == "padded" else 0)
@@ -480,7 +483,7 @@ def test_k6_flash_attention(cuda, highest_f32, dtype, hd, G, window, causal, cas
     got = flash_attention_fwd(*args, causal=causal, window=window)
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == before + 1
-    want = flash_attention_ref(*args, causal=causal, window=window)
+    want = flash_attention_ref(*args, causal=causal, window=window, block_k=KEY_TILE[dtype])
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
@@ -504,6 +507,11 @@ def test_k6_model_layout_and_refusals(cuda, highest_f32):
     half = [t.to(cuda) for t in _k6_inputs(1, 8, 8, 1, 16, torch.float16, 0)]
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_attention_fwd(*half)
+    bq, bk_, bv, bqp, bkp = [t.to(cuda) for t in _k6_inputs(1, 8, 8, 1, 16, torch.bfloat16, 0)]
+    shifted = torch.empty(bq.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(bq.shape)
+    shifted.copy_(bq)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(shifted, bk_, bv, bqp, bkp)
     x = torch.ones(1, 16, 32, device=cuda, requires_grad=True)
     p16 = torch.arange(16, dtype=torch.int32, device=cuda)[None]
     out = flash_attention_fwd(x, x.detach(), x.detach(), p16, p16)
