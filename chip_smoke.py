@@ -96,9 +96,14 @@ Phases, each printing one JSON line:
               1e-4, atol 1e-6 and each CIN layer's pools within 1e-5 of its
               max (the logits cannot see a K7 that drops a term).  Phase
               ``kernels`` then holds K7 against ``cin_layer_ref`` at layer
-              1's and layer 2's shapes (B = 512, float32 and bf16) and a
-              ragged B = 1,000, within ``K7_LIMITS``, shows that a dropped h
-              slice fails them, and times one ``torch.einsum`` beside it;
+              1's and layer 2's shapes (B = 512, float32 and bf16), a
+              ragged B = 1,000 and ``serve_bulk``'s layer 2 (B = 262,144),
+              within ``K7_LIMITS``; two launches must give equal bits; a
+              dropped h slice and, where ``plan`` splits the K stages, a
+              dropped split's partial (``cin_split_partials``) must fail the
+              limits; one ``torch.einsum`` is timed beside it where its
+              intermediate fits the card, and the bound is stated on the
+              tensor cores (``k7_bounds``) beside the scalar one;
 9. parity   — every partitioner on ``community_graph(2000, 32, 8,
               seed=5)``, k = 8, on ``cuda`` and on ``cpu``: the parts must be
               identical; and the game's δ where Σ(degs + sizes) passes 2**24
@@ -132,6 +137,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
+TF32_TENSOR_OPS_PER_S = 495e12  # dense TF32 tensor-core rate
 
 
 def emit(obj) -> None:
@@ -243,14 +249,16 @@ def phase_build() -> dict:
     info = {"phase": "build", "seconds": res["seconds"],
             "sources": {n: os.path.relpath(str(p), ROOT)
                         for n, p in _build.SOURCES.items()},
-            "k6_kernels": ptxas_kernels(res["logs"].get("flash_attention", ""))}
+            "k6_kernels": ptxas_kernels(res["logs"].get("flash_attention", "")),
+            "k7_kernels": ptxas_kernels(res["logs"].get("cin", ""))}
     emit(info)
     return info
 
 
 def _kernel_label(mangled: str) -> str:
     """``_ZN12_GLOBAL__N_111fa_fwd_bf16ILi128EEEv…`` → ``fa_fwd_bf16<128>``:
-    the last of the length-prefixed names, and its int template argument."""
+    the last of the length-prefixed names, and its template argument (an
+    int, ``float`` or ``__nv_bfloat16``)."""
     import re
 
     pos, name = re.match(r"_ZN?", mangled).end() if mangled.startswith("_Z") else 0, mangled
@@ -258,8 +266,11 @@ def _kernel_label(mangled: str) -> str:
         n = re.match(r"\d+", mangled[pos:])
         pos += n.end()
         name, pos = mangled[pos:pos + int(n.group())], pos + int(n.group())
-    t = re.match(r"ILi(\d+)E", mangled[pos:])
-    return f"{name}<{t.group(1)}>" if t else name
+    t = re.match(r"I(?:Li(\d+)E|(f)|\d+(__nv_bfloat16))E", mangled[pos:])
+    if not t:
+        return name
+    arg = t.group(1) or ("float" if t.group(2) else t.group(3))
+    return f"{name}<{arg}>"
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -866,7 +877,7 @@ def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
     k3_g1 = check_k3_g1(main, compare)
     k5 = check_k5(serve)
     k6 = check_k6(lm, build)
-    k7 = check_k7(recsys)
+    k7 = check_k7(recsys, build)
     rows = [k1, *k2, *cms, *k3_g1, *k5, *k6, *k7]
     _check_rows(rows)
     main_k2 = next(r for r in k2 if r["shape"]["k"] == main["cfg"].k)
@@ -1706,72 +1717,132 @@ def _k7_errs(got, want) -> dict:
             "mean_rel_err": float(d.mean() / w.mean())}
 
 
-def check_k7(recsys) -> list[dict]:
-    """K7 at the recsys path's shapes against ``cin_layer_ref`` on the same
-    card tensors (float32 products in full float32), within ``K7_LIMITS``.
-    A planted fault, the plain version with one h slice of ``xk`` zeroed,
-    must fail those limits.  The yardstick is one ``torch.einsum`` of the
-    same function with TF32 off."""
+K7_CASES = [  # name, B, Hk, dtype: m = 39, H' = 200, D = 10 (the published widths)
+    ("K7 cin serve_p99 layer 1 (B=512, f32)", 512, 39, "float32"),
+    ("K7 cin serve_p99 layer 2 (B=512, f32)", 512, 200, "float32"),
+    ("K7 cin serve_p99 layer 2 (B=512, bf16)", 512, 200, "bfloat16"),
+    ("K7 cin ragged layer 2 (B=1000, f32)", 1000, 200, "float32"),
+    ("K7 cin serve_bulk layer 2 (B=262144, f32)", 262_144, 200, "float32"),
+]
+
+
+def k7_inputs(B: int, Hk: int, dt, gen, m: int = 39, Hn: int = 200, D: int = 10):
+    """xk, x0, w at the model's scales: embeddings 0.01, layer-1 outputs
+    ~5e-4, w 0.1 (layer 1 takes x0 as xk)."""
     import torch
 
-    from repro_torch.kernels.cin import cin_layer, cin_layer_ref
+    x0 = (0.01 * torch.randn(B, m, D, device="cuda", generator=gen)).to(dt)
+    xk = x0 if Hk == m else \
+        (5e-4 * torch.randn(B, Hk, D, device="cuda", generator=gen)).to(dt)
+    w = (0.1 * torch.randn(Hk * m, Hn, device="cuda", generator=gen)).to(dt)
+    return xk, x0, w
+
+
+def k7_bounds(B: int, Hk: int, m: int, D: int, Hn: int, dtn: str, elem: int) -> dict:
+    """K7's bound on the tensor cores (3 TF32 products in float32 at 495
+    TFLOP/s, 2 bf16 products in bf16 at 989: the passes its rounding needs)
+    and the scalar-rate bound that the scalar kernel was held to (one
+    product at 67 TFLOP/s)."""
+    n_ops = 2 * B * D * Hk * m * Hn
+    n_bytes = (B * D * (Hk + m + Hn) + Hk * m * Hn) * elem
+    passes, rate = (3, TF32_TENSOR_OPS_PER_S) if dtn == "float32" else \
+        (2, BF16_TENSOR_OPS_PER_S)
+    b, by = bound_ms(n_bytes, passes * n_ops, rate)
+    return {"bound_ms": b, "bound_by": by, "bound_scalar_ms": bound_ms(n_bytes, n_ops)[0],
+            "flops": n_ops, "tensor_flops": passes * n_ops, "bytes": n_bytes}
+
+
+def check_k7(recsys, build) -> list[dict]:
+    """K7 at the recsys path's shapes against ``cin_layer_ref`` on the same
+    card tensors (float32 products in full float32), within ``K7_LIMITS``.
+    Two launches on the same inputs must give equal bits.  Two planted
+    faults must fail those limits: the plain version with one h slice of
+    ``xk`` zeroed, and, where ``plan`` splits the K stages, the emulated
+    partials (``cin_split_partials``) summed without one split.  The
+    yardstick is one ``torch.einsum`` of the same function with TF32 off,
+    where its (B, Hk, m, D) intermediate fits the card."""
+    import torch
+
+    from repro_torch.kernels.cin import cin_layer, cin_layer_ref, cin_split_partials, plan
+    from repro_torch.kernels.cin.kernel import _lib, _slots
 
     _highest_f32()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [  # name, B, Hk, dtype: m = 39, H' = 200, D = 10 (the published widths)
-        ("K7 cin serve_p99 layer 1 (B=512, f32)", 512, 39, torch.float32),
-        ("K7 cin serve_p99 layer 2 (B=512, f32)", 512, 200, torch.float32),
-        ("K7 cin serve_p99 layer 2 (B=512, bf16)", 512, 200, torch.bfloat16),
-        ("K7 cin ragged layer 2 (B=1000, f32)", 1000, 200, torch.float32),
-    ]
     m, Hn, D = 39, 200, 10
+    compiled = {k: v for k, v in build.get("k7_kernels", {}).items() if "cin_kernel" in k}
     rows = []
-    for name, B, Hk, dt in cases:
-        # the model's scales: embeddings 0.01, layer-1 outputs ~5e-4, w 0.1
-        x0 = (0.01 * torch.randn(B, m, D, device="cuda", generator=gen)).to(dt)
-        xk = x0 if Hk == m else \
-            (5e-4 * torch.randn(B, Hk, D, device="cuda", generator=gen)).to(dt)
-        w = (0.1 * torch.randn(Hk * m, Hn, device="cuda", generator=gen)).to(dt)
-        ms = cuda_time_ms(lambda: cin_layer(xk, x0, w), reps=10)
+    for name, B, Hk, dtn in K7_CASES:
+        dt = getattr(torch, dtn)
+        bulk = B > 100_000
+        xk, x0, w = k7_inputs(B, Hk, dt, gen)
+        is_bf16 = int(dt == torch.bfloat16)
+        cut = plan(B, Hk, m, D, Hn, dt, _slots(_lib(), xk.device, m, is_bf16), _lib())
+        ms = cuda_time_ms(lambda: cin_layer(xk, x0, w), reps=3 if bulk else 10)
         got = cin_layer(xk, x0, w)
+        again = cin_layer(xk, x0, w)
         torch.cuda.synchronize()
+        as_int = torch.int16 if is_bf16 else torch.int32
+        repeatable = bool(torch.equal(got.view(as_int), again.view(as_int)))
+        del again
         out = {}
         plain_ms = cuda_time_ms(lambda: out.__setitem__("ref", cin_layer_ref(xk, x0, w)),
-                                reps=3)
-        dtn = str(dt).removeprefix("torch.")
+                                reps=1 if bulk else 3)
         limits = K7_LIMITS[dtn]
         errs = _k7_errs(got, out["ref"])
         h_drop = Hk // 2
         xk_drop = xk.clone()
         xk_drop[:, h_drop] = 0
-        fault = _k7_errs(got, cin_layer_ref(xk_drop, x0, w))
-        if _within(fault, limits):
-            raise SystemExit(f"chip_smoke: {name}: the limits {limits} do not see the "
-                             f"planted fault (h = {h_drop} dropped): {fault}")
+        faults = {f"h = {h_drop} dropped": _k7_errs(got, cin_layer_ref(xk_drop, x0, w))}
+        del xk_drop
+        emulation = None
+        if not bulk:
+            parts = cin_split_partials(xk, x0, w, splits=cut["splits"])
+            emulation = _k7_errs(got, sum(parts[1:], parts[0]).to(dt))
+            if len(parts) > 1:
+                s_drop = len(parts) // 2
+                kept = [p for i, p in enumerate(parts) if i != s_drop]
+                faults[f"split {s_drop} of {len(parts)} dropped"] = \
+                    _k7_errs(got, sum(kept[1:], kept[0]).to(dt))
+            del parts
+        for fault, fe in faults.items():
+            if _within(fe, limits):
+                raise SystemExit(f"chip_smoke: {name}: the limits {limits} do not see the "
+                                 f"planted fault ({fault}): {fe}")
+        if not repeatable:
+            raise SystemExit(f"chip_smoke: {name}: two launches on the same inputs differ")
         w3 = w.view(Hk, m, Hn)
-        lib_ms = cuda_time_ms(lambda: torch.einsum("bhd,bmd,hmn->bnd", xk, x0, w3), reps=10)
-        n_ops = 2 * B * D * Hk * m * Hn
-        n_bytes = (xk.numel() + x0.numel() + w.numel() + B * Hn * D) * xk.element_size()
-        b, by = bound_ms(n_bytes, n_ops)
+        z_bytes = B * Hk * m * D * 4
+        if z_bytes < torch.cuda.mem_get_info()[0] // 4:
+            lib_ms = cuda_time_ms(lambda: torch.einsum("bhd,bmd,hmn->bnd", xk, x0, w3), reps=10)
+            library = "torch.einsum('bhd,bmd,hmn->bnd'), TF32 off, opt_einsum " + \
+                ("on" if torch.backends.opt_einsum.enabled else "off")
+        else:
+            lib_ms = None
+            library = (f"none: one torch.einsum forms the {z_bytes:,}-byte (B, Hk, m, D) "
+                       "product, more than the card holds")
+        bounds = k7_bounds(B, Hk, m, D, Hn, dtn, xk.element_size())
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/cin/csrc/cin.cu",
                      "replaces": "src/repro/kernels/cin/kernel.py:39",
                      "launches": recsys["launches"]["cin"],
                      "max_abs_err": errs["max_abs_err"],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": lib_ms,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds["bound_ms"],
+                     "bound_by": bounds["bound_by"], "library_ms": lib_ms,
                      "shape": {"B": B, "Hk": Hk, "m": m, "H'": Hn, "D": D, "dtype": dtn,
-                               "errors": errs, "limits": limits,
-                               "planted_faults": {f"h = {h_drop} dropped": fault},
-                               "flops": n_ops, "bytes": n_bytes,
-                               "tflops_per_s": n_ops / ms / 1e9,
+                               "plan": cut, "errors": errs, "limits": limits,
+                               "repeatable_bits": repeatable,
+                               "emulation_errors": emulation,
+                               "planted_faults": faults,
+                               "flops": bounds["flops"], "tensor_flops": bounds["tensor_flops"],
+                               "bytes": bounds["bytes"],
+                               "bound_scalar_ms": bounds["bound_scalar_ms"],
+                               "tflops_per_s": bounds["flops"] / ms / 1e9,
+                               "tensor_tflops_per_s": bounds["tensor_flops"] / ms / 1e9,
+                               "compiled": compiled,
                                "plain": "cin_layer_ref on the card, TF32 off",
-                               "library": "torch.einsum('bhd,bmd,hmn->bnd'), TF32 off, "
-                                          "opt_einsum "
-                                          + ("on" if torch.backends.opt_einsum.enabled
-                                             else "off"),
+                               "library": library,
                                "launches_on": "xDeepFM serving (phase recsys)"}})
-        del x0, xk, w, got, out, xk_drop
+        del x0, xk, w, got, out
     return rows
 
 

@@ -568,6 +568,8 @@ def _k7_inputs(B, Hk, m, D, Hn, dtype, seed):
 @pytest.mark.parametrize("B,Hk,m,D,Hn", [
     (64, 6, 6, 4, 8), (77, 8, 6, 4, 8), (64, 10, 6, 8, 12), (512, 39, 39, 10, 200),
     (300, 200, 39, 10, 200), (1000, 200, 39, 10, 200), (5, 3, 2, 1, 41),
+    (512, 200, 39, 10, 200), (64, 200, 39, 10, 200), (100, 20, 40, 10, 200),
+    (3, 4, 5, 2, 300),
 ])
 def test_k7_cin_layer(cuda, highest_f32, dtype, B, Hk, m, D, Hn):
     """K7 against ``cin_layer_ref`` on the same card tensors: float32 max
@@ -590,6 +592,59 @@ def test_k7_cin_layer(cuda, highest_f32, dtype, B, Hk, m, D, Hn):
         assert bool((d <= 2**-7 * want.float().abs() + 2**-15 * top).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hk", [(512, 200), (64, 200), (512, 39), (2048, 200)])
+def test_k7_repeatable_and_near_its_emulation(cuda, highest_f32, dtype, B, Hk):
+    """K7 split over its K stages where the rows are too few to fill the
+    card (``plan``): two launches give equal bits (no atomics), and the
+    result is within ``test_k7_cin_layer``'s limits of
+    ``cin_split_partials``' sum (the emulation sums each stage in another
+    order)."""
+    from repro_torch.kernels.cin import cin_layer, cin_split_partials, plan
+    from repro_torch.kernels.cin.kernel import _lib, _slots
+
+    m, D, Hn = 39, 10, 200
+    xk, x0, w = (t.to(cuda) for t in _k7_inputs(B, Hk, m, D, Hn, dtype, seed=B + 1))
+    is_bf16 = int(dtype == torch.bfloat16)
+    p = plan(B, Hk, m, D, Hn, dtype, _slots(_lib(), xk.device, m, is_bf16), _lib())
+    first = cin_layer(xk, x0, w)
+    again = cin_layer(xk, x0, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16 if is_bf16 else torch.int32),
+                       again.view(torch.int16 if is_bf16 else torch.int32))
+    parts = cin_split_partials(xk, x0, w, splits=p["splits"])
+    want = sum(parts[1:], parts[0]).to(dtype)
+    d = (first.float() - want.float()).abs()
+    top = want.float().abs().max()
+    if dtype == torch.float32:
+        assert float(d.max()) <= 1e-5 * float(top)
+    else:
+        assert bool((d <= 2**-7 * want.float().abs() + 2**-15 * top).all())
+
+
+def test_k6_float32_repeatable(cuda, highest_f32):
+    """``test_k6_model_layout_and_refusals``' float32 case 300 times in one
+    process: the card gives the same bits on every call, within atol 2e-5 of
+    the plain version on the CPU."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 100, 8, 64), np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 100, 2, 64), np.float32))
+    v = torch.from_numpy(rng.standard_normal((2, 100, 2, 64), np.float32))
+    pos = torch.arange(100, dtype=torch.int32).expand(2, 100)
+    want = flash_attention(q, k, v, pos, pos, causal=True, window=None)
+    args = [t.to(cuda) for t in (q, k, v, pos, pos)]
+    first = flash_attention(*args, causal=True, window=None)
+    differ = 0
+    for _ in range(300):
+        got = flash_attention(*args, causal=True, window=None)
+        differ += int(not torch.equal(got, first))
+    torch.cuda.synchronize()
+    assert differ == 0
+    torch.testing.assert_close(first.cpu(), want, rtol=0, atol=2e-5)
+
+
 def test_k7_refusals_and_backward(cuda):
     from repro_torch.kernels.cin import cin_layer, cin_layer_kernel
 
@@ -601,6 +656,23 @@ def test_k7_refusals_and_backward(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         big = torch.ones(1, 400, 1, device=cuda)
         cin_layer(big[:, :1], big, torch.ones(400, 2, device=cuda))
+    from repro_torch.kernels.cin.kernel import _lib, smem_bytes
+
+    for dt in (torch.float32, torch.bfloat16):  # the wrapper's formula is the kernel's
+        for m, hr in ((2, 1), (39, 39), (39, 200), (272, 1)):
+            assert _lib().cin_smem_bytes(m, hr, int(dt == torch.bfloat16)) == \
+                smem_bytes(m, hr, dt)
+    # x0's fields beside the w ring: up to 272 in float32, 584 in bf16
+    for dt, m_max in ((torch.float32, 272), (torch.bfloat16, 584)):
+        for m, fits in ((m_max, True), (m_max + 1, False)):
+            x0m = torch.ones(2, m, 3, device=cuda, dtype=dt)
+            args = (x0m[:, :1].contiguous(), x0m, torch.ones(m, 5, device=cuda, dtype=dt))
+            if fits:
+                torch.testing.assert_close(cin_layer(*args).float(),
+                                           torch.full((2, 5, 3), float(m), device=cuda))
+            else:
+                with pytest.raises(ValueError, match="shared memory"):
+                    cin_layer(*args)
     torch.testing.assert_close(cin_layer_kernel(xk.transpose(1, 2).contiguous()
                                                 .transpose(1, 2), x0, w),
                                cin_layer(xk, x0, w), rtol=0, atol=0)
