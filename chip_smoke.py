@@ -47,8 +47,19 @@ Phases, each printing one JSON line:
               K1–K5 bitwise equal (tolerance 0), K6 within the tolerance
               its row states (below); times by CUDA
               events, the plain version's time, the bound, and a PyTorch
-              library call where one computes the same function.  K3 and
-              G1 run 4,096 edges onto the final state of the compare run;
+              library call where one computes the same function; for the
+              serial scans also a latency bound (edges × the chain's
+              dependent steps × the round trips that a pointer chase and a
+              reduction chain measure on the card first, ``latency.py``).
+              K1 and K3 run the main path's 65,536-edge chunks from the
+              empty state and from the state after half the chunks (K1
+              under S5P, S5P-B, 2PS-L's ξ = -1 and CLUGP's ξ; K3 in both
+              modes, each insert followed by its retract, which must
+              restore the state), and 4,096 edges onto the final state;
+              each row also holds two launches against each other and
+              names the first differing leaf and index on a mismatch; K3's
+              rung and tile and K1's tile are printed for k = 8, 32, 256
+              and 4,096 (``kernel_plan``).  G1 runs the grid row's chunk;
               K5 runs the serve phase's degree counts (d = 1, every long
               row on the tree), layer-1 (d = 16) and layer-2 (d = 7)
               aggregations and one over its features in bfloat16 (d = 100),
@@ -144,9 +155,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
@@ -403,63 +414,146 @@ def phase_main(scale: int) -> dict:
             "launches": launches, "cfg": cfg}
 
 
-def check_k1(main) -> dict:
+def first_diff(got, want, names) -> str | None:
+    """The first leaf and index where two sequences of tensors differ."""
+    import torch
+
+    for name, a, b in zip(names, got, want):
+        if a is None and b is None:
+            continue
+        a, b = a.cpu(), b.cpu()
+        if a.shape != b.shape:
+            return f"leaf {name}: shape {tuple(a.shape)} vs {tuple(b.shape)}"
+        if not torch.equal(a, b):
+            i = int((a.reshape(-1) != b.reshape(-1)).nonzero()[0])
+            return f"leaf {name} index {i}: {int(a.reshape(-1)[i])} vs {int(b.reshape(-1)[i])}"
+    return None
+
+
+def twice(run, reset, outs) -> bool:
+    """Whether two launches from one state give the same bits: ``run``
+    launches, ``outs()`` lists what it left."""
+    import torch
+
+    reset()
+    run()
+    first = [t.clone() for t in outs() if t is not None]
+    reset()
+    run()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, [t for t in outs() if t is not None]))
+
+
+def main_chunk(main, c: int):
+    """Chunk ``c`` of the main stream (65,536 edges; no chunk but the last
+    is padded) on the card."""
+    import torch
+
+    L = 1 << 16
+    return (torch.from_numpy(main["src"][c * L:(c + 1) * L]).cuda(),
+            torch.from_numpy(main["dst"][c * L:(c + 1) * L]).cuda())
+
+
+def _k1_row(label, state0, src, dst, degrees, kw, rt, launches, shape) -> dict:
+    """K1 on card tensors from ``state0`` against the plain fold on the same
+    inputs, bitwise, and two launches against each other."""
     import torch
 
     from repro_torch.core.clustering import ClusterState
     from repro_torch.kernels.stream_scan import cluster_chunk_oracle, cluster_scan
+    from repro_torch.kernels.stream_scan.latency import latency_bound_ms
 
-    out, cfg = main["out"], main["cfg"]
-    state = out.aux["incremental"]["cluster_state"]
-    degrees = out.aux["incremental"]["degrees"]
-    E = 4096
-    src = torch.from_numpy(main["src"][:E]).cuda()
-    dst = torch.from_numpy(main["dst"][:E]).cuda()
-    kw = dict(xi=out.xi, kappa=out.kappa, global_tail=cfg.bounded)
-    work = [t.clone() for t in state]
+    E = int(src.numel())
+    work = [t.clone() for t in state0]
 
     def reset():
-        for w, s in zip(work, state):
-            w.copy_(s)
+        for w, t in zip(work, state0):
+            w.copy_(t)
 
     def run():
         cluster_scan(tuple(work), src, dst, degrees, **kw)
 
-    ms = cuda_time_ms(run, reps=5, setup=reset)
-    reset()
-    got = cluster_scan(tuple(work), src, dst, degrees, **kw)
-    torch.cuda.synchronize()
-    plain_state = tuple(t.cpu() for t in state)
+    ms = cuda_time_ms(run, reps=3, setup=reset)
+    same = twice(run, reset, lambda: work)
+    plain_state = tuple(t.cpu() for t in state0)
     cpu_args = (src.cpu(), dst.cpu(), degrees.cpu())
-    want = None
+    want = {}
 
     def run_plain():
-        nonlocal want
-        copy = tuple(t.clone() for t in plain_state)
-        want = cluster_chunk_oracle(copy, *cpu_args, **kw)
+        want["out"] = cluster_chunk_oracle(tuple(t.clone() for t in plain_state),
+                                           *cpu_args, **kw)
 
     plain_ms = host_time_ms(run_plain)
-    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    diff = first_diff(work, want["out"], ClusterState._fields)
+    err = max(max_abs_err(g, w) for g, w in zip(work, want["out"]))
     uniq = int(torch.unique(torch.cat([src, dst])).numel())
     n_bytes = 8 * E + uniq * (7 * 4 + 6 * 4 + 4 * 4)
-    n_ops = 60 * E
-    b, by = bound_ms(n_bytes, n_ops)
-    return {"name": "K1 cluster_scan (Alg. 1 fold)", "route": "cuda",
+    b, by = bound_ms(n_bytes, 60 * E)
+    return {"name": label, "route": "cuda",
             "source": "src/repro_torch/kernels/stream_scan/csrc/stream_scan.cu",
             "replaces": "src/repro/kernels/stream_scan/kernel.py:467",
-            "launches": main["launches"]["cluster_scan"], "max_abs_err": err,
+            "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None,
-            "shape": {"V": int(degrees.shape[0]), "chunk": E,
-                      "distinct_vertices": uniq,
-                      "leaves": list(ClusterState._fields)}}
+            "library_ms": None, "latency_bound_ms": latency_bound_ms("K1", E, rt),
+            "shape": {"V": int(degrees.shape[0]), "chunk": E, "distinct_vertices": uniq,
+                      "new_head_ids": int(want["out"][5]) - int(state0[5]),
+                      "new_tail_ids": int(want["out"][6]) - int(state0[6]),
+                      "bitwise": diff is None and same, "first_diff": diff,
+                      "equal_on_two_launches": same, "xi": kw["xi"], "kappa": kw["kappa"],
+                      "global_tail": kw["global_tail"], **shape}}
 
 
-def check_k2(main, k: int) -> dict:
+def check_k1(main, rt) -> list[dict]:
+    """K1 where the main path and the baselines run it: 65,536-edge chunks
+    from the empty state and from the state after half the chunks, under
+    S5P's ξ and κ, S5P-B's global tail at κ = 2^31 - 1, 2PS-L's ξ = -1 (all
+    head) and CLUGP's ξ (all tail); and 4,096 edges onto the main run's
+    final state.  The first row is the main path's chunk."""
+    import torch
+
+    from repro_torch.core.clustering import init_state
+    from repro_torch.kernels.stream_scan import cluster_scan
+
+    out, cfg, n = main["out"], main["cfg"], main["n"]
+    inc = out.aux["incremental"]
+    degrees = inc["degrees"]
+    E_all = int(main["src"].shape[0])
+    mid = math.ceil(E_all / (1 << 16)) // 2
+    kappa = max(math.ceil(2.0 * E_all / cfg.k), 2)
+    variants = [("S5P", out.xi, out.kappa, cfg.bounded, ("mid", "empty")),
+                ("S5P-B", out.xi, 2**31 - 1, True, ("mid", "empty")),
+                ("2PS-L xi=-1", -1, kappa, False, ("mid", "empty")),
+                ("CLUGP xi=2^31-2", 2**31 - 2, kappa, False, ("mid",))]
+    launches = main["launches"]["cluster_scan"]
+    rows = []
+    for name, xi, kap, gt, states in variants:
+        kw = dict(xi=xi, kappa=kap, global_tail=gt)
+        state = tuple(init_state(n, "cuda"))
+        snaps = {"empty": tuple(t.clone() for t in state)}
+        for c in range(mid):
+            cluster_scan(state, *main_chunk(main, c), degrees, **kw)
+        snaps["mid"] = state
+        for st in states:
+            c = mid if st == "mid" else 0
+            rows.append(_k1_row(f"K1 cluster_scan (Alg. 1 fold) {name}, {st} state",
+                                snaps[st], *main_chunk(main, c), degrees, kw, rt,
+                                launches, {"variant": name, "state": st, "chunk_index": c}))
+        del state, snaps
+    E = 4096
+    src, dst = (torch.from_numpy(a[:E]).cuda() for a in (main["src"], main["dst"]))
+    kw = dict(xi=out.xi, kappa=out.kappa, global_tail=cfg.bounded)
+    rows.append(_k1_row("K1 cluster_scan (Alg. 1 fold) S5P, 4,096 edges, final state",
+                        inc["cluster_state"], src, dst, degrees, kw, rt, launches,
+                        {"variant": "S5P", "state": "final", "chunk_index": 0}))
+    return rows
+
+
+def check_k2(main, k: int, rt) -> dict:
     import numpy as np
     import torch
 
     from repro_torch.kernels.stream_scan import assign_chunk_oracle, assign_scan
+    from repro_torch.kernels.stream_scan.latency import latency_bound_ms
 
     out, E_all = main["out"], main["src"].shape[0]
     E = 4096
@@ -523,7 +617,7 @@ def check_k2(main, k: int) -> dict:
             "replaces": "src/repro/kernels/stream_scan/kernel.py:581",
             "launches": main["launches"]["assign_scan"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, "latency_bound_ms": latency_bound_ms("K2", E, rt),
             "shape": {"k": k, "chunk": E, "cap": cap,
                       "full_partitions_after": overflow}}
 
@@ -726,27 +820,30 @@ def _compare_retract(main, hdrf_parts, s_t, d_t) -> dict:
     return info
 
 
-def _scoring_state(main, parts, hdrf: bool):
-    """The final (load, rep[, pd]) of a Greedy/HDRF run over the main graph,
-    rebuilt from its parts: the counted tables are functions of them, and
-    pd counts every endpoint entry, the last chunk's (0, 0) padding too."""
+def _scoring_state(main, parts, hdrf: bool, n_edges: int | None = None):
+    """The (load, rep[, pd]) of a Greedy/HDRF run over the main graph's
+    first ``n_edges`` edges (default all), rebuilt from their parts: the
+    counted tables are functions of them, and pd counts every endpoint
+    entry, the last chunk's (0, 0) padding too."""
     import torch
 
     from repro_torch.core.clustering import compute_degrees
 
     n, k = main["n"], main["cfg"].k
-    s = torch.from_numpy(main["src"]).cuda()
-    d = torch.from_numpy(main["dst"]).cuda()
-    ok = (parts >= 0).to(torch.int32)
-    p = parts.clamp(min=0).long()
+    m = int(main["src"].shape[0]) if n_edges is None else n_edges
+    s = torch.from_numpy(main["src"][:m]).cuda()
+    d = torch.from_numpy(main["dst"][:m]).cuda()
+    ok = (parts[:m] >= 0).to(torch.int32)
+    p = parts[:m].clamp(min=0).long()
     load = torch.zeros(k, dtype=torch.int32, device="cuda").index_add_(0, p, ok)
     rep = torch.zeros(n * k, dtype=torch.int32, device="cuda")
     rep.index_add_(0, s.long() * k + p, ok).index_add_(0, d.long() * k + p, ok)
     state = [load, rep.view(n, k)]
     if hdrf:
         pd = compute_degrees(s, d, n)
-        pad = (-s.numel()) % (1 << 16) if s.numel() > (1 << 16) else 0
-        pd[0] += 2 * pad
+        if n_edges is None:
+            pad = (-s.numel()) % (1 << 16) if s.numel() > (1 << 16) else 0
+            pd[0] += 2 * pad
         state.append(pd)
     return state
 
@@ -767,121 +864,213 @@ def _k3_bytes(src, dst, parts, uniq, k, hdrf, retract):
             + 32 * sectors + 8 * k)
 
 
-def check_k3_g1(main, compare) -> list[dict]:
-    import numpy as np
+def _k3_row(label, mode, sign, state0, src, dst, parts_in, rt, launches, shape):
+    """K3 on card tensors from ``state0`` against the plain version on the
+    same inputs, bitwise, and two launches against each other.  Returns the
+    row and the kernel's (parts, load, rep, pd)."""
+    import torch
+
+    from repro_torch.kernels.stream_scan import scoring_chunk_oracle, scoring_scan
+    from repro_torch.kernels.stream_scan.latency import latency_bound_ms
+    from repro_torch.kernels.stream_scan.plan import scoring_plan
+
+    hdrf = mode == "hdrf"
+    E = int(src.numel())
+    k = int(state0[0].numel())
+    work = [t.clone() for t in state0]
+    lam = 1.1 if hdrf else None
+    kw = dict(mode=mode, sign=sign, parts=parts_in, n_valid=E if sign < 0 else None)
+    got = {}
+
+    def reset():
+        for w, t in zip(work, state0):
+            w.copy_(t)
+
+    def run():
+        got["out"] = scoring_scan(src, dst, *work[:2], work[2] if hdrf else None, lam, **kw)
+
+    ms = cuda_time_ms(run, reps=3, setup=reset)
+    same = twice(run, reset, lambda: got["out"])
+    out = got["out"]
+    plain = [t.to("cpu", copy=True) for t in state0]
+    ckw = dict(kw, parts=None if parts_in is None else parts_in.cpu())
+    want = {}
+
+    def run_plain():
+        want["out"] = scoring_chunk_oracle(src.cpu(), dst.cpu(), *plain[:2],
+                                           plain[2] if hdrf else None, lam, **ckw)
+
+    plain_ms = host_time_ms(run_plain)
+    diff = first_diff(out, want["out"], ("parts", "load", "rep", "pd"))
+    err = max(max_abs_err(g, w) for g, w in zip(out, want["out"]) if w is not None)
+    uniq = int(torch.unique(torch.cat([src, dst])).numel())
+    b, by = bound_ms(_k3_bytes(src, dst, out[0], uniq, k, hdrf, sign < 0),
+                     (12 if hdrf else 8) * k * E)
+    p = scoring_plan(k)
+    chain = "K3 retract" if sign < 0 else f"K3 {mode}"
+    row = {"name": label, "route": "cuda",
+           "source": "src/repro_torch/kernels/stream_scan/csrc/scoring_scan.cu",
+           "replaces": "src/repro/kernels/stream_scan/kernel.py:124",
+           "launches": launches, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+           "library_ms": None, "latency_bound_ms": latency_bound_ms(chain, E, rt),
+           "shape": {"V": int(state0[1].shape[0]), "k": k, "chunk": E,
+                     "distinct_vertices": uniq, "rung": p.rung, "tile": p.tile,
+                     "bitwise": diff is None and same, "first_diff": diff,
+                     "equal_on_two_launches": same, **shape}}
+    return row, out
+
+
+def check_k3_g1(main, compare, rt) -> list[dict]:
+    """K3 where the Greedy and HDRF rows run it: 65,536-edge chunks from the
+    empty state and from the state after half the chunks, insert and then
+    the retract of what that insert placed, in both modes; and the 4,096-edge
+    rows onto the compare run's final state.  G1 on the grid row's chunk.
+    The first three rows are the main path's: Greedy and HDRF inserts and
+    HDRF's retract, mid-stream."""
     import torch
 
     from repro_torch.core.baselines import _grid_dims, _grid_rowcol
-    from repro_torch.kernels.stream_scan import (grid_chunk_oracle, grid_scan,
-                                                 scoring_chunk_oracle, scoring_scan)
+    from repro_torch.kernels.stream_scan import grid_chunk_oracle, grid_scan
+    from repro_torch.kernels.stream_scan.latency import latency_bound_ms
 
     n, k = main["n"], main["cfg"].k
-    E = 4096
-    src = torch.from_numpy(main["src"][:E]).cuda()
-    dst = torch.from_numpy(main["dst"][:E]).cuda()
-    cs, cd = src.cpu(), dst.cpu()
-    uniq = int(torch.unique(torch.cat([src, dst])).numel())
+    L = 1 << 16
+    E_all = int(main["src"].shape[0])
+    mid = math.ceil(E_all / L) // 2
     launches = compare["launches"]
-    rows = []
-
-    def one(name, mode, sign, state0, parts_in=None):
+    n_ret = compare["retract"]["launches"]["scoring_retract"]
+    made = {}
+    for mode in ("greedy", "hdrf"):
         hdrf = mode == "hdrf"
-        # launches on the path that runs this mode: the compare row's
-        # inserts, the delete path's retracts
-        n_launches = (launches[mode]["scoring_scan"] if sign > 0
-                      else compare["retract"]["launches"]["scoring_retract"])
-        work = [t.clone() for t in state0]
-        lam = 1.1 if hdrf else None
-        kw = dict(mode=mode, sign=sign, parts=parts_in, n_valid=E if sign < 0 else None)
+        parts = compare["parts"][mode]
+        for st in ("mid", "empty"):
+            c = mid if st == "mid" else 0
+            if st == "mid":
+                state0 = _scoring_state(main, parts, hdrf, n_edges=mid * L)
+            else:
+                state0 = [torch.zeros(k, dtype=torch.int32, device="cuda"),
+                          torch.zeros((n, k), dtype=torch.int32, device="cuda")]
+                if hdrf:
+                    state0.append(torch.zeros(n, dtype=torch.int32, device="cuda"))
+            src, dst = main_chunk(main, c)
+            shape = {"state": st, "chunk_index": c}
+            ins, out = _k3_row(f"K3 scoring_scan {mode} insert, {st} state", mode, 1,
+                               state0, src, dst, None, rt, launches[mode]["scoring_scan"],
+                               shape)
+            after = [t.clone() for t in out[1:] if t is not None]
+            ret, undone = _k3_row(f"K3 scoring_scan {mode} retract (sign=-1), {st} state",
+                                  mode, -1, after, src, dst, out[0].clone(), rt,
+                                  n_ret if hdrf else 0, shape)
+            # the retract gives back exactly what the insert added
+            ret["shape"]["restores_state"] = first_diff(
+                undone[1:], state0, ("load", "rep", "pd")) is None
+            ret["shape"]["bitwise"] &= ret["shape"]["restores_state"]
+            made[mode, st, 1], made[mode, st, -1] = ins, ret
+            del state0, after, out, undone
+    # the main path's three: Greedy's and HDRF's inserts and HDRF's retract
+    main_rows = [made.pop(("greedy", "mid", 1)), made.pop(("hdrf", "mid", 1)),
+                 made.pop(("hdrf", "mid", -1))]
+    extra = list(made.values())
 
-        def reset():
-            for w, t in zip(work, state0):
-                w.copy_(t)
-
-        def run():
-            scoring_scan(src, dst, *work[:2], work[2] if hdrf else None, lam, **kw)
-
-        ms = cuda_time_ms(run, reps=5, setup=reset)
-        reset()
-        got = scoring_scan(src, dst, *work[:2], work[2] if hdrf else None, lam, **kw)
-        torch.cuda.synchronize()
-        plain = [t.to("cpu", copy=True) for t in state0]
-        ckw = dict(kw, parts=None if parts_in is None else parts_in.cpu())
-        want = {}
-
-        def run_plain():
-            want["out"] = scoring_chunk_oracle(cs, cd, *plain[:2],
-                                               plain[2] if hdrf else None, lam, **ckw)
-
-        plain_ms = host_time_ms(run_plain)
-        err = max(max_abs_err(g, w) for g, w in zip(got, want["out"]) if w is not None)
-        n_bytes = _k3_bytes(src, dst, got[0], uniq, k, hdrf, sign < 0)
-        n_ops = (12 if hdrf else 8) * k * E
-        b, by = bound_ms(n_bytes, n_ops)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/stream_scan/csrc/scoring_scan.cu",
-                     "replaces": "src/repro/kernels/stream_scan/kernel.py:124",
-                     "launches": n_launches, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": None,
-                     "shape": {"V": n, "k": k, "chunk": E, "distinct_vertices": uniq,
-                               "state": "final state of the compare run"}})
-        return got
-
+    E = 4096
+    src, dst = (torch.from_numpy(a[:E]).cuda() for a in (main["src"], main["dst"]))
     g_state = _scoring_state(main, compare["parts"]["greedy"], hdrf=False)
-    one("K3 scoring_scan greedy insert", "greedy", 1, g_state)
+    extra.append(_k3_row("K3 scoring_scan greedy insert, 4,096 edges, final state",
+                         "greedy", 1, g_state, src, dst, None, rt,
+                         launches["greedy"]["scoring_scan"], {"state": "final"})[0])
     del g_state
     h_state = _scoring_state(main, compare["parts"]["hdrf"], hdrf=True)
-    parts_ins = one("K3 scoring_scan hdrf insert", "hdrf", 1, h_state)[0]
-    after = [t.clone() for t in h_state]
-    scoring_scan(src, dst, *after, 1.1, mode="hdrf")
-    one("K3 scoring_scan hdrf retract (sign=-1)", "hdrf", -1, after, parts_ins.clone())
-    # the retract gives back exactly what the insert added
-    scoring_scan(src, dst, *after, mode="hdrf", sign=-1, parts=parts_ins, n_valid=E)
-    roundtrip = max(max_abs_err(a, b) for a, b in zip(after, h_state))
-    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], roundtrip)
-    del h_state, after
+    row, out = _k3_row("K3 scoring_scan hdrf insert, 4,096 edges, final state", "hdrf", 1,
+                       h_state, src, dst, None, rt, launches["hdrf"]["scoring_scan"],
+                       {"state": "final"})
+    extra.append(row)
+    after = [t.clone() for t in out[1:]]
+    extra.append(_k3_row("K3 scoring_scan hdrf retract (sign=-1), 4,096 edges, final state",
+                         "hdrf", -1, after, src, dst, out[0].clone(), rt, n_ret,
+                         {"state": "final"})[0])
+    del h_state, after, out
 
+    # G1: the grid row's chunk, onto the loads of the chunks before it
     _, c = _grid_dims(k)
     row_t, col_t = _grid_rowcol(n, k, c, 0, "cuda")
-    gp = compare["parts"]["grid"]
+    gp = compare["parts"]["grid"][:mid * L]
     load0 = torch.zeros(k, dtype=torch.int32, device="cuda").index_add_(
         0, gp.clamp(min=0).long(), (gp >= 0).to(torch.int32))
     load = load0.clone()
+    src, dst = main_chunk(main, mid)
+    E = int(src.numel())
     ms = cuda_time_ms(lambda: grid_scan(load, row_t, col_t, c, src, dst), reps=10,
                       setup=lambda: load.copy_(load0))
     load.copy_(load0)
     got = grid_scan(load, row_t, col_t, c, src, dst)
     torch.cuda.synchronize()
     want = {}
-    rc, cc = row_t.cpu(), col_t.cpu()
+    rc, cc, cs, cd = row_t.cpu(), col_t.cpu(), src.cpu(), dst.cpu()
     plain_ms = host_time_ms(lambda: want.__setitem__(
         "out", grid_chunk_oracle(load0.to("cpu", copy=True), rc, cc, c, cs, cd)))
     err = max(max_abs_err(a, b) for a, b in zip(got, want["out"]))
+    uniq = int(torch.unique(torch.cat([src, dst])).numel())
     # edge ids in, parts out; row[·] and col[·] of each touched vertex; loads
     b, by = bound_ms(12 * E + uniq * 8 + 8 * k, 6 * E)
-    rows.append({"name": "G1 grid_scan", "route": "cuda",
-                 "source": "src/repro_torch/kernels/stream_scan/csrc/scoring_scan.cu",
-                 "replaces": "src/repro/kernels/stream_scan/ref.py:191 (lax.scan, no Pallas kernel)",
-                 "launches": launches["grid"]["grid_scan"], "max_abs_err": err,
-                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                 "library_ms": None,
-                 "shape": {"V": n, "k": k, "chunk": E, "distinct_vertices": uniq}})
-    return rows
+    g1 = {"name": "G1 grid_scan", "route": "cuda",
+          "source": "src/repro_torch/kernels/stream_scan/csrc/scoring_scan.cu",
+          "replaces": "src/repro/kernels/stream_scan/ref.py:191 (lax.scan, no Pallas kernel)",
+          "launches": launches["grid"]["grid_scan"], "max_abs_err": err,
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+          "library_ms": None, "latency_bound_ms": latency_bound_ms("G1", E, rt),
+          "shape": {"V": n, "k": k, "chunk": E, "distinct_vertices": uniq,
+                    "state": "mid", "chunk_index": mid}}
+    return [*main_rows, g1], extra
+
+
+def kernel_plan() -> dict:
+    """K1's tile and K3's rung and tile for k = 8, 32, 256 and 4,096, as
+    ``plan`` sizes them and as the C sources lay out their bytes (which must
+    agree)."""
+    from repro_torch.kernels.stream_scan import kernel as scan_k
+    from repro_torch.kernels.stream_scan import plan
+
+    k1_c = scan_k._lib().cluster_smem_bytes(plan.K1_TILE)
+    info = {"phase": "kernel_plan",
+            "k1": {"tile": plan.K1_TILE, "threads": plan.K1_THREADS,
+                   "smem_bytes": plan.cluster_smem_bytes(plan.K1_TILE),
+                   "smem_bytes_c": k1_c},
+            "k3": {}}
+    bad = k1_c != info["k1"]["smem_bytes"]
+    for k in (8, 32, 256, 4096):
+        p = plan.scoring_plan(k)
+        c_bytes = scan_k._scoring_lib().scoring_smem_bytes(
+            k, p.tile if p.rung == "shared" else 0)
+        info["k3"][k] = {"rung": p.rung, "tile": p.tile, "smem_bytes": p.smem_bytes,
+                         "smem_bytes_c": c_bytes}
+        bad |= c_bytes != p.smem_bytes
+    emit(info)
+    if bad:
+        raise SystemExit(f"chip_smoke: plan and C sources disagree on shared bytes: {info}")
+    return info
 
 
 def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
-    k1 = check_k1(main)
-    k2 = [check_k2(main, k) for k in (8, 32, 256)]
+    from repro_torch.kernels.stream_scan.latency import measure_round_trips
+
+    rt = measure_round_trips()
+    emit({"phase": "latency_probe", **rt, "nvidia_smi_clocks_sm": nvidia_smi_line("clocks.sm")})
+    kernel_plan()
+    k1 = check_k1(main, rt)
+    k2 = [check_k2(main, k, rt) for k in (8, 32, 256)]
     cms = check_cms(main)
-    k3_g1 = check_k3_g1(main, compare)
+    k3_g1, k3_extra = check_k3_g1(main, compare, rt)
     k5 = check_k5(serve)
     k6 = check_k6(lm, build)
     k7 = check_k7(recsys, build)
-    rows = [k1, *k2, *cms, *k3_g1, *k5, *k6, *k7]
+    rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k6, *k7]
     _check_rows(rows)
     main_k2 = next(r for r in k2 if r["shape"]["k"] == main["cfg"].k)
-    return [k1, main_k2, *cms, *k3_g1, *k5, k6[0], k7[1]], rows
+    summary = [k1[0], main_k2, *cms, *k3_g1, *k5, k6[0], k7[1]]
+    for r in summary:  # a latency bound for the serial scans, none for the rest
+        r.setdefault("latency_bound_ms", None)
+    return summary, rows
 
 
 def _check_rows(rows) -> None:

@@ -28,6 +28,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 SOURCES = {
     "stream_scan": _PKG / "stream_scan" / "csrc" / "stream_scan.cu",
     "scoring_scan": _PKG / "stream_scan" / "csrc" / "scoring_scan.cu",
+    "latency_probe": _PKG / "stream_scan" / "csrc" / "latency_probe.cu",
     "cms_sketch": _PKG / "cms_sketch" / "csrc" / "cms_sketch.cu",
     "segment_agg": _PKG / "segment_agg" / "csrc" / "segment_agg.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",

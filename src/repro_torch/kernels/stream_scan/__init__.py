@@ -1,7 +1,8 @@
 """K1 (Alg. 1 fold), K2 (Alg. 3 placement), K3 (Greedy/HDRF scoring scan)
 and G1 (grid scan): CUDA kernels in ``csrc/``, wrappers in ``kernel``,
-plain versions and the scoring oracles in ``ref``, the scoring carries in
-``ops``."""
+plain versions, the staged tile plans and the scoring oracles in ``ref``,
+tile sizes in ``plan``, latency bounds in ``latency``, the scoring carries
+in ``ops``."""
 
 from .kernel import (  # noqa: F401
     assign_scan,
@@ -25,6 +26,7 @@ from .ops import (  # noqa: F401
 from .ref import (  # noqa: F401
     assign_chunk_oracle,
     cluster_chunk_oracle,
+    cluster_chunk_staged,
     grid_chunk,
     grid_chunk_oracle,
     grid_init,
@@ -36,4 +38,5 @@ from .ref import (  # noqa: F401
     hdrf_init,
     hdrf_retract_chunk,
     scoring_chunk_oracle,
+    scoring_chunk_staged,
 )

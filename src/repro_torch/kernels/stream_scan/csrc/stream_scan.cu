@@ -10,23 +10,59 @@
 //
 // What bounds them on an H100: both folds are serial — every edge reads
 // state the previous edge wrote — so neither the 3.35 TB/s of HBM nor the
-// ALUs bound them; the chain of dependent loads does.  K1's per-edge chain
-// is ~6 dependent global-memory round trips (src/dst -> deg and v2c ->
-// vol -> vol[cj] -> writes) on state of 11 int32 per vertex: at V = 2^20
-// that is 44 MB, more than one block's 227 KB of shared memory, so it
-// stays in global memory and mostly lives in the 50 MB L2.  K2's state is
-// only the (k,) load vector, which sits in shared memory.
+// ALUs bound them; the chain of dependent steps does.  K1's state is 11
+// int32 per vertex (44 MB at V = 2^20), far more than one block's 227 KB,
+// so it lives in global memory; read in place, each edge costs ~6
+// dependent L2 round trips (~2,300 cycles).  K1 therefore stages: each
+// tile of T = 1,024 edges is gathered into shared memory by the whole
+// block (512 threads), folded there by one thread, and written back by the
+// whole block.  The fold's chain is then two dependent shared-memory round
+// trips an edge (the endpoints' clusters, then those clusters' volumes)
+// plus its integer work; the stage and the write-back (~7 barriers and
+// three dependent global round trips a tile) are the rest.  Measured on an
+// H100 SXM at 1,980 MHz (scripts/bench_k1k3.py, clock64 spans): the fold
+// takes ~245 cycles an edge, the stage ~60-80 and the write-back ~24.  The
+// two round trips are ~57 of those cycles; the rest is the one thread's
+// dependent integer instructions, which issue in order with no other warp
+// to hide their latency.  Reading the next edge's int4s ahead and patching
+// them with this edge's writes measured slower (~300 cycles): the extra
+// selects and the stall on the just-loaded record cost more than the round
+// trip saved.  K2's state is only the (k,) load vector, which sits in
+// shared memory.
 //
-// What the design does about it: one chunk is one thread block.  In K1 one
-// thread runs the fold while the other 255 threads of the block stage the
-// next tile of src/dst from global into shared memory (double-buffered),
-// replacing the Pallas scalar prefetch, so edge ids never sit on the
-// dependent chain.  In K2 one warp runs the chunk: the k-wide reductions
-// (first/last partition with room, argmin of load) are warp-cooperative
-// (each lane folds k/32 entries, then shuffles), and they run only for
-// edges whose endpoint partitions are both full — the only case whose
-// result is consumed.  A shared-memory rung for small V in K1 is later
-// work.
+// K1's stage, per tile:
+//  1. every endpoint goes into an open-addressing hash of 4T vertex ids
+//     (atomicCAS on the id), whose winner takes a vertex slot;
+//  2. each vertex slot gathers deg, v2ch, v2ct, ld, cnth, cntt, alloch;
+//  3. each edge gets a record: its two slots, is_head = deg[u] > xi &&
+//     deg[v] > xi and valid = (index < limit) && u != v — none depends on
+//     the fold, so none sits on its chain — and each valid edge bumps its
+//     endpoints' cnth (head) or cntt (tail) with a shared atomic: those
+//     counts never feed the fold's decisions;
+//  4. the cluster ids the tile may hand out, next + j for j below the
+//     count of its vertices without a cluster (each gets at most one),
+//     take cluster slots 0, 1, ...; the vertices' other cluster ids go into
+//     a head and a tail hash of 4T ids and take the slots after them;
+//  5. every cluster slot gathers its volume (also at the ids still to be
+//     handed out: the reference adds to what is stored there).
+// The fold then runs fold_edge's statement order on slots; a new cluster
+// is slot nh - nh0.  The clusters a tile touches are closed under the fold
+// (an endpoint's cluster, a new id, or the other endpoint's cluster on a
+// migration), and the slot maps are bijections, so the fold reads and
+// writes nothing outside the stage and every equality test keeps its
+// meaning.  Slot numbers vary from run to run with the atomics; the
+// results do not.  The fold reads one int4 a vertex (its head and tail
+// cluster slots, local degree and degree) and the clusters' volumes; the
+// write-back adds alloch (a vertex that started without a head cluster and
+// ends with one was allocated it at its degree).  Shared memory: 53T + 8
+// int32 = 217,120 bytes at T = 1,024 (cluster_smem_bytes; repro_torch/
+// kernels/stream_scan/plan.py).
+//
+// K2's design: one warp runs the chunk: the k-wide reductions (first/last
+// partition with room, argmin of load) are warp-cooperative (each lane
+// folds k/32 entries, then shuffles), and they run only for edges whose
+// endpoint partitions are both full — the only case whose result is
+// consumed.
 //
 // Integer semantics match the JAX reference bit for bit: additions that may
 // wrap in int32 (kappa = 2^31-1 under S5P-B) are done in uint32 and cast
@@ -38,9 +74,11 @@
 
 namespace {
 
-constexpr int kClusterThreads = 256;
-constexpr int kClusterTile = 2048;  // 2 buffers x (src, dst) x 8 KB = 32 KB
+constexpr int kFoldThreads = 512;
+constexpr int kMaxFoldTile = 1024;  // 2T vertex slots fit the records' 12 bits
 constexpr int kAssignTile = 1024;   // 6 per-edge arrays x 4 KB = 24 KB
+constexpr int kHeadBit = 1 << 24;
+constexpr int kValidBit = 1 << 25;
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -63,137 +101,313 @@ struct ClusterState {
   int* alloch;  // (V,)
 };
 
-// One Alg. 1 step, in the statement order of _cluster_kernel's body.  The
-// reference's masked writes go to the sink slot V with a zero addend, so
-// they never change it; here they are skipped, which leaves every slot,
-// the sink included, bit-identical.
-__device__ __forceinline__ void fold_edge(const ClusterState& s,
-                                          const int* __restrict__ deg, int u,
-                                          int v, bool real, int xi, int kappa,
-                                          bool global_tail, int& nh, int& nt) {
-  const int du = deg[u];
-  const int dv = deg[v];
-  const bool is_head = (du > xi) && (dv > xi);
-  const bool valid = real && (u != v);
+// Position of key in an open-addressing table of `size` int32 keys (-1 is
+// empty): a multiplicative hash scaled to [0, size), then linear probing.
+__device__ __forceinline__ int hash_home(int key, int size) {
+  const uint32_t h = static_cast<uint32_t>(key) * 0x9E3779B1u;
+  return static_cast<int>((static_cast<uint64_t>(h) * static_cast<uint32_t>(size)) >> 32);
+}
 
-  // ---------------- head branch (global-degree volumes) ----------------
-  const bool h_on = is_head && valid;
-  if (h_on) {
-    const int cu = s.v2ch[u];
-    const int cv = s.v2ch[v];
-    const bool new_u = cu < 0;
-    const bool new_v = cv < 0;
-    const int cu2 = new_u ? nh : cu;
-    nh += new_u ? 1 : 0;
-    const int cv2 = new_v ? nh : cv;
-    nh += new_v ? 1 : 0;
-    if (new_u) s.volh[cu2] = wadd(s.volh[cu2], du);
-    if (new_v) s.volh[cv2] = wadd(s.volh[cv2], dv);
-    s.cnth[u] = wadd(s.cnth[u], 1);
-    s.cnth[v] = wadd(s.cnth[v], 1);
-    if (new_u) s.alloch[u] = wadd(s.alloch[u], du);
-    if (new_v) s.alloch[v] = wadd(s.alloch[v], dv);
-    s.v2ch[u] = cu2;
-    s.v2ch[v] = cv2;
-    const int vu = s.volh[cu2];
-    const int vv = s.volh[cv2];
-    const bool both_small = (vu < kappa) && (vv < kappa) && (cu2 != cv2);
-    const bool u_is_i = wsub(vu, du) <= wsub(vv, dv);  // tie -> u
-    const int ci = u_is_i ? cu2 : cv2;
-    const int cj = u_is_i ? cv2 : cu2;
-    const int i_vtx = u_is_i ? u : v;
-    const int di = u_is_i ? du : dv;
-    if (both_small && wadd(s.volh[cj], di) < kappa) {
-      s.volh[cj] = wadd(s.volh[cj], di);
-      s.volh[ci] = wsub(s.volh[ci], di);
-      s.v2ch[i_vtx] = cj;
+// Inserts key if it is absent and returns its position.  The thread whose
+// atomicCAS placed it takes the next slot from *count and records the slot
+// at the position and the key at the slot; the others read the slot after
+// the block's next barrier.
+__device__ int hash_insert(int* keys, int* slot_at, int size, int key,
+                           int* count, int* key_of_slot) {
+  int pos = hash_home(key, size);
+  for (;;) {
+    const int cur = *static_cast<volatile int*>(keys + pos);
+    if (cur == key) return pos;
+    if (cur == -1) {
+      const int old = atomicCAS(keys + pos, -1, key);
+      if (old == -1) {
+        const int slot = atomicAdd(count, 1);
+        slot_at[pos] = slot;
+        key_of_slot[slot] = key;
+        return pos;
+      }
+      if (old == key) return pos;
     }
-  }
-
-  // ---------------- tail branch (local-degree volumes) -----------------
-  const bool t_on = !is_head && valid;
-  if (t_on) {
-    const int tu = s.v2ct[u];
-    const int tv = s.v2ct[v];
-    const bool tnew_u = tu < 0;
-    const bool tnew_v = tv < 0;
-    const int tu2 = tnew_u ? nt : tu;
-    nt += tnew_u ? 1 : 0;
-    const int tv2 = tnew_v ? nt : tv;
-    nt += tnew_v ? 1 : 0;
-    if (global_tail) {
-      if (tnew_u) s.volt[tu2] = wadd(s.volt[tu2], du);
-      if (tnew_v) s.volt[tv2] = wadd(s.volt[tv2], dv);
-    } else {
-      s.volt[tu2] = wadd(s.volt[tu2], 1);
-      s.volt[tv2] = wadd(s.volt[tv2], 1);
-      s.ld[u] = wadd(s.ld[u], 1);
-      s.ld[v] = wadd(s.ld[v], 1);
-    }
-    s.v2ct[u] = tu2;
-    s.v2ct[v] = tv2;
-    s.cntt[u] = wadd(s.cntt[u], 1);
-    s.cntt[v] = wadd(s.cntt[v], 1);
-    const int tvu = s.volt[tu2];
-    const int tvv = s.volt[tv2];
-    const bool t_small = (tvu < kappa) && (tvv < kappa) && (tu2 != tv2);
-    const bool tu_is_i = tvu <= tvv;  // tie -> u
-    const int tci = tu_is_i ? tu2 : tv2;
-    const int tcj = tu_is_i ? tv2 : tu2;
-    const int ti = tu_is_i ? u : v;
-    const int ldi = global_tail ? deg[ti] : s.ld[ti];
-    bool t_mig = t_small;
-    if (global_tail) t_mig = t_mig && (wadd(s.volt[tcj], ldi) < kappa);
-    if (t_mig) {
-      s.volt[tcj] = wadd(s.volt[tcj], ldi);
-      s.volt[tci] = wsub(s.volt[tci], ldi);
-      s.v2ct[ti] = tcj;
-    }
+    pos = pos + 1 == size ? 0 : pos + 1;
   }
 }
 
-__global__ void __launch_bounds__(kClusterThreads)
-cluster_fold_kernel(const int* __restrict__ src, const int* __restrict__ dst,
-                    int n, int limit, const int* __restrict__ deg,
-                    ClusterState s, int xi, int kappa, int global_tail) {
-  __shared__ int s_src[2][kClusterTile];
-  __shared__ int s_dst[2][kClusterTile];
-  const int n_tiles = (n + kClusterTile - 1) / kClusterTile;
-  for (int j = threadIdx.x; j < min(kClusterTile, n); j += blockDim.x) {
-    s_src[0][j] = src[j];
-    s_dst[0][j] = dst[j];
-  }
-  __syncthreads();
-  int nh = 0, nt = 0;
-  if (threadIdx.x == 0) {
-    nh = *s.nexth;
-    nt = *s.nextt;
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    const int base = t * kClusterTile;
-    if (t + 1 < n_tiles) {  // stage the next tile while thread 0 folds
-      const int nb = base + kClusterTile;
-      const int cnt = min(kClusterTile, n - nb);
-      for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-        s_src[buf ^ 1][j] = src[nb + j];
-        s_dst[buf ^ 1][j] = dst[nb + j];
+// Places a key known to be absent at the given slot.
+__device__ void hash_place(int* keys, int* slot_at, int size, int key,
+                           int slot) {
+  int pos = hash_home(key, size);
+  while (atomicCAS(keys + pos, -1, key) != -1) pos = pos + 1 == size ? 0 : pos + 1;
+  slot_at[pos] = slot;
+}
+
+// One tile's fold on slots, in the statement order of _cluster_kernel's
+// body (and of core/clustering.py::_edge_step).  What the fold needs of a
+// vertex slot is one int4, read in one load: (head cluster slot, tail
+// cluster slot, local degree, degree).  The counts cnth/cntt and the
+// allocation alloch are not on the chain: every head (tail) edge that is
+// valid bumps both endpoints' cnth (cntt), which the stage counts, and a
+// vertex is allocated a head cluster at its first valid head edge exactly
+// when it had none, which the write-back adds.  Values the reference reads
+// back right after writing them are kept in registers: vol[cu2] and
+// vol[cv2] after the allocation adds (forwarded when both are one slot),
+// vol[cj] at the migration test (nothing writes vol in between).  The
+// reference's masked writes go to the sink slot V with a zero addend and are
+// skipped here, which leaves every slot, the sink included, bit-identical.
+__device__ __forceinline__ void fold_tile(int cnt, const int* e_rec, int4* vst,
+                                          int* hvol, int* tvol, int kappa,
+                                          bool global_tail, int& nh, int& nt) {
+  int* vs = reinterpret_cast<int*>(vst);  // field f of slot j is vs[4j + f]
+  // the next edge's record is loaded before this edge's stores: records are
+  // never written by the fold (index cnt reads the next array's first word)
+  int rec = e_rec[0];
+  for (int e = 0; e < cnt; ++e) {
+    const int rec_n = e_rec[e + 1];
+    if (rec & kValidBit) {
+      const int su = rec & 0xFFF;
+      const int sv = (rec >> 12) & 0xFFF;
+      const int4 xu = vst[su];
+      const int4 xv = vst[sv];
+      const int du = xu.w;
+      const int dv = xv.w;
+      if (rec & kHeadBit) {
+        // ---------------- head branch (global-degree volumes) ------------
+        const bool new_u = xu.x < 0;
+        const bool new_v = xv.x < 0;
+        const int cu2 = new_u ? nh : xu.x;
+        nh += new_u ? 1 : 0;
+        const int cv2 = new_v ? nh : xv.x;
+        nh += new_v ? 1 : 0;
+        const bool same = cu2 == cv2;
+        int a = hvol[cu2];
+        int b = hvol[cv2];
+        if (new_u) a = wadd(a, du);
+        if (same) b = a;
+        if (new_v) b = wadd(b, dv);
+        if (same) a = b;
+        if (new_u) hvol[cu2] = a;
+        if (new_v) hvol[cv2] = b;
+        const bool both_small = (a < kappa) && (b < kappa) && !same;
+        const bool u_is_i = wsub(a, du) <= wsub(b, dv);  // tie -> u
+        const int ci = u_is_i ? cu2 : cv2;
+        const int cj = u_is_i ? cv2 : cu2;
+        const int vol_i = u_is_i ? a : b;
+        const int vol_j = u_is_i ? b : a;
+        const int di = u_is_i ? du : dv;
+        const bool mig = both_small && wadd(vol_j, di) < kappa;
+        vs[4 * su] = (mig && u_is_i) ? cj : cu2;
+        vs[4 * sv] = (mig && !u_is_i) ? cj : cv2;
+        if (mig) {
+          hvol[cj] = wadd(vol_j, di);
+          hvol[ci] = wsub(vol_i, di);
+        }
+      } else {
+        // ---------------- tail branch (local-degree volumes) -------------
+        const bool tnew_u = xu.y < 0;
+        const bool tnew_v = xv.y < 0;
+        const int tu2 = tnew_u ? nt : xu.y;
+        nt += tnew_u ? 1 : 0;
+        const int tv2 = tnew_v ? nt : xv.y;
+        nt += tnew_v ? 1 : 0;
+        const bool same = tu2 == tv2;
+        int a = tvol[tu2];
+        int b = tvol[tv2];
+        int ldu = xu.z, ldv = xv.z;
+        if (global_tail) {
+          if (tnew_u) a = wadd(a, du);
+          if (same) b = a;
+          if (tnew_v) b = wadd(b, dv);
+          if (same) a = b;
+          if (tnew_u) tvol[tu2] = a;
+          if (tnew_v) tvol[tv2] = b;
+        } else {
+          a = wadd(a, 1);
+          if (same) b = a;
+          b = wadd(b, 1);
+          if (same) a = b;
+          tvol[tu2] = a;
+          tvol[tv2] = b;
+          ldu = wadd(ldu, 1);
+          ldv = wadd(ldv, 1);
+          vs[4 * su + 2] = ldu;
+          vs[4 * sv + 2] = ldv;
+        }
+        const bool t_small = (a < kappa) && (b < kappa) && !same;
+        const bool tu_is_i = a <= b;  // tie -> u
+        const int tci = tu_is_i ? tu2 : tv2;
+        const int tcj = tu_is_i ? tv2 : tu2;
+        const int vol_i = tu_is_i ? a : b;
+        const int vol_j = tu_is_i ? b : a;
+        const int ldi = global_tail ? (tu_is_i ? du : dv) : (tu_is_i ? ldu : ldv);
+        const bool t_mig = t_small && (!global_tail || wadd(vol_j, ldi) < kappa);
+        vs[4 * su + 1] = (t_mig && tu_is_i) ? tcj : tu2;
+        vs[4 * sv + 1] = (t_mig && !tu_is_i) ? tcj : tv2;
+        if (t_mig) {
+          tvol[tcj] = wadd(vol_j, ldi);
+          tvol[tci] = wsub(vol_i, ldi);
+        }
       }
     }
-    if (threadIdx.x == 0) {
-      const int cnt = min(kClusterTile, n - base);
-      for (int e = 0; e < cnt; ++e) {
-        fold_edge(s, deg, s_src[buf][e], s_dst[buf][e], base + e < limit, xi,
-                  kappa, global_tail != 0, nh, nt);
+    rec = rec_n;
+  }
+}
+
+// One chunk, one block of kFoldThreads; the layout is cluster_smem_bytes'.
+__global__ void __launch_bounds__(kFoldThreads)
+cluster_fold_kernel(const int* __restrict__ src, const int* __restrict__ dst,
+                    int n, int limit, const int* __restrict__ deg, int V,
+                    ClusterState s, int xi, int kappa, int global_tail,
+                    int tile) {
+  extern __shared__ int4 smem4[];
+  const int T = tile, H = 4 * tile, NV = 2 * tile;
+  // counters: vertex slots, head slots, tail slots, vertices without a head
+  // cluster, without a tail cluster, next head id, next tail id
+  int* sc = reinterpret_cast<int*>(smem4);
+  int4* vst = smem4 + 2;  // per vertex slot: head slot, tail slot, ld, deg
+  int* e_rec = reinterpret_cast<int*>(vst + NV);
+  int* vkey = e_rec + T;
+  int* vslot = vkey + H;
+  int* vid = vslot + H;
+  int* vh0 = vid + NV;  // the head and tail cluster ids the tile starts with
+  int* vt0 = vh0 + NV;
+  int* vcnth = vt0 + NV;
+  int* vcntt = vcnth + NV;
+  int* valloch = vcntt + NV;
+  int* hkey = valloch + NV;
+  int* hslot = hkey + H;
+  int* tkey = hslot + H;
+  int* tslot = tkey + H;
+  int* hid = tslot + H;
+  int* hvol = hid + NV;
+  int* tid = hvol + NV;
+  int* tvol = tid + NV;
+  int* vs = reinterpret_cast<int*>(vst);
+  const int me = threadIdx.x;
+  const int nthr = blockDim.x;
+  if (me == 0) {
+    sc[5] = *s.nexth;
+    sc[6] = *s.nextt;
+  }
+  for (int base = 0; base < n; base += T) {
+    const int cnt = min(T, n - base);
+    for (int j = me; j < H; j += nthr) {
+      vkey[j] = -1;
+      hkey[j] = -1;
+      tkey[j] = -1;
+    }
+    if (me < 5) sc[me] = 0;
+    __syncthreads();
+    // 1. vertex slots; the records hold the endpoints' positions for now
+    for (int e = me; e < cnt; e += nthr) {
+      const int pu = hash_insert(vkey, vslot, H, src[base + e], &sc[0], vid);
+      const int pv = hash_insert(vkey, vslot, H, dst[base + e], &sc[0], vid);
+      e_rec[e] = pu | (pv << 16);
+    }
+    __syncthreads();
+    // 2. the vertices' leaves
+    const int nv = sc[0];
+    for (int j = me; j < nv; j += nthr) {
+      const int x = vid[j];
+      const int ch = s.v2ch[x];
+      const int ct = s.v2ct[x];
+      vst[j] = make_int4(ch, ct, s.ld[x], deg[x]);
+      vh0[j] = ch;
+      vt0[j] = ct;
+      vcnth[j] = s.cnth[x];
+      vcntt[j] = s.cntt[x];
+      valloch[j] = s.alloch[x];
+      if (ch < 0) atomicAdd(&sc[3], 1);
+      if (ct < 0) atomicAdd(&sc[4], 1);
+    }
+    __syncthreads();
+    // 3. edge records and the counts; 4a. the ids this tile may hand out
+    // take cluster slots 0, 1, ...
+    const int new_h = sc[3], new_t = sc[4], nh0 = sc[5], nt0 = sc[6];
+    for (int e = me; e < cnt; e += nthr) {
+      const int pos = e_rec[e];
+      const int su = vslot[pos & 0xFFFF];
+      const int sv = vslot[pos >> 16];
+      const bool head = (vs[4 * su + 3] > xi) && (vs[4 * sv + 3] > xi);
+      const bool valid = (base + e < limit) && (su != sv);
+      e_rec[e] = su | (sv << 12) | (head ? kHeadBit : 0) | (valid ? kValidBit : 0);
+      if (valid) {
+        int* cnt_of = head ? vcnth : vcntt;
+        atomicAdd(cnt_of + su, 1);
+        atomicAdd(cnt_of + sv, 1);
       }
+    }
+    for (int j = me; j < new_h; j += nthr) {
+      hash_place(hkey, hslot, H, wadd(nh0, j), j);
+      hid[j] = wadd(nh0, j);
+    }
+    for (int j = me; j < new_t; j += nthr) {
+      hash_place(tkey, tslot, H, wadd(nt0, j), j);
+      tid[j] = wadd(nt0, j);
+    }
+    if (me == 0) {
+      sc[1] = new_h;
+      sc[2] = new_t;
+    }
+    __syncthreads();
+    // 4b. the vertices' existing clusters, at their hash positions for now
+    for (int j = me; j < nv; j += nthr) {
+      const int ch = vh0[j];
+      const int ct = vt0[j];
+      vs[4 * j] = ch < 0 ? -1 : hash_insert(hkey, hslot, H, ch, &sc[1], hid);
+      vs[4 * j + 1] = ct < 0 ? -1 : hash_insert(tkey, tslot, H, ct, &sc[2], tid);
+    }
+    __syncthreads();
+    // 5. positions to slots; every cluster slot's volume
+    for (int j = me; j < nv; j += nthr) {
+      if (vs[4 * j] >= 0) vs[4 * j] = hslot[vs[4 * j]];
+      if (vs[4 * j + 1] >= 0) vs[4 * j + 1] = tslot[vs[4 * j + 1]];
+    }
+    const int nch = sc[1], nct = sc[2];
+    for (int c = me; c < nch; c += nthr) {
+      const int id = hid[c];
+      hvol[c] = (id >= 0 && id <= V) ? s.volh[id] : 0;
+    }
+    for (int c = me; c < nct; c += nthr) {
+      const int id = tid[c];
+      tvol[c] = (id >= 0 && id <= V) ? s.volt[id] : 0;
+    }
+    __syncthreads();
+    // 6. the fold, one thread, in edge order
+    if (me == 0) {
+      int nh = 0, nt = 0;
+      fold_tile(cnt, e_rec, vst, hvol, tvol, kappa, global_tail != 0, nh, nt);
+      sc[5] = wadd(nh0, nh);
+      sc[6] = wadd(nt0, nt);
+    }
+    __syncthreads();
+    // 7. write back, slots turned into ids; a vertex that started without a
+    // head cluster and holds one now was allocated one, at its degree
+    for (int j = me; j < nv; j += nthr) {
+      const int x = vid[j];
+      const int4 st = vst[j];
+      s.v2ch[x] = st.x < 0 ? -1 : hid[st.x];
+      s.v2ct[x] = st.y < 0 ? -1 : tid[st.y];
+      s.ld[x] = st.z;
+      s.cnth[x] = vcnth[j];
+      s.cntt[x] = vcntt[j];
+      s.alloch[x] = (vh0[j] < 0 && st.x >= 0) ? wadd(valloch[j], st.w) : valloch[j];
+    }
+    for (int c = me; c < nch; c += nthr) {
+      const int id = hid[c];
+      if (id >= 0 && id <= V) s.volh[id] = hvol[c];
+    }
+    for (int c = me; c < nct; c += nthr) {
+      const int id = tid[c];
+      if (id >= 0 && id <= V) s.volt[id] = tvol[c];
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    *s.nexth = nh;
-    *s.nextt = nt;
+  if (me == 0) {
+    *s.nexth = sc[5];
+    *s.nextt = sc[6];
   }
 }
+
+size_t fold_smem_bytes(int tile) { return sizeof(int) * (53 * static_cast<size_t>(tile) + 8); }
 
 __device__ __forceinline__ unsigned long long shfl_min_u64(unsigned long long x) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -291,20 +505,29 @@ extern "C" {
 
 int assign_tile_edges() { return kAssignTile; }
 
+int cluster_smem_bytes(int tile) { return static_cast<int>(fold_smem_bytes(tile)); }
+
 int cluster_scan_launch(const void* src, const void* dst, int n, int limit,
-                        const void* deg, void* v2ch, void* v2ct, void* volh,
-                        void* volt, void* ld, void* nexth, void* nextt,
-                        void* cnth, void* cntt, void* alloch, int xi,
-                        int kappa, int global_tail, void* stream) {
+                        const void* deg, int V, void* v2ch, void* v2ct,
+                        void* volh, void* volt, void* ld, void* nexth,
+                        void* nextt, void* cnth, void* cntt, void* alloch,
+                        int xi, int kappa, int global_tail, int tile,
+                        void* stream) {
+  if (tile < 1 || tile > kMaxFoldTile) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fold_smem_bytes(tile);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      cluster_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   ClusterState s{static_cast<int*>(v2ch), static_cast<int*>(v2ct),
                  static_cast<int*>(volh), static_cast<int*>(volt),
                  static_cast<int*>(ld),   static_cast<int*>(nexth),
                  static_cast<int*>(nextt), static_cast<int*>(cnth),
                  static_cast<int*>(cntt), static_cast<int*>(alloch)};
-  cluster_fold_kernel<<<1, kClusterThreads, 0,
+  cluster_fold_kernel<<<1, kFoldThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(src), static_cast<const int*>(dst), n, limit,
-      static_cast<const int*>(deg), s, xi, kappa, global_tail);
+      static_cast<const int*>(deg), V, s, xi, kappa, global_tail, tile);
   return static_cast<int>(cudaGetLastError());
 }
 

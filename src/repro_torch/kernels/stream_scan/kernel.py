@@ -7,7 +7,9 @@ reference runs ``ref.grid_chunk`` as a ``lax.scan``).  On CUDA tensors each
 wrapper launches its kernel from ``csrc/stream_scan.cu`` (K1, K2) or
 ``csrc/scoring_scan.cu`` (K3, G1) — one thread block per chunk, on
 PyTorch's current stream, no synchronisation — and counts the launch; on
-CPU tensors it runs the plain version in :mod:`.ref`.  K1, K3 and G1
+CPU tensors it runs the plain version in :mod:`.ref`.  K1 and K3's shared
+rung fold staged tiles of edges in shared memory, sized by :mod:`.plan`
+(K3's rung and tile by ``k``: :func:`.plan.scoring_plan`).  K1, K3 and G1
 update their state in place and return it, as the Pallas call aliases its
 inputs to its outputs.
 """
@@ -20,6 +22,7 @@ import torch
 
 from .. import _build
 from . import ref
+from .plan import K1_TILE, scoring_plan
 
 __all__ = ["cluster_scan", "assign_scan", "scoring_scan", "grid_scan",
            "launch_counts", "reset_launch_counts"]
@@ -46,8 +49,11 @@ def reset_launch_counts() -> None:
 def _lib():
     lib = _build.load("stream_scan")
     if not getattr(lib, "_typed", False):
-        lib.cluster_scan_launch.argtypes = [_P, _P, _I, _I, _P] + [_P] * 10 + [_I, _I, _I, _P]
+        lib.cluster_scan_launch.argtypes = ([_P, _P, _I, _I, _P, _I] + [_P] * 10
+                                            + [_I] * 4 + [_P])
         lib.cluster_scan_launch.restype = _I
+        lib.cluster_smem_bytes.argtypes = [_I]
+        lib.cluster_smem_bytes.restype = _I
         lib.assign_scan_launch.argtypes = [_P] * 6 + [_I] * 5 + [_P, _P, _P]
         lib.assign_scan_launch.restype = _I
         lib._typed = True
@@ -58,8 +64,10 @@ def _scoring_lib():
     lib = _build.load("scoring_scan")
     if not getattr(lib, "_typed", False):
         lib.scoring_scan_launch.argtypes = ([_P] * 3 + [_I] * 6 + [_F, _F]
-                                            + [_P] * 5)
+                                            + [_P] * 4 + [_I, _P])
         lib.scoring_scan_launch.restype = _I
+        lib.scoring_smem_bytes.argtypes = [_I, _I]
+        lib.scoring_smem_bytes.restype = _I
         lib.grid_scan_launch.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 3
         lib.grid_scan_launch.restype = _I
         lib._typed = True
@@ -104,9 +112,9 @@ def cluster_scan(state, src, dst, degrees, *, xi: int, kappa: int,
         return state
     _LAUNCHES["cluster_scan"] += 1
     code = _lib().cluster_scan_launch(
-        src.data_ptr(), dst.data_ptr(), E, E, degrees.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), E, E, degrees.data_ptr(), V,
         *(leaf.data_ptr() for leaf in state), int(xi), int(kappa),
-        int(bool(global_tail)), _stream_ptr(dev))
+        int(bool(global_tail)), K1_TILE, _stream_ptr(dev))
     _build.check(code, "cluster_scan")
     return state
 
@@ -203,13 +211,15 @@ def scoring_scan(src, dst, load, rep, pd=None, lam=None, *, mode: str,
     if E == 0:
         return out, load, rep, pd if hdrf else None
     limit = E if sign > 0 else int(n_valid)
+    plan = scoring_plan(k)
     _LAUNCHES["scoring_scan" if sign > 0 else "scoring_retract"] += 1
     code = _scoring_lib().scoring_scan_launch(
         src.data_ptr(), dst.data_ptr(), None if sign > 0 else parts.data_ptr(),
         E, limit, int(sign), int(hdrf), k, k_act,
         float(lam) if hdrf and sign > 0 else 0.0, float(eps),
         load.data_ptr(), rep.data_ptr(), pd.data_ptr() if hdrf else None,
-        out.data_ptr(), _stream_ptr(dev))
+        out.data_ptr(), plan.tile if plan.rung == "shared" else 0,
+        _stream_ptr(dev))
     _build.check(code, "scoring_scan")
     return out, load, rep, pd if hdrf else None
 

@@ -5,13 +5,13 @@
 
 - **global** — on a CUDA device.  The per-vertex state (K3's counted
   ``(V, k)`` replica table and HDRF's partial degrees, K1's cluster tables)
-  lives in global memory, served by the 50 MB L2; the ``(k,)`` load vector
-  lives in shared memory.  One launch per chunk at any V: the card never
-  answers ``"oracle"``.
+  lives in global memory; K1 and K3 stage each tile's share of it in
+  shared memory (:mod:`.plan`), and the ``(k,)`` load vector lives there.
+  One launch per chunk at any V: the card never answers ``"oracle"``.
 - **oracle** — on the CPU: the plain versions in :mod:`.ref`.
 
-A shared-memory rung for state under the 227 KB (``SHARED_MEM_BYTES``) one
-block may hold is later work.  The chosen rung is logged once per
+Whether the whole state would fit one block's 227 KB
+(``SHARED_MEM_BYTES``) is only logged.  The chosen rung is logged once per
 (consumer, mode, rung) per process (``reset_path_log`` re-arms it).
 
 The Greedy, HDRF and grid baselines' :class:`~repro_torch.streaming.
@@ -32,6 +32,7 @@ from ..._device import resolve_device
 from ...streaming.carry import PartitionerCarry
 from . import ref as _ref
 from .kernel import grid_scan, scoring_scan
+from .plan import SHARED_MEM_BYTES
 
 __all__ = [
     "SHARED_MEM_BYTES",
@@ -45,7 +46,6 @@ __all__ = [
     "select_path",
 ]
 
-SHARED_MEM_BYTES = 232_448  # what one H100 block may opt in to
 
 _log = logging.getLogger(__name__)
 _logged_paths: set[tuple] = set()

@@ -1,5 +1,6 @@
 """K1, K2, K3, G1, K4a, K4b and K5 on the card against their plain PyTorch
-versions (bitwise), K6 and K7 against their plain versions within stated
+versions (bitwise; K1 and K3 also at the main path's 65,536-edge chunk, on
+every K3 rung, with equal bits on two launches), K6 and K7 against their plain versions within stated
 tolerances, and the GCN, the LM and xDeepFM on cuda against cpu.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -188,6 +189,126 @@ def test_g1_grid_scan(cuda):
     torch.cuda.synchronize()
     assert launch_counts()["grid_scan"] == before + 1
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+# K1 and K3 at the main path's chunk of 65,536 edges, on the staged tiles:
+# from the empty state and from the state after half a stream's chunks;
+# two launches from one state must give the same bits.
+MAIN_CHUNK = 1 << 16
+
+
+def _first_diff(got, want, names):
+    """The first leaf and index where two tuples of tensors differ."""
+    for name, a, b in zip(names, got, want):
+        if a is None and b is None:
+            continue
+        a = a.cpu()
+        if not torch.equal(a, b):
+            bad = (a.reshape(-1) != b.reshape(-1)).nonzero()
+            i = int(bad[0]) if bad.numel() else -1
+            return f"leaf {name} index {i}"
+    return None
+
+
+K1_VARIANTS = {  # name: (xi, kappa, global_tail); xi None = the mean degree
+    "s5p": (None, 400, False),
+    "s5p-b": (None, 400, True),
+    "clugp": (-1, 400, False),
+    "kappa-max": (None, 2**31 - 1, True),
+}
+
+
+@pytest.mark.parametrize("state", ["empty", "mid"])
+@pytest.mark.parametrize("variant", list(K1_VARIANTS))
+def test_k1_main_chunk(cuda, variant, state):
+    from repro_torch.core.clustering import ClusterState, compute_degrees, init_state
+    from repro_torch.kernels.stream_scan import cluster_chunk_oracle, cluster_scan
+
+    src, dst, n = _graph(scale=15, seed=4)  # over two main chunks of edges
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    deg = compute_degrees(s, d, n)
+    xi, kappa, gt = K1_VARIANTS[variant]
+    kw = dict(xi=int(2 * src.size / n) if xi is None else xi, kappa=kappa,
+              global_tail=gt)
+    cpu = tuple(init_state(n, "cpu"))
+    gpu = tuple(init_state(n, cuda))
+    start = MAIN_CHUNK if state == "mid" else 0
+    if start:
+        cluster_chunk_oracle(cpu, s[:start], d[:start], deg, **kw)
+        cluster_scan(gpu, s[:start].to(cuda), d[:start].to(cuda), deg.to(cuda), **kw)
+    cs, cd = s[start:start + MAIN_CHUNK], d[start:start + MAIN_CHUNK]
+    twice = []
+    for _ in range(2):
+        work = tuple(t.clone() for t in gpu)
+        twice.append(cluster_scan(work, cs.to(cuda), cd.to(cuda), deg.to(cuda), **kw))
+    torch.cuda.synchronize()
+    want = cluster_chunk_oracle(tuple(t.clone() for t in cpu), cs, cd, deg, **kw)
+    assert int(want[5]) > int(cpu[5]), "the chunk hands out new head ids"
+    assert _first_diff(twice[0], want, ClusterState._fields) is None
+    assert _first_diff(twice[1], [t.cpu() for t in twice[0]], ClusterState._fields) is None
+
+
+@pytest.mark.parametrize("mode", ["greedy", "hdrf"])
+@pytest.mark.parametrize("k", [8, 32, 256, 4096])
+def test_k3_rungs(cuda, mode, k):
+    """One row a rung (``scoring_plan``: shared at k = 8, 32, 256; global at
+    4,096): insert from a warm state then retract, on R-MAT edges with
+    self-loops and the (0, 0) padding of a last chunk."""
+    from repro_torch.kernels.stream_scan import scoring_chunk_oracle, scoring_scan
+    from repro_torch.kernels.stream_scan.plan import scoring_plan
+
+    assert scoring_plan(k).rung == ("global" if k == 4096 else "shared")
+    E = MAIN_CHUNK if k <= 32 else 1 << 14
+    src, dst, n = _graph(scale=14 if k < 4096 else 12, seed=5)
+    src, dst = src[:E].copy(), dst[:E].copy()
+    src[::101] = dst[::101]
+    pad = 37
+    src[-pad:] = 0
+    dst[-pad:] = 0
+    hdrf = mode == "hdrf"
+    load, rep, pd = _scoring_state(n, k, np.random.default_rng(k), hdrf=hdrf)
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    kw = dict(mode=mode, k_active=k - 3 if hdrf else None)
+    lam = 1.1 if hdrf else None
+    names = ("parts", "load", "rep", "pd")
+    want = scoring_chunk_oracle(s, d, load.clone(), rep.clone(),
+                                pd.clone() if hdrf else None, lam, **kw)
+    twice = []
+    for _ in range(2):
+        twice.append(scoring_scan(s.to(cuda), d.to(cuda), load.to(cuda), rep.to(cuda),
+                                  pd.to(cuda) if hdrf else None, lam, **kw))
+    torch.cuda.synchronize()
+    assert _first_diff(twice[0], want, names) is None
+    assert _first_diff(twice[1], [t.cpu() if t is not None else None
+                                  for t in twice[0]], names) is None
+    nv = E - pad
+    back_want = scoring_chunk_oracle(s, d, *want[1:3], want[3], mode=mode, sign=-1,
+                                     parts=want[0], n_valid=nv)
+    back = scoring_scan(s.to(cuda), d.to(cuda), *twice[0][1:3], twice[0][3], mode=mode,
+                        sign=-1, parts=twice[0][0], n_valid=nv)
+    torch.cuda.synchronize()
+    assert _first_diff(back, back_want, names) is None
+
+
+def test_k1_k3_shared_bytes_match_plan(cuda):
+    """The C sources lay out the bytes that ``plan`` sizes the tiles by."""
+    from repro_torch.kernels.stream_scan import kernel as K
+    from repro_torch.kernels.stream_scan import plan
+
+    assert K._lib().cluster_smem_bytes(plan.K1_TILE) == plan.cluster_smem_bytes(plan.K1_TILE)
+    for k in (1, 5, 8, 32, 100, 256, 880, 900, 4096):
+        p = plan.scoring_plan(k)
+        tile = p.tile if p.rung == "shared" else 0
+        assert K._scoring_lib().scoring_smem_bytes(k, tile) == p.smem_bytes <= plan.SHARED_MEM_BYTES
+
+
+def test_latency_probe(cuda):
+    from repro_torch.kernels.stream_scan.latency import latency_bound_ms, measure_round_trips
+
+    rt = measure_round_trips(steps=1 << 16, reps=2)
+    for name in ("shared", "shuffle", "redux"):
+        assert 1 < rt[f"{name}_ns"] < 200 and 5 < rt[f"{name}_cycles"] < 400
+    assert latency_bound_ms("K1", 4096, rt) > 0
 
 
 @pytest.mark.parametrize("name", ["grid", "greedy", "hdrf", "2ps-l"])

@@ -247,3 +247,143 @@ def test_wrappers_validate():
         tscan.scoring_scan(m, m, m[:2], rep.to("meta"), mode="greedy")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tscan.grid_scan(m[:2], m, m, 1, m, m)
+
+
+# ------------------------------------------------ K3's tile plan (staged)
+
+def _k3_case(name, mode):
+    """(src, dst, load, rep, pd, kw, tile, n_valid) of one tile-plan case."""
+    rng = np.random.default_rng(23)
+    n, k, E, tile = 90, 8, 240, 32
+    kw = {}
+    src = rng.integers(0, n, E).astype(np.int32)
+    dst = rng.integers(0, n, E).astype(np.int32)
+    load, rep, pd = _warm_state(rng, n, k)
+    n_valid = E
+    if name == "hub":  # vertex 5 is an endpoint of every edge
+        src[:] = 5
+        dst[dst == 5] = 6
+    elif name == "all-new":
+        load, rep, pd = (np.zeros_like(load), np.zeros_like(rep), np.zeros_like(pd))
+    elif name == "repeat-across-tiles":  # a few vertices, many tiles
+        src, dst = src % 6, dst % 6
+        tile = 7
+    elif name == "self-loops-padding":
+        dst[::9] = src[::9]
+        src[-11:] = 0
+        dst[-11:] = 0
+        n_valid = E - 11
+    elif name == "tile-1":
+        src, dst, tile = src[:80], dst[:80], 1
+    elif name == "ragged-tile":
+        tile = 37
+    elif name == "k-active":
+        kw["k_active"] = 5
+    elif name == "loads-2^15":  # HDRF: equal loads, eps + maxl == maxl
+        load = np.full(k, 40000, np.int32)
+        load[6:] = 7
+        kw["k_active"] = 6
+    return src, dst, load, rep, pd, kw, tile, n_valid
+
+
+K3_CASES = ["hub", "all-new", "repeat-across-tiles", "self-loops-padding", "tile-1",
+            "ragged-tile", "k-active", "loads-2^15"]
+
+
+@pytest.mark.parametrize("mode", ["greedy", "hdrf"])
+@pytest.mark.parametrize("case", K3_CASES)
+def test_scoring_staged_matches_oracle(case, mode):
+    """K3's shared rung (vertex slots, staged rows and partial degrees, tile
+    boundaries, rows written back whole) gives the plain scan's bits, insert
+    then retract, whatever the slots' numbering."""
+    src, dst, load, rep, pd, kw, tile, nv = _k3_case(case, mode)
+    hdrf = mode == "hdrf"
+    if not hdrf:
+        kw.pop("k_active", None)
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+
+    def fresh():
+        return (torch.from_numpy(load.copy()), torch.from_numpy(rep.copy()),
+                torch.from_numpy(pd.copy()) if hdrf else None)
+
+    want = tref.scoring_chunk_oracle(s, d, *fresh(), 1.1, mode=mode, **kw)
+    got = tref.scoring_chunk_staged(s, d, *fresh(), 1.1, mode=mode, tile=tile,
+                                    slot_seed=len(case), **kw)
+    for a, b in zip(want, got):
+        assert (a is None and b is None) or torch.equal(a, b), case
+    if case == "loads-2^15" and hdrf:
+        assert int(want[0][0]) == 0  # every active score NaN: the first wins
+    back_want = tref.scoring_chunk_oracle(s, d, *want[1:4], mode=mode, sign=-1,
+                                          parts=want[0], n_valid=nv)
+    back = tref.scoring_chunk_staged(s, d, *got[1:4], mode=mode, sign=-1, parts=got[0],
+                                     n_valid=nv, tile=tile)
+    for a, b in zip(back_want, back):
+        assert (a is None and b is None) or torch.equal(a, b), f"{case} retract"
+
+
+@pytest.mark.parametrize("mode", ["greedy", "hdrf"])
+def test_scoring_staged_matches_reference(mode):
+    """The staged plan against the reference's scan, chunk by chunk."""
+    src, dst, n, _ = random_graph(2)
+    ch = _chunks(src, dst, n)
+    k = 8
+    if mode == "greedy":
+        jc, tc = jref.greedy_init(n, k), tref.greedy_init(n, k)
+        jstep = jref.greedy_chunk
+
+        def tstep(c, s, d):
+            parts, *_ = tref.scoring_chunk_staged(s, d, *c, mode="greedy", tile=13)
+            return c, parts
+    else:
+        jc, tc = jref.hdrf_init(n, k, 1.1, k_active=7), tref.hdrf_init(n, k, 1.1, k_active=7)
+        jstep = jref.hdrf_chunk
+
+        def tstep(c, s, d):
+            parts, *_ = tref.scoring_chunk_staged(s, d, *c[:3], float(c[3]), mode="hdrf",
+                                                  k_active=7, tile=13)
+            return c, parts
+    _run(mode, jc, tc, ch, jstep, tstep)
+
+
+def test_scoring_plan_rule():
+    """Every k up to ``_MAX_K``: the stage fits one block's shared memory;
+    the rung is shared exactly while a tile holds ``K3_MIN_TILE`` edges; the
+    tile is the largest that fits (at most ``K3_MAX_TILE``); the rungs do
+    not interleave."""
+    from repro_torch.kernels.stream_scan import plan
+    from repro_torch.kernels.stream_scan.kernel import _MAX_K
+
+    rungs = []
+    for k in range(1, _MAX_K + 1):
+        p = plan.scoring_plan(k)
+        assert p.smem_bytes <= plan.SHARED_MEM_BYTES, k
+        fits = plan.SHARED_MEM_BYTES - plan.scoring_smem_bytes(k, 0)
+        largest = min(plan.K3_MAX_TILE, fits // (plan.scoring_smem_bytes(k, 1)
+                                                 - plan.scoring_smem_bytes(k, 0)))
+        assert plan.scoring_smem_bytes(k, largest) <= plan.SHARED_MEM_BYTES
+        assert (largest == plan.K3_MAX_TILE
+                or plan.scoring_smem_bytes(k, largest + 1) > plan.SHARED_MEM_BYTES)
+        assert p.rung == ("shared" if largest >= plan.K3_MIN_TILE else "global"), k
+        if p.rung == "shared":
+            assert p.tile == largest and p.smem_bytes == plan.scoring_smem_bytes(k, p.tile)
+            assert 4 * p.tile <= 1 << 16  # e_pack's 16-bit fields
+        rungs.append(p.rung)
+    first_global = rungs.index("global")
+    assert set(rungs[first_global:]) == {"global"}
+    assert plan.scoring_plan(32) == plan.ScoringPlan("shared", 744, 232_272)
+    assert plan.scoring_plan(256).rung == "shared" and plan.scoring_plan(4096).rung == "global"
+    assert first_global + 1 == 885  # the first k on the global rung
+
+
+@pytest.mark.parametrize("chain", ["K1", "K2", "K3 greedy", "K3 hdrf", "K3 retract", "G1"])
+def test_latency_bound_counts_the_chain(chain):
+    """edges × (shared steps × a shared round trip + reductions × a
+    reduction round trip), from the chain's step counts."""
+    from repro_torch.kernels.stream_scan.latency import CHAIN_STEPS, latency_bound_ms
+
+    rt = {"shared_ns": 14.5, "redux_ns": 23.75}
+    n_shared, n_redux = CHAIN_STEPS[chain]
+    assert n_shared >= 2 and (n_redux > 0) == (chain in ("K3 greedy", "K3 hdrf"))
+    want = 65536 * (n_shared * 14.5 + n_redux * 23.75) / 1e6
+    assert latency_bound_ms(chain, 65536, rt) == pytest.approx(want, rel=1e-12)
+    assert latency_bound_ms(chain, 0, rt) == 0
