@@ -59,7 +59,14 @@ Phases, each printing one JSON line:
               each row also holds two launches against each other and
               names the first differing leaf and index on a mismatch; K3's
               rung and tile and K1's tile are printed for k = 8, 32, 256
-              and 4,096 (``kernel_plan``).  G1 runs the grid row's chunk;
+              and 4,096 (``kernel_plan``).  K2 (``k2_cases``) runs the
+              main path's 65,536-edge chunks 0, 120 and 239 with the loads
+              the replayed stream had before each, 4,096 edges onto the
+              final loads, chunk 0 with no room and under the wrap guard
+              (cap 2^31 - 1), the last chunk's retract (n_valid < E) and
+              4,096 edges at k = 8 and 256; each row names its overflow
+              edges, the edges of each mode of the plan and its latency
+              bound.  G1 runs the grid row's chunk;
               K5 runs the serve phase's degree counts (d = 1, every long
               row on the tree), layer-1 (d = 16) and layer-2 (d = 7)
               aggregations and one over its features in bfloat16 (d = 100),
@@ -548,78 +555,174 @@ def check_k1(main, rt) -> list[dict]:
     return rows
 
 
-def check_k2(main, k: int, rt) -> dict:
+INT32_MAX = 2**31 - 1
+
+
+def k2_cases(main, step=None) -> list[dict]:
+    """K2's inputs where the main path meets it, and its rare cases.
+
+    The main path's placement (S5P's postprocess: ``_edge_clusters``, the
+    65,536-edge chunks of the stream padded with (0, 0) and zero extras, the
+    ``c2p`` gathers) is replayed chunk by chunk from zero loads through
+    ``step(load, chunk) -> (parts, load)`` (the port's ``assign_scan`` by
+    default); its final loads must equal the main run's.  Cases, each a
+    dict of card tensors: the first, the middle and the last (padded)
+    chunk, 0, 120 and 239 at scale 20, with the loads before them; 4,096 edges of chunk 0 onto the final loads; chunk 0 with no room
+    from the start (the final loads raised to the cap); chunk 0 under the
+    wrap guard (cap 2^31 - 1, loads within 2,048 of it); the last chunk
+    retracted from the final loads (n_valid < E); and 4,096 edges at k = 8
+    and 256 with partitions from a seed and loads at cap - 64 … cap + 2."""
     import numpy as np
     import torch
 
+    from repro_torch.core.s5p import _edge_clusters
+    from repro_torch.kernels.stream_scan import assign_scan
+    from repro_torch.streaming import EdgeStream
+
+    out, cfg = main["out"], main["cfg"]
+    inc = out.aux["incremental"]
+    k, cap = cfg.k, out.max_load
+    s_all = torch.from_numpy(main["src"]).cuda()
+    d_all = torch.from_numpy(main["dst"]).cuda()
+    cu, cv, head = _edge_clusters(s_all, d_all, inc["compact"], inc["degrees"], out.xi)
+    cu, cv = cu.clamp(min=0), cv.clamp(min=0)
+    c2p = torch.from_numpy(out.cluster_assignment).cuda()
+    stream = EdgeStream(main["src"], main["dst"], main["n"], chunk_size=cfg.chunk_size,
+                        device="cuda")
+    if step is None:
+        def step(load, x):
+            return assign_scan(load, x["src"], x["dst"], x["head"], x["pcu"], x["pcv"],
+                               max_load=cap)
+    load = torch.zeros(k, dtype=torch.int32, device="cuda")
+    picked = (0, stream.n_chunks // 2, stream.n_chunks - 1)
+    chunks = {}
+    for c in range(stream.n_chunks):
+        ch = stream.chunk_at(c, head, cu, cv)
+        h, a, b = ch.extras
+        x = {"src": ch.src, "dst": ch.dst, "head": h, "pcu": c2p[a.long()].contiguous(),
+             "pcv": c2p[b.long()].contiguous(), "n_valid": ch.n_valid, "chunk_index": c}
+        if c in picked:
+            chunks[c] = {**x, "load": load.clone()}
+        parts, load = step(load, x)
+        if c in picked:
+            chunks[c]["parts"] = parts
+    final = load
+    if not torch.equal(final, inc["load"]):
+        raise SystemExit("chip_smoke: K2's replay of the main path ends at other loads "
+                         "than the main run")
+
+    def case(name, x, load0, *, cap=cap, sign=1, n=None, state):
+        n = int(x["src"].numel()) if n is None else n
+        t = {f: x[f][:n].contiguous() for f in ("src", "dst", "head", "pcu", "pcv")}
+        return {"name": name, "k": int(load0.numel()), "cap": cap, "load": load0.clone(),
+                "sign": sign, "state": state, "chunk_index": x.get("chunk_index"),
+                "parts": x.get("parts") if sign < 0 else None,
+                "n_valid": x["n_valid"] if sign < 0 else None,
+                "restores": x["load"] if sign < 0 else None, **t}
+
+    c0 = chunks[0]
+    last = chunks[picked[-1]]
+    cases = [case(f"chunk {c}", chunks[c], chunks[c]["load"], state=f"before chunk {c}")
+             for c in picked]
+    cases.append(case("4,096 edges, final state", c0, final, n=4096, state="final"))
+    cases.append(case("no room", c0, torch.clamp(final, min=cap), state="final, raised to cap"))
+    wrap = INT32_MAX - (torch.arange(k, device="cuda", dtype=torch.int32) * 131) % 2048
+    cases.append(case("wrap guard", c0, wrap, cap=INT32_MAX, state="cap - (131 j mod 2048)"))
+    cases.append(case(f"retract chunk {last['chunk_index']}", last, final, sign=-1,
+                      state="final"))
+    for kk in (8, 256):
+        rng = np.random.default_rng(kk)
+        E = 4096
+        cap_k = math.ceil(int(main["src"].shape[0]) / kk)
+        x = {"src": c0["src"][:E], "dst": c0["dst"][:E],
+             "head": torch.from_numpy(rng.random(E) < 0.3).cuda(),
+             "pcu": torch.from_numpy(rng.integers(0, kk, E).astype(np.int32)).cuda(),
+             "pcv": torch.from_numpy(rng.integers(0, kk, E).astype(np.int32)).cuda(),
+             "n_valid": E, "chunk_index": 0}
+        load_k = torch.from_numpy(rng.integers(cap_k - 64, cap_k + 3, kk).astype(np.int32))
+        cases.append(case("4,096 edges, partitions from a seed", x, load_k.cuda(), cap=cap_k,
+                          state="cap - 64 … cap + 2 from a seed"))
+    return cases
+
+
+def k2_bounds(c: dict, rt) -> dict:
+    """K2's bounds on a case: bytes (insert: src, dst, head, pcu, pcv read
+    and the parts written, 24 bytes an edge; retract
+    ``latency.retract_bytes_bound_ms``) and, for an insert, the latency of
+    its chain (``latency.py``'s K2: two shared steps an edge)."""
+    from repro_torch.kernels.stream_scan.latency import (latency_bound_ms,
+                                                         retract_bytes_bound_ms)
+
+    E, k = int(c["src"].numel()), c["k"]
+    if c["sign"] < 0:
+        return {"bound_ms": retract_bytes_bound_ms(E, k), "bound_by": "bytes",
+                "latency_bound_ms": None}
+    b, by = bound_ms(24 * E + 8 * k, 12 * E)
+    return {"bound_ms": b, "bound_by": by, "latency_bound_ms": latency_bound_ms("K2", E, rt)}
+
+
+def check_k2(main, rt) -> list[dict]:
+    """K2 on every case of ``k2_cases`` against its plain version, bitwise,
+    with equal bits on two launches; each row names its overflow edges
+    (placed with both endpoint partitions full) and the edges the plan
+    folds in each mode (``ref.assign_chunk_planned``)."""
+    import torch
+
     from repro_torch.kernels.stream_scan import assign_chunk_oracle, assign_scan
-    from repro_torch.kernels.stream_scan.latency import latency_bound_ms
+    from repro_torch.kernels.stream_scan.ref import assign_chunk_planned
 
-    out, E_all = main["out"], main["src"].shape[0]
-    E = 4096
-    src = torch.from_numpy(main["src"][:E]).cuda()
-    dst = torch.from_numpy(main["dst"][:E]).cuda()
-    rng = np.random.default_rng(k)
-    if k == main["cfg"].k:  # the main path's own placement inputs
-        res = out.aux["incremental"]["compact"]
-        deg = out.aux["incremental"]["degrees"]
-        from repro_torch.core.s5p import _edge_clusters
+    rows = []
+    for c in k2_cases(main):
+        E, cap, sign = int(c["src"].numel()), c["cap"], c["sign"]
+        cols = [c[f] for f in ("src", "dst", "head", "pcu", "pcv")]
+        kw = dict(max_load=cap, sign=sign, parts=c["parts"], n_valid=c["n_valid"])
+        load = c["load"].clone()
+        got = {}
 
-        cu, cv, head = _edge_clusters(src, dst, res, deg, out.xi)
-        c2p = torch.from_numpy(out.cluster_assignment).cuda()
-        pcu = c2p[cu.clamp(min=0).long()].contiguous()
-        pcv = c2p[cv.clamp(min=0).long()].contiguous()
-        load0 = out.aux["incremental"]["load"].clone()
-        cap = out.max_load
-    else:  # same edges, partitions drawn from a seed, loads near the cap
-        cap = math.ceil(E_all / k)
-        head = torch.from_numpy(rng.random(E) < 0.3).cuda()
-        pcu = torch.from_numpy(rng.integers(0, k, E).astype(np.int32)).cuda()
-        pcv = torch.from_numpy(rng.integers(0, k, E).astype(np.int32)).cuda()
-        load0 = torch.from_numpy(
-            rng.integers(cap - 64, cap + 2, k).astype(np.int32)).cuda()
-    load = load0.clone()
+        def reset():
+            load.copy_(c["load"])
 
-    def reset():
-        load.copy_(load0)
+        def run():
+            got["out"] = assign_scan(load, *cols, **kw)
 
-    def run_ins():
-        assign_scan(load, src, dst, head, pcu, pcv, max_load=cap)
+        ms = cuda_time_ms(run, reps=10, setup=reset)
+        same = twice(run, reset, lambda: got["out"])
+        cpu = [t.cpu() for t in cols]
+        cpu_kw = {**kw, "parts": None if c["parts"] is None else c["parts"].cpu()}
+        want = {}
 
-    ms = cuda_time_ms(run_ins, reps=10, setup=reset)
-    reset()
-    parts, load_ins = assign_scan(load, src, dst, head, pcu, pcv, max_load=cap)
-    load_ins = load_ins.clone()
-    zeros = torch.zeros_like(src)
-    _, load_ret = assign_scan(load, src, dst, zeros, zeros, zeros, max_load=cap,
-                              sign=-1, parts=parts, n_valid=E)
-    torch.cuda.synchronize()
-    cpu = [t.cpu() for t in (src, dst, head, pcu, pcv)]
-    want = {}
+        def run_plain():
+            want["out"] = assign_chunk_oracle(c["load"].cpu(), *cpu, **cpu_kw)
 
-    def run_plain():
-        want["ins"] = assign_chunk_oracle(load0.cpu(), *cpu, max_load=cap)
-
-    plain_ms = host_time_ms(run_plain)
-    p_want, l_want = want["ins"]
-    z = torch.zeros(E, dtype=torch.int32)
-    _, l_ret_want = assign_chunk_oracle(l_want, cpu[0], cpu[1], z, z, z,
-                                        max_load=cap, sign=-1, parts=p_want,
-                                        n_valid=E)
-    err = max(max_abs_err(parts, p_want), max_abs_err(load_ins, l_want),
-              max_abs_err(load_ret, l_ret_want), max_abs_err(load_ret, load0))
-    overflow = int(((load_ins.cpu() >= cap).sum()))
-    n_bytes = E * (6 * 4 + 4) + 2 * 4 * k
-    n_ops = 12 * E + 4 * k * E
-    b, by = bound_ms(n_bytes, n_ops)
-    return {"name": f"K2 assign_scan (Alg. 3 placement) k={k}", "route": "cuda",
-            "source": "src/repro_torch/kernels/stream_scan/csrc/stream_scan.cu",
-            "replaces": "src/repro/kernels/stream_scan/kernel.py:581",
-            "launches": main["launches"]["assign_scan"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None, "latency_bound_ms": latency_bound_ms("K2", E, rt),
-            "shape": {"k": k, "chunk": E, "cap": cap,
-                      "full_partitions_after": overflow}}
+        plain_ms = host_time_ms(run_plain)
+        stats = {}
+        planned = assign_chunk_planned(c["load"].cpu(), *cpu, **cpu_kw, stats=stats)
+        diff = first_diff(got["out"], want["out"], ("parts", "load"))
+        err = max(max_abs_err(a, b) for a, b in zip(got["out"], want["out"]))
+        plan_equal = all(torch.equal(a, b) for a, b in zip(planned, want["out"]))
+        shape = {"k": c["k"], "chunk": E, "cap": cap, "sign": sign, "state": c["state"],
+                 "chunk_index": c["chunk_index"], "n_valid": c["n_valid"],
+                 "bitwise": diff is None and same and plan_equal, "first_diff": diff,
+                 "equal_on_two_launches": same, "plan_equal_to_plain": plan_equal}
+        if sign > 0:
+            shape.update(overflow_edges=stats["overflow"],
+                         mode_edges={m: stats[m] for m in ("room", "full", "wrap")},
+                         full_partitions_after=int((want["out"][1] >= cap).sum()))
+        else:
+            # the retracted chunk's loads are the ones before it
+            shape["restored"] = bool(torch.equal(got["out"][1], c["restores"]))
+            shape["bitwise"] = shape["bitwise"] and shape["restored"]
+        bounds = k2_bounds(c, rt)
+        shape["latency_bound_ms"] = bounds["latency_bound_ms"]
+        rows.append({"name": f"K2 assign_scan (Alg. 3 placement), {c['name']}, k={c['k']}",
+                     "route": "cuda",
+                     "source": "src/repro_torch/kernels/stream_scan/csrc/stream_scan.cu",
+                     "replaces": "src/repro/kernels/stream_scan/kernel.py:581",
+                     "launches": main["launches"]["assign_scan"], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bounds["bound_ms"],
+                     "bound_by": bounds["bound_by"], "library_ms": None,
+                     "latency_bound_ms": bounds["latency_bound_ms"], "shape": shape})
+    return rows
 
 
 def check_cms(main) -> list[dict]:
@@ -1025,9 +1128,9 @@ def check_k3_g1(main, compare, rt) -> list[dict]:
 
 
 def kernel_plan() -> dict:
-    """K1's tile and K3's rung and tile for k = 8, 32, 256 and 4,096, as
-    ``plan`` sizes them and as the C sources lay out their bytes (which must
-    agree)."""
+    """K1's tile, K2's shared bytes and K3's rung and tile for k = 8, 32, 256
+    and 4,096, as ``plan`` sizes them and as the C sources lay out their
+    bytes (which must agree)."""
     from repro_torch.kernels.stream_scan import kernel as scan_k
     from repro_torch.kernels.stream_scan import plan
 
@@ -1038,6 +1141,11 @@ def kernel_plan() -> dict:
                    "smem_bytes_c": k1_c},
             "k3": {}}
     bad = k1_c != info["k1"]["smem_bytes"]
+    info["k2"] = {"tile": plan.K2_TILE, "threads": plan.K2_THREADS}
+    for k in (8, 32, 256, 4096):
+        info["k2"][k] = {"smem_bytes": plan.assign_smem_bytes(k),
+                         "smem_bytes_c": scan_k._lib().assign_smem_bytes(k)}
+        bad |= info["k2"][k]["smem_bytes"] != info["k2"][k]["smem_bytes_c"]
     for k in (8, 32, 256, 4096):
         p = plan.scoring_plan(k)
         c_bytes = scan_k._scoring_lib().scoring_smem_bytes(
@@ -1058,7 +1166,7 @@ def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
     emit({"phase": "latency_probe", **rt, "nvidia_smi_clocks_sm": nvidia_smi_line("clocks.sm")})
     kernel_plan()
     k1 = check_k1(main, rt)
-    k2 = [check_k2(main, k, rt) for k in (8, 32, 256)]
+    k2 = check_k2(main, rt)
     cms = check_cms(main)
     k3_g1, k3_extra = check_k3_g1(main, compare, rt)
     k5 = check_k5(serve)
@@ -1066,7 +1174,7 @@ def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
     k7 = check_k7(recsys, build)
     rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k6, *k7]
     _check_rows(rows)
-    main_k2 = next(r for r in k2 if r["shape"]["k"] == main["cfg"].k)
+    main_k2 = k2[1]  # the main path's middle chunk
     summary = [k1[0], main_k2, *cms, *k3_g1, *k5, k6[0], k7[1]]
     for r in summary:  # a latency bound for the serial scans, none for the rest
         r.setdefault("latency_bound_ms", None)

@@ -25,6 +25,7 @@ from .ops import (  # noqa: F401
 )
 from .ref import (  # noqa: F401
     assign_chunk_oracle,
+    assign_chunk_planned,
     cluster_chunk_oracle,
     cluster_chunk_staged,
     grid_chunk,

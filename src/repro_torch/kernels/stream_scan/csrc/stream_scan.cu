@@ -58,17 +58,55 @@
 // int32 = 217,120 bytes at T = 1,024 (cluster_smem_bytes; repro_torch/
 // kernels/stream_scan/plan.py).
 //
-// K2's design: one warp runs the chunk: the k-wide reductions (first/last
-// partition with room, argmin of load) are warp-cooperative (each lane
-// folds k/32 entries, then shuffles), and they run only for edges whose
-// endpoint partitions are both full — the only case whose result is
-// consumed.
-//
+// K2's design.  Insert: one block of kAssignThreads a chunk.  Its state is
+// the (k,) load vector, in shared memory; the fold is serial, so the chain
+// of dependent steps bounds it, as it bounds K1.  Warps 1-7 pack each edge
+// of the next tile of kAssignTile edges into one 32-bit record (valid,
+// head, and pcu and pcv as byte offsets into the load vector: k <= 4,096
+// fits 12 bits; valid = index < limit && u != v) while warp 0 folds this
+// tile, and they store the tile before's parts, coalesced, from shared
+// memory (records and parts are double-buffered; one barrier a tile).  The
+// fold runs in one of three modes, chosen at the chunk's start and left at
+// most once:
+//  - room (thread 0 alone): first and last, the least and the greatest
+//    partition with load < cap, are kept as pointers.  Within an insert
+//    chunk a load only grows, by one at the pick, so the set with room only
+//    shrinks; every pick has room (the less loaded endpoint when one has
+//    room, else first or last), so only a pick that reaches cap moves a
+//    pointer: O(k) over the chunk, and no reduction.  The overflow choice
+//    head ? first : last is loaded beside the endpoints' loads.  Branches
+//    cost a single thread most (the compiled code waits ~18 cycles from a
+//    compare to the branch it feeds), and a pick fills at most k times a
+//    chunk, so the fold runs
+//    groups of kRoomGroup edges without a branch, each edge's loads issued
+//    before the edge before stores and patched with it (fold_room); a
+//    group in which a pick fills is undone and folded again edge by edge.
+//    When first passes last, no partition has room:
+//  - full (the warp): every edge now takes the least loaded partition,
+//    lowest index on ties, whatever its endpoints; loads only grow, so the
+//    picks fill the least level in index order, then the next.  The warp
+//    holds the level and a 32-partition window of those at that level
+//    (a ballot), and hands the window's partitions to the next valid edges
+//    of the tile (a ballot over 32 edges) in order, 32 at a time;
+//  - wrap (the warp, edge by edge): a load within n of 2^31 - 1 at the
+//    chunk's start could wrap past it and have room again (cap = 2^31 - 1
+//    under S5P-B), so such a chunk runs the reference's statement order,
+//    first and last and the argmin by redux.sync for each edge whose
+//    endpoints are both full.
+// Measured on an H100 SXM (scripts/bench_k2.py --phases, clock64 spans):
+// the room mode folds the main path's 65,536-edge chunks at ~56 cycles an
+// edge (one warp looping over every edge took ~340-620); the stage and the
+// write-back take ~2 cycles an edge, off the chain.
+// Retract: parts = pin, and load[p] -= #{g < limit, u != v, pin[g] = p},
+// counted in a shared histogram by each of many blocks and added into load
+// with integer atomics: exact in any order.
+
 // Integer semantics match the JAX reference bit for bit: additions that may
 // wrap in int32 (kappa = 2^31-1 under S5P-B) are done in uint32 and cast
 // back, since signed overflow is undefined in C++; ties go to u
 // (score_u <= score_v, tvu <= tvv); argmin/argmax return the lowest index.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -76,7 +114,15 @@ namespace {
 
 constexpr int kFoldThreads = 512;
 constexpr int kMaxFoldTile = 1024;  // 2T vertex slots fit the records' 12 bits
-constexpr int kAssignTile = 1024;   // 6 per-edge arrays x 4 KB = 24 KB
+constexpr int kAssignThreads = 256;  // K2: warp 0 folds, warps 1-7 stage
+constexpr int kAssignTile = 2048;    // K2: edges a staged tile
+constexpr int kRoomGroup = 16;       // K2: edges folded between two checks
+constexpr int kMaxAssignK = 4096;    // partition ids fit a record's 12 bits
+// K2's record: valid (bit 0), head (bit 1), pcu·4 (bits 2-13) and pcv·4
+// (bits 16-29): the endpoints' byte offsets in the load vector come out of
+// it with one AND and one shift
+constexpr int kRecValid = 1;
+constexpr int kRecHead = 2;
 constexpr int kHeadBit = 1 << 24;
 constexpr int kValidBit = 1 << 25;
 
@@ -409,101 +455,416 @@ cluster_fold_kernel(const int* __restrict__ src, const int* __restrict__ dst,
 
 size_t fold_smem_bytes(int tile) { return sizeof(int) * (53 * static_cast<size_t>(tile) + 8); }
 
-__device__ __forceinline__ unsigned long long shfl_min_u64(unsigned long long x) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, x, off);
-    x = o < x ? o : x;
+#ifdef K2_PHASES
+// clock64 spans: stage (thread 32), fold (thread 0), write-back (thread 32)
+// cycles; edges; edges folded in the room, full and wrap modes
+__device__ unsigned long long g_k2_phase[7];
+#define K2_SPAN(slot, t0) atomicAdd(&g_k2_phase[slot], static_cast<unsigned long long>(clock64() - (t0)))
+#endif
+
+// Packs edges [t0, cnt) step nt of the tile at base into records.
+__device__ __forceinline__ void assign_stage(
+    const int* __restrict__ src, const int* __restrict__ dst,
+    const int* __restrict__ head, const int* __restrict__ pcu,
+    const int* __restrict__ pcv, int base, int cnt, int limit, int* rec,
+    int t0, int nt) {
+  for (int e = t0; e < cnt; e += nt) {
+    const int g = base + e;
+    const bool valid = g < limit && __ldg(src + g) != __ldg(dst + g);
+    rec[e] = ((__ldg(pcu + g) & 0xFFF) << 2) | ((__ldg(pcv + g) & 0xFFF) << 18) |
+             (__ldg(head + g) != 0 ? kRecHead : 0) | (valid ? kRecValid : 0);
   }
-  return x;
+  // the room mode folds whole groups and reads the next group's records
+  // ahead: the records after the last edge, to the end of the group after
+  // its group, are zero (not valid, partition 0)
+  const int pad_end = (cnt + kRoomGroup - 1) / kRoomGroup * kRoomGroup + kRoomGroup;
+  for (int e = cnt + t0; e < pad_end; e += nt) rec[e] = 0;
 }
 
-// One warp per chunk; s_load holds the (k,) load vector.
-__global__ void __launch_bounds__(32)
-assign_scan_kernel(const int* __restrict__ src, const int* __restrict__ dst,
-                   const int* __restrict__ head, const int* __restrict__ pcu,
-                   const int* __restrict__ pcv, const int* __restrict__ pin,
-                   int n, int limit, int sign, int cap, int k, int* load,
-                   int* __restrict__ parts) {
-  extern __shared__ int smem[];
-  int* s_load = smem;
-  int* t_src = smem + ((k + 31) & ~31);
-  int* t_dst = t_src + kAssignTile;
-  int* t_head = t_dst + kAssignTile;
-  int* t_pcu = t_head + kAssignTile;
-  int* t_pcv = t_pcu + kAssignTile;
-  int* t_pin = t_pcv + kAssignTile;
-  const int lane = threadIdx.x;
-  const bool is_ins = sign > 0;
-  for (int j = lane; j < k; j += 32) s_load[j] = load[j];
-  for (int base = 0; base < n; base += kAssignTile) {
-    const int cnt = min(kAssignTile, n - base);
-    __syncwarp();
-    for (int j = lane; j < cnt; j += 32) {
-      t_src[j] = src[base + j];
-      t_dst[j] = dst[base + j];
-      t_head[j] = head[base + j];
-      t_pcu[j] = pcu[base + j];
-      t_pcv[j] = pcv[base + j];
-      t_pin[j] = pin[base + j];
+__device__ __forceinline__ int rec_u4(int rec) { return rec & 0x3FFC; }
+
+__device__ __forceinline__ int rec_v4(int rec) {
+  return static_cast<int>(static_cast<unsigned>(rec) >> 16);
+}
+
+// The load at byte offset off of the load vector.
+__device__ __forceinline__ int& at(int* L, int off) {
+  return *reinterpret_cast<int*>(reinterpret_cast<char*>(L) + off);
+}
+
+// One edge of the room mode on its (patched) loads, in byte offsets: the
+// pick (the less loaded endpoint, ties to P_u; c when both are full) and
+// its load before the edge.
+__device__ __forceinline__ void room_pick(int a, int b, int c, int la, int lb,
+                                          int lc, int cap, int& pick, int& old) {
+  const int m = min(la, lb);
+  const bool over = m >= cap;
+  pick = over ? c : (la > lb ? b : a);
+  old = over ? lc : m;
+}
+
+// Room mode, one thread: folds edges [0, cnt) of a tile while some
+// partition has room.  Returns the index after the last edge folded: cnt,
+// or the edge after the one that filled the last partition with room.
+// Every pick has room, so its load is below cap before the edge; an edge
+// that is not valid stores back the load it read, and only a valid pick
+// can reach cap, which happens at most k times a chunk.  So the fold runs
+// groups of kRoomGroup edges with no branch: each edge's three loads (its
+// endpoints' and its overflow choice's) are issued before the edge before
+// stores, and patched with that store, so no shared round trip sits on
+// the chain; the records come in 16 bytes at a time, a group ahead.  A
+// group in which a pick fills is undone (its stores restored in reverse)
+// and folded again edge by edge, moving first and last past the
+// partitions now full.  Records past cnt, to the end of the group read
+// ahead, are zero: not valid, partition 0.  Partitions are byte offsets
+// here (4 × index).
+__device__ __forceinline__ int fold_room(const int* r, int* o, int cnt, int* L,
+                                         int cap, int& first, int& last) {
+  constexpr int G = kRoomGroup;
+  int f4 = 4 * first, l4 = 4 * last;
+  int4 g[G / 4];
+#pragma unroll
+  for (int q = 0; q < G / 4; ++q) g[q] = reinterpret_cast<const int4*>(r)[q];
+  int a = rec_u4(g[0].x);
+  int b = rec_v4(g[0].x);
+  int c = (g[0].x & kRecHead) ? f4 : l4;
+  int la = at(L, a), lb = at(L, b), lc = at(L, c);
+  for (int e = 0; e < cnt; e += G) {
+    int4 nx[G / 4];
+#pragma unroll
+    for (int q = 0; q < G / 4; ++q) nx[q] = reinterpret_cast<const int4*>(r + e + G)[q];
+    int rec[G + 1];
+#pragma unroll
+    for (int q = 0; q < G / 4; ++q) {
+      rec[4 * q] = g[q].x;
+      rec[4 * q + 1] = g[q].y;
+      rec[4 * q + 2] = g[q].z;
+      rec[4 * q + 3] = g[q].w;
     }
-    __syncwarp();
-    for (int e = 0; e < cnt; ++e) {
-      const int g = base + e;
-      const bool edge = (g < limit) && (t_src[e] != t_dst[e]);
-      const int p_ret = t_pin[e];
-      int part_ins = 0;
-      if (is_ins) {
-        const int a = t_pcu[e];
-        const int b = t_pcv[e];
-        const int lu = s_load[a];
-        const int lv = s_load[b];
-        if (lu >= cap && lv >= cap) {
-          // skew-aware overflow: first room (head) / last room (tail),
-          // else the least-loaded partition (lowest index on ties)
-          int first = k, last = -1;
-          unsigned long long best = ~0ull;
-          for (int j = lane; j < k; j += 32) {
-            const int l = s_load[j];
-            if (l < cap) {
-              first = min(first, j);
-              last = max(last, j);
-            }
-            const unsigned long long key =
-                (static_cast<unsigned long long>(static_cast<uint32_t>(l) ^ 0x80000000u) << 32) |
-                static_cast<uint32_t>(j);
-            best = key < best ? key : best;
+    rec[G] = nx[0].x;
+    int picks[G], olds[G];
+    bool filled = false;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int rn = rec[i + 1];
+      const int an = rec_u4(rn);
+      const int bn = rec_v4(rn);
+      const int cn = (rn & kRecHead) ? f4 : l4;
+      const int lan = at(L, an), lbn = at(L, bn), lcn = at(L, cn);
+      const int inc = rec[i] & kRecValid;
+      int pick, old;
+      room_pick(a, b, c, la, lb, lc, cap, pick, old);
+      const int nl = old + inc;  // no wrap: the chunk passed the guard
+      at(L, pick) = nl;
+      o[e + i] = inc ? pick >> 2 : -1;
+      picks[i] = pick;
+      olds[i] = old;
+      filled |= nl >= cap;
+      la = an == pick ? nl : lan;
+      lb = bn == pick ? nl : lbn;
+      lc = cn == pick ? nl : lcn;
+      a = an;
+      b = bn;
+      c = cn;
+    }
+    if (filled) {
+#pragma unroll
+      for (int i = G - 1; i >= 0; --i) at(L, picks[i]) = olds[i];
+      const int end = min(e + G, cnt);
+      for (int j = e; j < end; ++j) {
+        const int rj = r[j];
+        const int aj = rec_u4(rj);
+        const int bj = rec_v4(rj);
+        const int cj = (rj & kRecHead) ? f4 : l4;
+        int pick, old;
+        room_pick(aj, bj, cj, at(L, aj), at(L, bj), at(L, cj), cap, pick, old);
+        const int inc = rj & kRecValid;
+        at(L, pick) = old + inc;
+        o[j] = inc ? pick >> 2 : -1;
+        if (old + inc >= cap) {
+          if (pick == f4) {
+            do ++first; while (first <= last && L[first] >= cap);
           }
-          first = __reduce_min_sync(0xffffffffu, first);
-          last = __reduce_max_sync(0xffffffffu, last);
-          best = shfl_min_u64(best);
-          if (last >= 0) {
-            part_ins = t_head[e] != 0 ? first : last;
-          } else {
-            part_ins = static_cast<int>(best & 0xffffffffu);
+          if (pick == l4) {
+            do --last; while (last >= first && L[last] >= cap);
           }
-        } else {
-          part_ins = lu > lv ? b : a;  // tie -> P_u
+          if (first > last) return j + 1;
+          f4 = 4 * first;
+          l4 = 4 * last;
         }
       }
-      const int pick = is_ins ? part_ins : max(p_ret, 0);
-      const bool placed = edge && (is_ins || p_ret >= 0);
-      __syncwarp();  // every lane has read s_load before lane 0 writes it
-      if (lane == 0) {
-        if (placed) s_load[pick] = wadd(s_load[pick], sign);
-        parts[g] = is_ins ? (edge ? part_ins : -1) : p_ret;
-      }
-      __syncwarp();
+      a = rec_u4(nx[0].x);
+      b = rec_v4(nx[0].x);
+      c = (nx[0].x & kRecHead) ? f4 : l4;
+      la = at(L, a);
+      lb = at(L, b);
+      lc = at(L, c);
+    }
+#pragma unroll
+    for (int q = 0; q < G / 4; ++q) g[q] = nx[q];
+  }
+  return cnt;
+}
+
+// Position of the n-th (from 0) set bit of m, which has more than n.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= w;
+      pos += w;
     }
   }
-  __syncwarp();
-  for (int j = lane; j < k; j += 32) load[j] = s_load[j];
+  return pos;
+}
+
+// The n lowest set bits of m (n <= popc(m)).
+__device__ __forceinline__ unsigned low_bits(unsigned m, int n) {
+  return n >= __popc(m) ? m : m & ((1u << nth_set_bit(m, n)) - 1u);
+}
+
+__device__ __forceinline__ int warp_min_load(const int* L, int k, int lane) {
+  int mn = INT_MAX;
+  for (int j = lane; j < k; j += 32) mn = min(mn, L[j]);
+  return __reduce_min_sync(0xffffffffu, mn);
+}
+
+// Full mode, the warp: no partition has room and none can wrap, so each
+// valid edge takes the least loaded partition, lowest index on ties.  The
+// picks fill level v in index order: the partitions j >= p0 with L[j] == v
+// (every j < p0 at level v was already raised), then level v + 1 from 0.
+// pm holds those of the window [p0, p0 + 32) still at v.  Lane l reads and
+// writes only L[j] with j % 32 == l, so the lanes need no barrier.
+__device__ __forceinline__ void fold_full(const int* r, int* o, int e0, int cnt,
+                                          int* L, int k, int lane, int& v,
+                                          int& p0, unsigned& pm) {
+  const unsigned below = (1u << lane) - 1u;
+  for (int gb = e0; gb < cnt; gb += 32) {
+    const int e = gb + lane;
+    unsigned em = __ballot_sync(0xffffffffu, e < cnt && (r[e] & kRecValid));
+    int part = -1;
+    while (em) {
+      while (pm == 0) {
+        p0 += 32;
+        if (p0 >= k) {
+          p0 = 0;
+          ++v;  // no wrap: the chunk passed the guard
+        }
+        const int j = p0 + lane;
+        pm = __ballot_sync(0xffffffffu, j < k && L[j] == v);
+      }
+      const int take = min(__popc(em), __popc(pm));
+      const unsigned et = low_bits(em, take);
+      const unsigned pt = low_bits(pm, take);
+      if (et >> lane & 1u) part = p0 + nth_set_bit(pt, __popc(et & below));
+      if (pt >> lane & 1u) L[p0 + lane] = v + 1;
+      em &= ~et;
+      pm &= ~pt;
+    }
+    if (e < cnt) o[e] = part;
+  }
+}
+
+// Wrap mode, the warp, edge by edge in the reference's statement order:
+// first and last room and the argmin (lowest index on ties) for each edge
+// whose endpoints are both full; lane 0 places.
+__device__ __forceinline__ void fold_wrap(const int* r, int* o, int cnt, int* L,
+                                          int cap, int k, int lane) {
+  for (int e = 0; e < cnt; ++e) {
+    const int rec = r[e];
+    const int a = rec_u4(rec) >> 2;
+    const int b = rec_v4(rec) >> 2;
+    const int la = L[a];
+    const int lb = L[b];
+    int pick = la > lb ? b : a;  // tie -> P_u
+    if (la >= cap && lb >= cap) {
+      int first = k, last = -1, mn = INT_MAX;
+      for (int j = lane; j < k; j += 32) {
+        const int l = L[j];
+        if (l < cap) {
+          first = min(first, j);
+          last = max(last, j);
+        }
+        mn = min(mn, l);
+      }
+      first = __reduce_min_sync(0xffffffffu, first);
+      last = __reduce_max_sync(0xffffffffu, last);
+      if (last >= 0) {
+        pick = (rec & kRecHead) ? first : last;
+      } else {
+        mn = __reduce_min_sync(0xffffffffu, mn);
+        int arg = k;
+        for (int j = lane; j < k; j += 32) {
+          if (L[j] == mn) {
+            arg = j;
+            break;
+          }
+        }
+        pick = __reduce_min_sync(0xffffffffu, arg);
+      }
+    }
+    __syncwarp();  // every lane has read L before lane 0 writes it
+    if (lane == 0) {
+      const bool valid = (rec & kRecValid) != 0;
+      if (valid) L[pick] = wadd(L[pick], 1);
+      o[e] = valid ? pick : -1;
+    }
+    __syncwarp();
+  }
+}
+
+// A tile's records and the group the room mode reads past them.
+constexpr int kRecStride = kAssignTile + kRoomGroup;
+
+size_t assign_smem(int k) {
+  return sizeof(int) * ((static_cast<size_t>(k + 31) & ~static_cast<size_t>(31)) +
+                        2 * static_cast<size_t>(kRecStride) +
+                        2 * static_cast<size_t>(kAssignTile) + 4);
+}
+
+// Insert, one chunk, one block; the layout is assign_smem's: the load
+// vector (k rounded up to 32), two tiles of records (each with a group
+// after it), two of parts, and first, last and the wrap flag.  Iteration t folds tile t (warp 0),
+// stages tile t + 1 and stores tile t - 1's parts (warps 1-7).
+__global__ void __launch_bounds__(kAssignThreads)
+assign_insert_kernel(const int* __restrict__ src, const int* __restrict__ dst,
+                     const int* __restrict__ head, const int* __restrict__ pcu,
+                     const int* __restrict__ pcv, int n, int limit, int cap,
+                     int k, int* __restrict__ load, int* __restrict__ parts) {
+  extern __shared__ int smem[];
+  constexpr int T = kAssignTile;
+  int* L = smem;
+  int* rec = L + ((k + 31) & ~31);
+  int* out = rec + 2 * kRecStride;
+  int* sc = out + 2 * T;
+  const int me = threadIdx.x;
+  const int lane = me & 31;
+#ifdef K2_PHASES
+  const long long t_start = clock64();
+#endif
+  if (me == 0) {
+    sc[0] = k;
+    sc[1] = -1;
+    sc[2] = 0;
+  }
+  __syncthreads();
+  for (int j = me; j < k; j += kAssignThreads) {
+    const int l = load[j];
+    L[j] = l;
+    if (l < cap) {
+      atomicMin(&sc[0], j);
+      atomicMax(&sc[1], j);
+    }
+    if (l > INT_MAX - n) sc[2] = 1;
+  }
+  assign_stage(src, dst, head, pcu, pcv, 0, min(T, n), limit, rec, me, kAssignThreads);
+  __syncthreads();
+#ifdef K2_PHASES
+  if (me == 0) K2_SPAN(0, t_start);
+#endif
+  int first = sc[0], last = sc[1];
+  // 0 room, 1 full, 2 wrap (warp 0's registers, the same in every lane)
+  int mode = sc[2] ? 2 : (first > last ? 1 : 0);
+  int v = 0, p0 = -32;
+  unsigned pm = 0;
+  if (me < 32 && mode == 1) v = warp_min_load(L, k, lane);
+  const int ntiles = (n + T - 1) / T;
+  for (int t = 0; t <= ntiles; ++t) {
+    if (me < 32) {
+      if (t < ntiles) {
+#ifdef K2_PHASES
+        const long long t_f = clock64();
+        const int mode0 = mode;
+#endif
+        const int cnt = min(T, n - t * T);
+        const int* r = rec + (t & 1) * kRecStride;
+        int* o = out + (t & 1) * T;
+        int e = 0;
+        if (mode == 0) {
+          if (lane == 0) e = fold_room(r, o, cnt, L, cap, first, last);
+          e = __shfl_sync(0xffffffffu, e, 0);
+          first = __shfl_sync(0xffffffffu, first, 0);
+          last = __shfl_sync(0xffffffffu, last, 0);
+          __syncwarp();
+          if (first > last) {
+            mode = 1;
+            v = warp_min_load(L, k, lane);
+          }
+        }
+        if (mode == 1) {
+          fold_full(r, o, e, cnt, L, k, lane, v, p0, pm);
+        } else if (mode == 2) {
+          fold_wrap(r, o, cnt, L, cap, k, lane);
+        }
+#ifdef K2_PHASES
+        if (me == 0) {
+          K2_SPAN(1, t_f);
+          atomicAdd(&g_k2_phase[3], static_cast<unsigned long long>(cnt));
+          const int room = mode0 == 0 ? e : 0;
+          atomicAdd(&g_k2_phase[4], static_cast<unsigned long long>(room));
+          atomicAdd(&g_k2_phase[mode == 2 ? 6 : 5],
+                    static_cast<unsigned long long>(cnt - room));
+        }
+#endif
+      }
+    } else {
+#ifdef K2_PHASES
+      const long long t_s = clock64();
+#endif
+      if (t + 1 < ntiles) {
+        const int base = (t + 1) * T;
+        assign_stage(src, dst, head, pcu, pcv, base, min(T, n - base), limit,
+                     rec + ((t + 1) & 1) * kRecStride, me - 32, kAssignThreads - 32);
+      }
+#ifdef K2_PHASES
+      if (me == 32) K2_SPAN(0, t_s);
+      const long long t_w = clock64();
+#endif
+      if (t >= 1) {
+        const int base = (t - 1) * T;
+        const int cnt = min(T, n - base);
+        const int* o = out + ((t - 1) & 1) * T;
+        for (int e = me - 32; e < cnt; e += kAssignThreads - 32) parts[base + e] = o[e];
+      }
+#ifdef K2_PHASES
+      if (me == 32) K2_SPAN(2, t_w);
+#endif
+    }
+    __syncthreads();
+  }
+  for (int j = me; j < k; j += kAssignThreads) load[j] = L[j];
+}
+
+// Retract: parts = pin; each block counts its edges' recorded parts in a
+// shared histogram and subtracts it from load with atomics.
+__global__ void __launch_bounds__(kAssignThreads)
+assign_retract_kernel(const int* __restrict__ src, const int* __restrict__ dst,
+                      const int* __restrict__ pin, int n, int limit, int k,
+                      int* load, int* __restrict__ parts) {
+  extern __shared__ int hist[];
+  for (int j = threadIdx.x; j < k; j += kAssignThreads) hist[j] = 0;
+  __syncthreads();
+  for (int g = blockIdx.x * kAssignThreads + threadIdx.x; g < n;
+       g += gridDim.x * kAssignThreads) {
+    const int p = pin[g];
+    parts[g] = p;
+    // a part outside [0, k) places nothing, as in the reference
+    if (g < limit && p >= 0 && p < k && src[g] != dst[g]) atomicAdd(&hist[p], 1);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < k; j += kAssignThreads) {
+    if (hist[j] != 0) atomicSub(&load[j], hist[j]);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int assign_tile_edges() { return kAssignTile; }
+int assign_smem_bytes(int k) { return static_cast<int>(assign_smem(k)); }
 
 int cluster_smem_bytes(int tile) { return static_cast<int>(fold_smem_bytes(tile)); }
 
@@ -535,13 +896,40 @@ int assign_scan_launch(const void* src, const void* dst, const void* head,
                        const void* pcu, const void* pcv, const void* pin,
                        int n, int limit, int sign, int cap, int k, void* load,
                        void* parts, void* stream) {
-  const size_t smem = sizeof(int) * (((k + 31) & ~31) + 6 * kAssignTile);
-  assign_scan_kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (k < 1 || k > kMaxAssignK || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sign < 0) {
+    // four edges a thread, at most two blocks an SM
+    const int want = (n + 4 * kAssignThreads - 1) / (4 * kAssignThreads);
+    const int blocks = want < 264 ? want : 264;
+    assign_retract_kernel<<<blocks, kAssignThreads, sizeof(int) * k, st>>>(
+        static_cast<const int*>(src), static_cast<const int*>(dst),
+        static_cast<const int*>(pin), n, limit, k, static_cast<int*>(load),
+        static_cast<int*>(parts));
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = assign_smem(k);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      assign_insert_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  assign_insert_kernel<<<1, kAssignThreads, smem, st>>>(
       static_cast<const int*>(src), static_cast<const int*>(dst),
       static_cast<const int*>(head), static_cast<const int*>(pcu),
-      static_cast<const int*>(pcv), static_cast<const int*>(pin), n, limit,
-      sign, cap, k, static_cast<int*>(load), static_cast<int*>(parts));
+      static_cast<const int*>(pcv), n, limit, cap, k, static_cast<int*>(load),
+      static_cast<int*>(parts));
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef K2_PHASES
+int k2_phase_read(void* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_k2_phase, sizeof(g_k2_phase)));
+}
+
+int k2_phase_reset() {
+  const unsigned long long z[7] = {0, 0, 0, 0, 0, 0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(g_k2_phase, z, sizeof(z)));
+}
+#endif
 
 }  // extern "C"

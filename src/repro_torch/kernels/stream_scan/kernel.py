@@ -9,7 +9,9 @@ wrapper launches its kernel from ``csrc/stream_scan.cu`` (K1, K2) or
 PyTorch's current stream, no synchronisation — and counts the launch; on
 CPU tensors it runs the plain version in :mod:`.ref`.  K1 and K3's shared
 rung fold staged tiles of edges in shared memory, sized by :mod:`.plan`
-(K3's rung and tile by ``k``: :func:`.plan.scoring_plan`).  K1, K3 and G1
+(K3's rung and tile by ``k``: :func:`.plan.scoring_plan`); K2 packs each
+edge into one record while warp 0 folds the tile before, and retracts by a
+parallel count (one launch either way).  K1, K3 and G1
 update their state in place and return it, as the Pallas call aliases its
 inputs to its outputs.
 """
@@ -56,6 +58,8 @@ def _lib():
         lib.cluster_smem_bytes.restype = _I
         lib.assign_scan_launch.argtypes = [_P] * 6 + [_I] * 5 + [_P, _P, _P]
         lib.assign_scan_launch.restype = _I
+        lib.assign_smem_bytes.argtypes = [_I]
+        lib.assign_smem_bytes.restype = _I
         lib._typed = True
     return lib
 
@@ -143,11 +147,11 @@ def assign_scan(load, src, dst, is_head_edge, pcu, pcv, *, max_load,
     if not 1 <= k <= _MAX_K:
         raise ValueError(f"assign_scan takes 1 <= k <= {_MAX_K}, got {k}")
     head = is_head_edge.to(torch.int32).contiguous()
-    pin = (torch.full((E,), -1, dtype=torch.int32, device=dev)
-           if parts is None else parts)
     for name, t in (("src", src), ("dst", dst), ("is_head_edge", head),
-                    ("pcu", pcu), ("pcv", pcv), ("parts", pin)):
+                    ("pcu", pcu), ("pcv", pcv)):
         _check_int32(name, t, dev, (E,))
+    if parts is not None:  # only the retract reads them
+        _check_int32("parts", parts, dev, (E,))
     _check_int32("load", load, dev, (k,))
     out = torch.empty((E,), dtype=torch.int32, device=dev)
     if E == 0:
@@ -156,8 +160,9 @@ def assign_scan(load, src, dst, is_head_edge, pcu, pcv, *, max_load,
     _LAUNCHES["assign_scan"] += 1
     code = _lib().assign_scan_launch(
         src.data_ptr(), dst.data_ptr(), head.data_ptr(), pcu.data_ptr(),
-        pcv.data_ptr(), pin.data_ptr(), E, limit, int(sign), int(max_load),
-        k, load.data_ptr(), out.data_ptr(), _stream_ptr(dev))
+        pcv.data_ptr(), parts.data_ptr() if sign < 0 else None, E, limit,
+        int(sign), int(max_load), k, load.data_ptr(), out.data_ptr(),
+        _stream_ptr(dev))
     _build.check(code, "assign_scan")
     return out, load
 

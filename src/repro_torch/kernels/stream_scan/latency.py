@@ -18,7 +18,10 @@ Chains, per edge:
 
 - **K1** (Alg. 1): the endpoints' clusters, then those clusters' volumes,
   then the stores the next edge's loads wait on: 3 shared steps.
-- **K2** (Alg. 3): the two loads, then the store of the pick: 2.
+- **K2** (Alg. 3): the endpoints' loads (the overflow choice's load beside
+  them: the room pointers need no reduction), then the store of the pick: 2.
+  K2's retract is no chain: it counts the recorded parts in parallel, so
+  bytes bound it (:func:`retract_bytes_bound_ms`).
 - **K3 Greedy**: the rows and loads (1 shared), the least value over the
   k partitions (1 reduction), the least index that holds it (1), the
   counter stores (1 shared): 2 shared, 2 reductions.
@@ -34,7 +37,10 @@ from __future__ import annotations
 
 import ctypes
 
-__all__ = ["CHAIN_STEPS", "latency_bound_ms", "measure_round_trips"]
+__all__ = ["CHAIN_STEPS", "HBM_BYTES_PER_S", "latency_bound_ms",
+           "measure_round_trips", "retract_bytes_bound_ms"]
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
 # (dependent shared-memory steps, dependent warp reductions) per edge
 CHAIN_STEPS = {
@@ -53,6 +59,13 @@ def latency_bound_ms(chain: str, edges: int, round_trips: dict) -> float:
     n_shared, n_redux = CHAIN_STEPS[chain]
     return edges * (n_shared * round_trips["shared_ns"]
                     + n_redux * round_trips["redux_ns"]) * 1e-6
+
+
+def retract_bytes_bound_ms(edges: int, k: int) -> float:
+    """K2's retract in ms at the card's memory rate: src, dst and the
+    recorded parts read once (12 bytes an edge), the parts written once (4),
+    the ``(k,)`` load read and written (8k)."""
+    return (16 * edges + 8 * k) / HBM_BYTES_PER_S * 1e3
 
 
 def measure_round_trips(steps: int = 1 << 20, reps: int = 5) -> dict:

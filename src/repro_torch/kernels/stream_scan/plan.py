@@ -1,4 +1,5 @@
-"""Tile plans of K1 (the Alg. 1 fold) and K3 (the Greedy/HDRF scan).
+"""Tile plans of K1 (the Alg. 1 fold), K2 (the Alg. 3 placement) and K3
+(the Greedy/HDRF scan).
 
 Both kernels fold one chunk in edge order, and both now run that fold on
 shared memory: each tile of ``T`` edges is staged (its endpoints deduplicated
@@ -15,6 +16,11 @@ spend more on staging than on folding, and K3 takes its **global** rung
 instead: the unchanged loop that reads rows from global memory.  The rung
 is chosen by ``k`` alone, before the launch; it is never a fallback on a
 failure.
+
+K2's producer warps pack each edge of a tile into one 32-bit record while
+warp 0 folds the tile before (one thread, in groups of :data:`K2_GROUP`
+edges, while some partition has room); records and parts are
+double-buffered beside the ``(k,)`` load vector (:func:`assign_smem_bytes`).
 """
 
 from __future__ import annotations
@@ -28,8 +34,12 @@ __all__ = [
     "K3_MAX_TILE",
     "K3_MIN_TILE",
     "K3_GLOBAL_TILE",
+    "K2_TILE",
+    "K2_GROUP",
+    "K2_THREADS",
     "ScoringPlan",
     "cluster_smem_bytes",
+    "assign_smem_bytes",
     "scoring_row_stride",
     "scoring_smem_bytes",
     "scoring_plan",
@@ -38,6 +48,9 @@ __all__ = [
 SHARED_MEM_BYTES = 232_448  # what one H100 block may opt in to
 K1_TILE = 1024  # edges a staged K1 tile holds
 K1_THREADS = 512  # threads that stage and write back a K1 tile
+K2_TILE = 2048  # edges a staged K2 tile
+K2_GROUP = 16  # edges K2's room mode folds between two checks
+K2_THREADS = 256  # warp 0 folds, warps 1-7 stage and write back
 K3_MAX_TILE = 1024
 K3_MIN_TILE = 32  # below this many edges a tile, K3 reads rows from global memory
 K3_GLOBAL_TILE = 1024  # edge ids the global rung stages a tile (double-buffered)
@@ -52,6 +65,14 @@ def cluster_smem_bytes(tile: int) -> int:
     and a tail cluster hash of ``4T`` keys and slots each (16T); ``2T`` head
     and ``2T`` tail cluster slots of (id, volume) (8T).  53T + 8 int32."""
     return 4 * (53 * tile + 8)
+
+
+def assign_smem_bytes(k: int) -> int:
+    """Shared bytes of one K2 insert block at ``k`` partitions: the load
+    vector (``k`` rounded up to 32), two tiles of records, each with the
+    group read past it (2T + 2G), two tiles of parts (2T), and 4 scalars
+    (first, last, the wrap flag)."""
+    return 4 * ((k + 31) // 32 * 32 + 4 * K2_TILE + 2 * K2_GROUP + 4)
 
 
 def scoring_row_stride(k: int) -> int:

@@ -22,6 +22,10 @@ g_v)`` (:func:`repro_torch._fp32.fma_f32`).  Ties go to the lowest index:
 argmax of the HDRF score (inactive partitions score −inf), argmin of the
 Greedy ``where(mask, load, 2**30)``.
 
+``assign_chunk_planned`` is K2's plan in plain torch: packed records,
+the room pointers, the fill of the least loaded partitions once none has
+room, the wrap guard, and the retract as a count.
+
 ``cluster_chunk_staged`` and ``scoring_chunk_staged`` are the kernels'
 tile plans (:mod:`.plan`) in plain torch: each tile's endpoints get vertex
 slots, their state is gathered, the fold runs on slots, and the tile is
@@ -42,6 +46,9 @@ __all__ = [
     "cluster_chunk_staged",
     "scoring_chunk_staged",
     "assign_chunk_oracle",
+    "assign_chunk_planned",
+    "pack_assign_records",
+    "unpack_assign_records",
     "scoring_chunk_oracle",
     "grid_chunk_oracle",
     "greedy_init",
@@ -56,6 +63,9 @@ __all__ = [
 ]
 
 _INF_I32 = 2**30
+_INT32_MAX = 2**31 - 1
+K2_VALID_BIT = 1  # K2's record: valid | head << 1 | pcu << 2 | pcv << 18
+K2_HEAD_BIT = 2
 _HDRF_EPS = 1e-3
 
 
@@ -188,6 +198,128 @@ def assign_chunk_oracle(load, src, dst, is_head_edge, pcu, pcv, *, max_load,
     load = load - torch.zeros_like(load).index_add_(
         0, parts.clamp(min=0).long(), placed.to(load.dtype))
     return parts.clone(), load
+
+
+def pack_assign_records(src, dst, is_head_edge, pcu, pcv, limit: int):
+    """K2's per-edge record, one int32: valid (bit 0) | head (bit 1) |
+    ``pcu`` (bits 2-13) | ``pcv`` (bits 18-29), valid = ``index < limit and
+    src != dst``.  k is at most 4,096, so 12 bits hold a partition id; the
+    ids sit 2 bits up, so that ``rec & 0x3FFC`` and ``rec >> 16`` are their
+    byte offsets in the load vector."""
+    g = torch.arange(src.shape[0], device=src.device)
+    valid = (g < int(limit)) & (src != dst)
+    i32 = torch.int32
+    return (valid.to(i32) | ((is_head_edge != 0).to(i32) << 1)
+            | ((pcu.to(i32) & 0xFFF) << 2) | ((pcv.to(i32) & 0xFFF) << 18))
+
+
+def unpack_assign_records(rec):
+    """``(pcu, pcv, head, valid)`` of :func:`pack_assign_records`' records."""
+    return ((rec >> 2) & 0xFFF, (rec >> 18) & 0xFFF, (rec & K2_HEAD_BIT) != 0,
+            (rec & K2_VALID_BIT) != 0)
+
+
+def assign_chunk_planned(load, src, dst, is_head_edge, pcu, pcv, *, max_load,
+                         sign=1, parts=None, n_valid=None, stats=None):
+    """K2's plan in plain torch, :func:`assign_chunk_oracle`'s contract.
+
+    Insert: each edge is one record (:func:`pack_assign_records`), folded
+    in one of three modes, chosen at the chunk's start and left at most
+    once:
+
+    - **room**: ``first``/``last``, the least and the greatest partition
+      with load < cap, are pointers.  Loads only grow, so the set with room
+      only shrinks; every pick has room, and a pick that reaches cap moves
+      the pointer it sits on past the partitions now full.  The overflow
+      choice is ``head ? first : last``, with no reduction.  When ``first``
+      passes ``last`` the chunk goes on in
+    - **full**: each valid edge takes the least loaded partition, lowest
+      index on ties.  The picks fill level ``v`` in index order, one window
+      of 32 partitions at a time (those of ``[p0, p0 + 32)`` still at ``v``),
+      then level ``v + 1`` from 0;
+    - **wrap**: where a load at the chunk's start lies within ``n`` of
+      2^31 - 1, a load could wrap past it and have room again; the chunk
+      runs the oracle's statement order, edge by edge.
+
+    Retract: ``parts`` comes back as it was, and each partition gives back
+    the count of placed edges recorded on it.  ``stats``, a dict, receives
+    the edges folded in each mode and the overflow edges (placed with both
+    endpoint partitions full).
+    """
+    from ...core.clustering import _w32
+
+    E = int(src.shape[0])
+    k = int(load.shape[0])
+    cap = int(max_load)
+    if sign < 0:
+        real = torch.arange(E, device=src.device) < int(n_valid)
+        placed = real & (src != dst) & (parts >= 0) & (parts < k)
+        count = torch.bincount(parts[placed].long(), minlength=k)
+        back = (load.to(torch.int64) - count) & 0xFFFFFFFF
+        back = torch.where(back >= 2**31, back - 2**32, back)
+        return parts.clone(), back.to(load.dtype)
+    limit = E if n_valid is None else int(n_valid)
+    recs = pack_assign_records(src, dst, is_head_edge, pcu, pcv, limit).tolist()
+    ld = load.tolist()
+    tally = {"room": 0, "full": 0, "wrap": 0, "overflow": 0}
+    room = [j for j in range(k) if ld[j] < cap]
+    first, last = (room[0], room[-1]) if room else (k, -1)
+    if E and max(ld) > _INT32_MAX - E:
+        mode = "wrap"
+    else:
+        mode = "room" if first <= last else "full"
+    v, p0, window = (min(ld), -32, []) if mode == "full" else (0, -32, [])
+    out = []
+    for r in recs:
+        a, b = (r >> 2) & 0xFFF, (r >> 18) & 0xFFF
+        head, valid = bool(r & K2_HEAD_BIT), bool(r & K2_VALID_BIT)
+        tally[mode] += 1
+        if mode == "full":
+            if not valid:
+                out.append(-1)
+                continue
+            while not window:
+                p0 += 32
+                if p0 >= k:
+                    p0, v = 0, v + 1
+                window = [j for j in range(p0, min(p0 + 32, k)) if ld[j] == v]
+            pick = window.pop(0)
+            ld[pick] = v + 1
+            tally["overflow"] += 1
+            out.append(pick)
+            continue
+        la, lb = ld[a], ld[b]
+        over = la >= cap and lb >= cap
+        pick = b if la > lb else a  # tie -> P_u
+        if over:
+            if mode == "room":
+                pick = first if head else last
+            else:
+                has = [j for j in range(k) if ld[j] < cap]
+                pick = (has[0] if head else has[-1]) if has else \
+                    min(range(k), key=ld.__getitem__)
+        if not valid:
+            out.append(-1)
+            continue
+        tally["overflow"] += over
+        ld[pick] = _w32(ld[pick] + 1)
+        out.append(pick)
+        if mode == "room" and ld[pick] >= cap:
+            if pick == first:
+                first += 1
+                while first <= last and ld[first] >= cap:
+                    first += 1
+            if pick == last:
+                last -= 1
+                while last >= first and ld[last] >= cap:
+                    last -= 1
+            if first > last:
+                mode, v, p0, window = "full", min(ld), -32, []
+    if stats is not None:
+        stats.update(tally)
+    dev = load.device
+    return (torch.tensor(out, dtype=torch.int32, device=dev),
+            torch.tensor(ld, dtype=torch.int32, device=dev))
 
 
 # ------------------------------------------------------------- K3 (plain)

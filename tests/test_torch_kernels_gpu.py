@@ -1,6 +1,7 @@
 """K1, K2, K3, G1, K4a, K4b and K5 on the card against their plain PyTorch
-versions (bitwise; K1 and K3 also at the main path's 65,536-edge chunk, on
-every K3 rung, with equal bits on two launches), K6 and K7 against their plain versions within stated
+versions (bitwise; K1, K2 and K3 also at the main path's 65,536-edge chunk,
+K2 with no room, room that runs out and the wrap guard, K3 on every rung,
+with equal bits on two launches), K6 and K7 against their plain versions within stated
 tolerances, and the GCN, the LM and xDeepFM on cuda against cpu.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -75,6 +76,115 @@ def test_k2_assign_scan_insert_and_retract(cuda, k):
     _, back_want = assign_chunk_oracle(l_want, s, d, zc, zc, zc, max_load=cap,
                                        sign=-1, parts=p_want, n_valid=E - 5)
     assert torch.equal(back.cpu(), back_want)
+
+
+def _k2_inputs(E, k, seed, *, loads, cap, pad=0, head_p=0.4):
+    """E edges over 2^16 vertices (a few self-loops), endpoint partitions and
+    head flags from a seed, then ``pad`` (0, 0) entries with zero extras,
+    as ``EdgeStream`` pads a chunk; the loads are ``loads(rng)``."""
+    rng = np.random.default_rng(seed)
+    V = 1 << 16
+    src = rng.integers(0, V, E).astype(np.int32)
+    dst = np.where(rng.random(E) < 0.01, src, rng.integers(0, V, E)).astype(np.int32)
+    cols = [src, dst, rng.random(E) < head_p, rng.integers(0, k, E).astype(np.int32),
+            rng.integers(0, k, E).astype(np.int32)]
+    cols = [np.concatenate([c, np.zeros(pad, c.dtype)]) for c in cols]
+    load = np.asarray(loads(rng), np.int64).astype(np.int32)
+    return [torch.from_numpy(c) for c in cols], torch.from_numpy(load), cap
+
+
+_INT32_MAX = 2**31 - 1
+# (E, k, loads, cap, pad): the main path's chunk (65,536 edges, loads near the
+# cap, some full), the same at k = 4,096, no room from the start (one level,
+# and one partition far below the rest), room that runs out mid-chunk, and
+# loads within n of 2^31 - 1 under cap = 2^31 - 1 (the wrap guard)
+K2_CASES = {
+    "65536-k32": (65536, 32, lambda r: r.integers(40_000 - 2500, 40_000 + 3, 32), 40_000, 0),
+    "65536-k4096": (65536, 4096, lambda r: r.integers(300 - 64, 300 + 3, 4096), 300, 0),
+    "padded-k32": (37_029, 32, lambda r: r.integers(40_000 - 64, 40_000 + 3, 32), 40_000,
+                   65536 - 37_029),
+    "no-room-k32": (65536, 32, lambda r: np.full(32, 5000), 5000, 0),
+    "no-room-k4096": (8192, 4096, lambda r: r.integers(100, 104, 4096), 100, 0),
+    "no-room-lagging-k32": (16384, 32, lambda r: np.r_[np.full(16, 900), 100, np.full(15, 900)],
+                            100, 0),
+    "room-runs-out-k256": (65536, 256, lambda r: r.integers(300, 303, 256), 302, 0),
+    "wrap-k32": (16384, 32, lambda r: _INT32_MAX - r.integers(0, 600, 32), _INT32_MAX, 0),
+    "wrap-k5": (4096, 5, lambda r: _INT32_MAX - r.integers(0, 900, 5), _INT32_MAX, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_cases(cuda, case):
+    """K2 against its plain version, bitwise, insert then retract (of all but
+    the last 1,000 entries, over many blocks), one launch a call, and equal
+    bits on two launches from one state."""
+    from repro_torch.kernels.stream_scan import (assign_chunk_oracle, assign_scan,
+                                                 launch_counts)
+    from repro_torch.kernels.stream_scan.ref import assign_chunk_planned
+
+    E, k, loads, cap, pad = K2_CASES[case]
+    cols, load0, cap = _k2_inputs(E, k, list(K2_CASES).index(case), loads=loads, cap=cap,
+                                 pad=pad)
+    stats = {}
+    p_want, l_want = assign_chunk_planned(load0, *cols, max_load=cap, stats=stats)
+    if k <= 256 or stats["overflow"] < 5000:  # the oracle scans k per overflow edge
+        p_or, l_or = assign_chunk_oracle(load0, *cols, max_load=cap)
+        assert torch.equal(p_or, p_want) and torch.equal(l_or, l_want)
+    args = [t.to(cuda) for t in cols]
+    runs = []
+    for _ in range(2):
+        before = launch_counts()["assign_scan"]
+        load = load0.to(cuda)
+        p_got, l_got = assign_scan(load, *args, max_load=cap)
+        torch.cuda.synchronize()
+        assert launch_counts()["assign_scan"] == before + 1
+        assert l_got.data_ptr() == load.data_ptr()  # in place
+        runs.append((p_got.cpu(), l_got.cpu()))
+    for p_got, l_got in runs:
+        assert torch.equal(p_got, p_want) and torch.equal(l_got, l_want)
+    nv = E + pad - 1000
+    z = torch.zeros_like(args[0])
+    before = launch_counts()["assign_scan"]
+    p_back, back = assign_scan(load0.to(cuda).copy_(l_want.to(cuda)), args[0], args[1], z, z,
+                               z, max_load=cap, sign=-1, parts=p_want.to(cuda), n_valid=nv)
+    torch.cuda.synchronize()
+    assert launch_counts()["assign_scan"] == before + 1
+    zc = z.cpu()
+    _, back_want = assign_chunk_oracle(l_want, cols[0], cols[1], zc, zc, zc, max_load=cap,
+                                       sign=-1, parts=p_want, n_valid=nv)
+    assert torch.equal(back.cpu(), back_want) and torch.equal(p_back.cpu(), p_want)
+
+
+@pytest.mark.parametrize("k", [1, 32, 4096])
+def test_k2_retract_histogram(cuda, k):
+    """Retract alone over 2^18 entries (256 blocks), recorded parts covering
+    every partition, -1 and self-loops among them, n_valid < E: the load
+    gives back exactly the count of each partition."""
+    from repro_torch.kernels.stream_scan import assign_chunk_oracle, assign_scan
+
+    rng = np.random.default_rng(k)
+    E = 1 << 18
+    src = torch.from_numpy(rng.integers(0, 100, E).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(0, 100, E).astype(np.int32))
+    parts = torch.from_numpy(rng.integers(-1, k, E).astype(np.int32))
+    load = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, k).astype(np.int32))
+    z = torch.zeros(E, dtype=torch.int32)
+    nv = E - 12345
+    p_want, l_want = assign_chunk_oracle(load, src, dst, z, z, z, max_load=0, sign=-1,
+                                         parts=parts, n_valid=nv)
+    zc = z.to(cuda)
+    p_got, l_got = assign_scan(load.to(cuda), src.to(cuda), dst.to(cuda), zc, zc, zc,
+                               max_load=0, sign=-1, parts=parts.to(cuda), n_valid=nv)
+    torch.cuda.synchronize()
+    assert torch.equal(p_got.cpu(), p_want) and torch.equal(l_got.cpu(), l_want)
+
+
+def test_k2_shared_bytes_match_plan(cuda):
+    from repro_torch.kernels.stream_scan import kernel as K
+    from repro_torch.kernels.stream_scan import plan
+
+    for k in (1, 8, 32, 33, 256, 4096):
+        assert K._lib().assign_smem_bytes(k) == plan.assign_smem_bytes(k)
 
 
 def test_k4_cms_update_and_query(cuda):
