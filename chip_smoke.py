@@ -13,14 +13,19 @@ Phases, each printing one JSON line:
               k = 32, with every kernel launch counter set to 0 just before
               and read just after; max load must hold and every kernel of
               the path (K1, K2, K4a, K4b, and K5 twice for the game's
-              cluster degrees) must have launched; the game's δ on the
-              card must have the CPU's bits (``game_audit``);
+              cluster degrees and once per ordered sum that the game
+              reports) must have launched; ``game_audit``: every W[i, p]
+              and partition-size sum of the game below its limit (2^24,
+              2^23) or summed in the reference's order, each of the
+              statistics pass's three cluster-size sums under 2^24 terms,
+              and the game's δ on the card with the CPU's bits;
 4. compare  — every other entry of ``PARTITIONERS`` on the main path's
               graph and k (the S5P row is the main run's), each with the
               launch counters set to 0 just before and read just after:
               parts must lie in [0, k), K3 must launch once per chunk for
               Greedy and HDRF, G1 once per chunk for grid; the rows that
-              run S5P's pipeline report its per-phase seconds; then the
+              run S5P's pipeline report its per-phase seconds, and
+              S5P-exact's and CLUGP's their ``game_audit``; then the
               delete path: the HDRF stream's last chunk is retracted from
               its final carry (``HdrfCarry.retract_chunk``, K3 with sign
               = -1, once) and the carry must equal the one rebuilt without
@@ -38,7 +43,9 @@ Phases, each printing one JSON line:
               set to 0 just before and read just after, K5 launched 6 times
               per forward (and twice in S5P's game); one more ``query_gnn``
               under ``torch.profiler``, its device time split into K5 and
-              the rest; the full logits held against the same forward
+              the rest; the ``game_audit``; S5P's Θ stream replayed from
+              the run's clusters (``theta_capture``), which must end at the
+              run's sketch; the full logits held against the same forward
               on ``device="cpu"`` (rtol 1e-4, atol 1e-5: only ``x @ W``
               differs); one line each for the graph, S5P, GAS, latency,
               GCN and device numbers;
@@ -66,7 +73,13 @@ Phases, each printing one JSON line:
               (cap 2^31 - 1), the last chunk's retract (n_valid < E) and
               4,096 edges at k = 8 and 256; each row names its overflow
               edges, the edges of each mode of the plan and its latency
-              bound.  G1 runs the grid row's chunk;
+              bound.  G1 runs the grid row's chunk.  K4a runs the first,
+              the middle and the last 2^18-key chunk of the main run's and
+              the serve phase's Θ streams (replayed), a hot-key chunk and
+              the deduplicated pair list, K4b the real pair count of both
+              runs, with the floors a launch can reach (an empty launch,
+              the card's rate of atomic adds) and the whole ``cms_update``
+              call's time;
               K5 runs the serve phase's degree counts (d = 1, every long
               row on the tree), layer-1 (d = 16) and layer-2 (d = 7)
               aggregations and one over its features in bfloat16 (d = 100),
@@ -267,6 +280,7 @@ def phase_build() -> dict:
     info = {"phase": "build", "seconds": res["seconds"],
             "sources": {n: os.path.relpath(str(p), ROOT)
                         for n, p in _build.SOURCES.items()},
+            "k4_kernels": ptxas_kernels(res["logs"].get("cms_sketch", "")),
             "k6_kernels": ptxas_kernels(res["logs"].get("flash_attention", "")),
             "k7_kernels": ptxas_kernels(res["logs"].get("cin", ""))}
     emit(info)
@@ -316,17 +330,30 @@ def ptxas_kernels(log: str) -> dict:
     return out
 
 
-def _game_audit(out) -> dict:
-    """The game's float32 totals on this run's inputs, in float64: a sum of
-    integer-valued float32 terms is exact in any order only below 2**24.
-    δ's two sums follow the reference's order; the per-cluster degrees,
-    W[i, p] and the part sizes are atomics on the card, exact while each
-    total is below 2**24.  δ on the card against δ on the CPU, bitwise."""
+def _game_audit(out, src, dst) -> dict:
+    """The game's float32 sums on this run's inputs, against the limits below
+    which a sum of non-negative terms is exact in any order: 2**24 for
+    integer-valued terms (Θ, so W[i, p] ≤ deg_i), 2**23 for multiples of ½
+    (the cluster and partition sizes).  Every row whose exact degree
+    (float64 here) reaches 2**24 must lie in one of the game's hub batches,
+    which sum W in the reference's order on K5; the partition sizes must be
+    below 2**23 in all (Σ sizes), or guarded by the game, with the sizes
+    summed in order (a replayed or an ordered round) wherever a guarded
+    total reached 2**23.  The statistics pass makes each cluster size from
+    three atomic sums over the edges of ``src``, ``dst`` (internal edges
+    ×1, each side's boundary edges ×½, added elementwise after), so each
+    sum must have fewer than 2**24 terms (``cluster_sizes_below_2^23``
+    alone is the stricter bound on their result).  The cluster degrees and
+    δ's sums run in the reference's order
+    (K5, ``xla_sum_f32``): δ on the card against δ on the CPU, bitwise.
+    ``game`` is the game's own report, over all rounds."""
+    import numpy as np
     import torch
 
     from repro_torch.core import game as G
+    from repro_torch.core.s5p import _edge_clusters
 
-    st = out.aux["incremental"]
+    st, game = out.aux["incremental"], out.aux["game"]
     sizes, pa, pb, pw = st["sizes"], st["pair_a"], st["pair_b"], st["pair_w"]
     C, k = out.n_clusters, out.k
     a, b = pa.long().clamp(max=C), pb.long().clamp(max=C)
@@ -344,13 +371,86 @@ def _game_audit(out) -> dict:
     cpu = G.GameInputs(sizes.cpu(), pa.cpu(), pb.cpu(), pw.cpu(), 0, k)
     d_cpu = G.compute_delta(cpu.sizes, G._cluster_degrees(cpu, C), k)
     total = float(deg.sum() + sizes.double().sum())
+    # the game's spans (leaders, then followers) and the ones that hold a hub row
+    bs, n_head = game["batch_size"], game["n_head"]
+    spans = [(lo, min(lo + bs, n_head)) for lo in range(0, n_head, bs)]
+    spans += [(lo, min(lo + bs, C)) for lo in range(n_head, C, bs)]
+    hub_rows = torch.nonzero(deg >= G.W_LIMIT)[:, 0].cpu().numpy()
+    hub_spans = [(lo, hi) for lo, hi in spans
+                 if np.searchsorted(hub_rows, lo) < np.searchsorted(hub_rows, hi)]
+    sum_sizes = float(sizes.double().sum())
+    max_cluster_size = float(sizes.max())
+    s_t = torch.from_numpy(src).to(pw.device, torch.int32)
+    d_t = torch.from_numpy(dst).to(pw.device, torch.int32)
+    cu, cv, _ = _edge_clusters(s_t, d_t, st["compact"], st["degrees"], out.xi)
+    valid = s_t != d_t
+    internal, boundary = (cu == cv) & valid, (cu != cv) & valid
+    size_terms = max(int(torch.bincount(c.clamp(min=0).long()[m], minlength=C).max())
+                     for c, m in ((cu, internal), (cu, boundary), (cv, boundary)))
+    del s_t, d_t, cu, cv, valid, internal, boundary
+    replay_ok = game["max_part_size"] < G.SIZE_LIMIT or game["ordered_rounds"] > 0
     return {"sum_degs_sizes": total, "max_cluster_degree": float(deg.max()),
-            "max_w_ip": float(wip.max()), "max_part_size": float(parts.max()),
+            "hub_rows": int(hub_rows.size), "hub_batches_expected": len(hub_spans),
+            "sum_sizes": sum_sizes, "max_cluster_size": max_cluster_size,
+            "max_cluster_size_sum_terms": size_terms,
+            "max_w_ip_final": float(wip.max()), "max_part_size_final": float(parts.max()),
+            "game": {key: v for key, v in game.items() if key not in ("rounds", "converged")},
+            "w_sums_ordered_or_below_2^24": game["hub_batches"] == len(hub_spans),
+            "part_sizes_below_2^23_or_replayed": sum_sizes < G.SIZE_LIMIT or (
+                game["size_guard"] and replay_ok),
+            "cluster_sizes_below_2^23": max_cluster_size < G.SIZE_LIMIT,
+            "cluster_size_sums_exact": size_terms < G.W_LIMIT,
             "delta_bits_cuda": int(d_dev.cpu().view(torch.int32)),
             "delta_bits_cpu": int(d_cpu.view(torch.int32)),
-            "delta_sum_above_2^24": total >= 2**24,
-            "atomic_totals_below_2^24": max(float(deg.max()), float(wip.max()),
-                                            float(parts.max())) < 2**24}
+            "delta_sum_above_2^24": total >= 2**24}
+
+
+def _audit_problems(name: str, audit: dict) -> list[str]:
+    keys = ("w_sums_ordered_or_below_2^24", "part_sizes_below_2^23_or_replayed",
+            "cluster_size_sums_exact")
+    problems = [f"{name}: the game audit fails {key}: {audit}" for key in keys if not audit[key]]
+    if audit["delta_bits_cuda"] != audit["delta_bits_cpu"]:
+        problems.append(f"{name}: the game's δ differs between cuda and cpu: {audit}")
+    return problems
+
+
+def theta_capture(src, dst, out, cfg) -> dict:
+    """S5P's Θ stream replayed from the run's own state: the pair stream of
+    ``core.s5p.theta_pairs`` (the run's clusters), chunked as the
+    statistics pass chunks it (2^18 keys), each chunk's keys and counts as
+    ``SketchCarry.step_chunk`` makes them, through ``cms_update`` from the
+    empty sketch.  The replay must end at the run's final sketch, bit for
+    bit.  Returns the first, the middle and the last chunk, each with the
+    table it found, and the seeds, width and depth."""
+    import torch
+
+    from repro_torch.core.cms import SketchCarry, cms_update, pair_key, suggest_params
+    from repro_torch.core.s5p import theta_pairs
+    from repro_torch.streaming import EdgeStream
+
+    st = out.aux["incremental"]
+    s_t = torch.from_numpy(src).to("cuda", torch.int32)
+    d_t = torch.from_numpy(dst).to("cuda", torch.int32)
+    a, b = theta_pairs(s_t, d_t, st["compact"], st["degrees"], out.xi)
+    del s_t, d_t
+    C = out.n_clusters
+    w, depth = suggest_params(cfg.cms_epsilon, cfg.cms_nu)
+    theta = SketchCarry(w * max(1, int(math.sqrt(C))), depth, seed=cfg.seed, device="cuda")
+    stream = EdgeStream(a, b, C + 1, chunk_size=1 << 18, device="cuda")
+    n = stream.n_chunks
+    picks = {0, n // 2, n - 1}
+    sketch, chunks = theta.init(), {}
+    for i in range(n):
+        ch = stream.chunk_at(i)
+        keys, counts = pair_key(ch.src, ch.dst), theta._counts(ch.src, ch.n_valid)
+        if i in picks:
+            chunks[i] = {"keys": keys, "counts": counts, "table": sketch.table.clone(),
+                         "n_valid": int(ch.n_valid)}
+        sketch = cms_update(sketch, keys, counts)
+    torch.cuda.synchronize()
+    return {"chunks": chunks, "n_chunks": n, "pairs_streamed": int(a.size),
+            "seeds": sketch.seeds, "width": theta.width, "depth": theta.depth,
+            "ends_at_run_sketch": bool(torch.equal(sketch.table, out.aux["sketch"].table))}
 
 
 def phase_main(scale: int) -> dict:
@@ -394,22 +494,22 @@ def phase_main(scale: int) -> dict:
         "clustering_edges_per_s": E / out.timings["clustering"],
         "placement_edges_per_s": E / out.timings["postprocess"],
         "max_memory_allocated": peak, "launches": launches,
-        "pairs": out.aux["n_pairs"], "game_audit": _game_audit(out),
+        "pairs": out.aux["n_pairs"], "game_audit": _game_audit(out, src, dst),
     }
     emit(info)
     n_chunks = math.ceil(E / cfg.chunk_size)
     problems = []
     if info["max_load"] > out.max_load:
         problems.append(f"max load {info['max_load']} > cap {out.max_load}")
-    audit = info["game_audit"]
-    if audit["delta_bits_cuda"] != audit["delta_bits_cpu"]:
-        problems.append(f"the game's δ differs between cuda and cpu: {audit}")
+    problems += _audit_problems("s5p", info["game_audit"])
     if launches["cluster_scan"] != n_chunks or launches["assign_scan"] != n_chunks:
         problems.append(f"K1/K2 launches {launches} != {n_chunks} chunks")
     if launches["cms_update"] < 1 or launches["cms_query"] < 1:
         problems.append(f"CMS kernels not launched: {launches}")
-    if launches["segment_agg"] != 2:
-        problems.append(f"K5 launched {launches['segment_agg']} times by the game, not 2")
+    game_k5 = 2 + out.aux["game"]["ordered_sums"]  # the degrees, then the ordered sums
+    if launches["segment_agg"] != game_k5:
+        problems.append(f"K5 launched {launches['segment_agg']} times by the game, not "
+                        f"{game_k5}")
     p = parts.cpu().numpy()
     if p.shape != (E,) or p.min() < 0 or p.max() >= cfg.k:
         problems.append("parts outside [0, k) on a graph without self-loops")
@@ -725,77 +825,137 @@ def check_k2(main, rt) -> list[dict]:
     return rows
 
 
-def check_cms(main) -> list[dict]:
+def k4_bounds(n: int, depth: int, width: int, query: bool) -> tuple[float, str]:
+    """K4a: the keys and counts (int64) and the seeds read, the table read
+    and written once; K4b: the keys and the table read, the int64 estimates
+    written.  Operations: the hash, ~11 integer operations a key and row."""
+    if query:
+        return bound_ms(16 * n + 8 * depth + 4 * depth * width, 11 * n * depth)
+    return bound_ms(16 * n + 8 * depth + 8 * depth * width, 11 * n * depth)
+
+
+def check_cms(main, serve) -> list[dict]:
+    """K4a on the Θ stream's own chunks (the first, the middle and the last
+    2^18-key chunk of the main run's and of the serve phase's S5P, replayed
+    by ``theta_capture``, each onto the table it found), on a hot-key chunk
+    (one key 2^18 times) and on the deduplicated pair list; K4b at the real
+    pair count P on each run's final sketch.  Each bitwise against the plain
+    version; times of the kernel alone (its C entry point on ready
+    operands; K4a onto a scratch copy of the table) and of the whole
+    ``core.cms`` call; the floors a
+    launch can reach (``latency.measure_launch_floor``: an empty launch,
+    and d × keys global atomic adds at the card's rate for distinct
+    addresses); ``index_put_(accumulate=True)`` of the same counts at the
+    same (hashed) cells as the library call."""
     import torch
 
-    from repro_torch.core.cms import _row_cols, make_sketch, pair_key, suggest_params
-    from repro_torch.kernels.cms_sketch import cms_query, cms_update, query_ref, update_ref
+    from repro_torch.core.cms import CMSketch, _row_cols, cms_query, cms_update, pair_key
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cms_sketch import add_ref, query_ref
     from repro_torch.kernels.cms_sketch import kernel as cms_k
-    from repro_torch.kernels.cms_sketch.kernel import u32_bits
+    from repro_torch.kernels.cms_sketch.ref import u32_bits
+    from repro_torch.kernels.stream_scan.latency import measure_launch_floor
 
-    out = main["out"]
-    C = out.n_clusters
-    w, d = suggest_params(0.1, 0.01)
-    width = w * max(1, int(math.sqrt(C)))
-    seeds = make_sketch(width, d, seed=0, device="cuda").seeds
-    pa = out.aux["incremental"]["pair_a"]
-    pb = out.aux["incremental"]["pair_b"]
+    main_theta = theta_capture(main["src"], main["dst"], main["out"], main["cfg"])
+    if not main_theta["ends_at_run_sketch"]:
+        raise SystemExit("chip_smoke: the replayed Θ stream does not end at the main run's sketch")
+    seeds, width, d = main_theta["seeds"], main_theta["width"], main_theta["depth"]
+    floor = measure_launch_floor(d * width)
+    emit({"phase": "k4_floor", **floor})
+    launches = main["launches"]
+    source = "src/repro_torch/kernels/cms_sketch/csrc/cms_sketch.cu"
+    lib, stream = cms_k._lib(), torch.cuda.current_stream().cuda_stream
+
+    def k4a_row(label, keys, counts, table0, seeds, extra):
+        depth, w = table0.shape
+        n = int(keys.numel())
+        scratch = table0.clone()
+        ms = cuda_time_ms(lambda: _build.check(lib.cms_update_launch(
+            keys.data_ptr(), counts.data_ptr(), seeds.data_ptr(), n, depth, w,
+            scratch.data_ptr(), 0, stream), "cms_update"), reps=20,
+            setup=lambda: scratch.copy_(table0))
+        sketch = CMSketch(table=table0, seeds=seeds)
+        call_ms = cuda_time_ms(lambda: cms_update(sketch, keys, counts), reps=20)
+        got = cms_update(sketch, keys, counts).table
+        kc, sc, cc, tc = keys.cpu(), seeds.cpu(), counts.cpu(), table0.cpu()
+        res = {}
+        plain = host_time_ms(lambda: res.__setitem__("t", add_ref(tc, kc, sc, cc)))
+        cols = _row_cols(keys, seeds, w)
+        flat = (torch.arange(depth, device="cuda")[:, None] * w + cols).reshape(-1)
+        vals = u32_bits(counts).expand(depth, -1).reshape(-1).contiguous()
+        lib_table = table0.clone().reshape(-1)
+        lib_ms = cuda_time_ms(lambda: lib_table.index_put_((flat,), vals, accumulate=True),
+                              reps=20, setup=lambda: lib_table.copy_(table0.reshape(-1)))
+        b, by = k4_bounds(n, depth, w, query=False)
+        atomics_ms = depth * n / floor["atomic_adds_per_s"] * 1e3
+        uniq = int(torch.unique(cols[0]).numel()) if n else 0
+        shape = {"keys": n, "depth": depth, "width": w, "columns_hit_row0": uniq,
+                 "blocks_per_row": cms_k.default_blocks_per_row(n, depth, w),
+                 "call_ms": call_ms,
+                 "floor": {"empty_launch_ms": floor["empty_launch_ms"],
+                           "d_keys_atomics_ms": atomics_ms,
+                           "floor_ms": max(floor["empty_launch_ms"], atomics_ms)},
+                 "bitwise": bool(torch.equal(got.cpu(), res["t"])), **extra}
+        return {"name": f"K4a cms_update{label}", "route": "cuda", "source": source,
+                "replaces": "src/repro/kernels/cms_sketch/kernel.py:89",
+                "launches": launches["cms_update"], "max_abs_err": max_abs_err(got, res["t"]),
+                "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                "library_ms": lib_ms, "shape": shape}
+
+    def k4b_row(label, table, keys, seeds, extra):
+        depth, w = table.shape
+        n = int(keys.numel())
+        sketch = CMSketch(table=table, seeds=seeds)
+        got = cms_query(sketch, keys)
+        out = torch.empty_like(got)
+        ms = cuda_time_ms(lambda: _build.check(lib.cms_query_launch(
+            keys.data_ptr(), seeds.data_ptr(), table.data_ptr(), n, depth, w, out.data_ptr(),
+            stream), "cms_query"), reps=20)
+        call_ms = cuda_time_ms(lambda: cms_query(sketch, keys), reps=20)
+        res = {}
+        tc, kc, sc = table.cpu(), keys.cpu(), seeds.cpu()
+        plain = host_time_ms(lambda: res.__setitem__("q", query_ref(tc, kc, sc)))
+        b, by = k4_bounds(n, depth, w, query=True)
+        shape = {"keys": n, "depth": depth, "width": w, "call_ms": call_ms,
+                 "floor": {"empty_launch_ms": floor["empty_launch_ms"]},
+                 "bitwise": bool(torch.equal(got.cpu(), res["q"])), **extra}
+        return {"name": f"K4b cms_query{label}", "route": "cuda", "source": source,
+                "replaces": "src/repro/kernels/cms_sketch/kernel.py:114",
+                "launches": launches["cms_query"], "max_abs_err": max_abs_err(got, res["q"]),
+                "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                "library_ms": None, "shape": shape}
+
+    rows = []
+    for run, theta in (("main", main_theta), ("serve", serve["theta"])):
+        chunks = theta["chunks"]
+        for i in sorted(chunks):
+            c = chunks[i]
+            label = "" if run == "main" and i == theta["n_chunks"] // 2 else \
+                f" ({run} Θ chunk {i} of {theta['n_chunks']})"
+            rows.append(k4a_row(label, c["keys"], c["counts"], c["table"], theta["seeds"],
+                                {"stream": run, "chunk": i, "n_chunks": theta["n_chunks"],
+                                 "n_valid": c["n_valid"]}))
+    mid = main_theta["chunks"][main_theta["n_chunks"] // 2]
+    hot = torch.full_like(mid["keys"], int(mid["keys"][0]))
+    rows.append(k4a_row(" (hot key: one key 2^18 times)", hot, torch.ones_like(hot),
+                        mid["table"], seeds, {"stream": "hot key"}))
+    pa, pb = main["out"].aux["incremental"]["pair_a"], main["out"].aux["incremental"]["pair_b"]
     N = 1 << 18
     reps = -(-N // pa.numel())
-    keys = pair_key(pa.repeat(reps)[:N], pb.repeat(reps)[:N])
-    counts = torch.ones_like(keys)
+    dedup = pair_key(pa.repeat(reps)[:N], pb.repeat(reps)[:N])
+    counts = torch.ones_like(dedup)
     counts[-1000:] = 0  # the padding of a last chunk
     counts[:1000] = -1  # retractions wrap in Z/2^32
-
-    table = cms_update(keys, seeds, width, d, counts)
-    est = cms_query(table, keys, seeds)
-    # the kernels alone, on the operands the wrappers hand them (the
-    # wrappers' uint32 conversions are not part of the kernel's time)
-    lib, stream = cms_k._lib(), torch.cuda.current_stream().cuda_stream
-    k32, c32, s32 = u32_bits(keys), u32_bits(counts), u32_bits(seeds)
-    scratch = torch.zeros_like(table)
-    out32 = torch.empty(N, dtype=torch.int32, device="cuda")
-    ms_u = cuda_time_ms(lambda: _build.check(lib.cms_update_launch(
-        k32.data_ptr(), c32.data_ptr(), s32.data_ptr(), N, d, width,
-        scratch.data_ptr(), stream), "cms_update"), reps=20, setup=scratch.zero_)
-    ms_q = cuda_time_ms(lambda: _build.check(lib.cms_query_launch(
-        k32.data_ptr(), s32.data_ptr(), table.data_ptr(), N, d, width,
-        out32.data_ptr(), stream), "cms_query"), reps=20)
-    torch.cuda.synchronize()
-    kc, sc, cc = keys.cpu(), seeds.cpu(), counts.cpu()
-    res = {}
-    plain_u = host_time_ms(lambda: res.__setitem__("t", update_ref(kc, sc, width, d, cc)))
-    plain_q = host_time_ms(lambda: res.__setitem__("q", query_ref(table.cpu(), kc, sc)))
-    err_u = max_abs_err(table, res["t"])
-    err_q = max_abs_err(est, res["q"])
-
-    # yardstick: one PyTorch call that accumulates the same counts into the
-    # same table, given the hashed columns (hashing is not part of it)
-    cols = _row_cols(keys, seeds, width)
-    flat = (torch.arange(d, device="cuda")[:, None] * width + cols).reshape(-1)
-    vals = u32_bits(counts).expand(d, -1).reshape(-1).contiguous()
-    lib_table = torch.zeros(d * width, dtype=torch.int32, device="cuda")
-    lib_ms = cuda_time_ms(lambda: lib_table.index_put_((flat,), vals, accumulate=True),
-                          reps=20, setup=lib_table.zero_)
-    b_u, by_u = bound_ms(8 * N + 4 * d + 4 * d * width, 11 * N * d)
-    b_q, by_q = bound_ms(8 * N + 4 * d + 4 * d * width, 11 * N * d)
-    shape = {"keys": N, "depth": d, "width": width, "clusters": C}
-    launches = main["launches"]
-    return [
-        {"name": "K4a cms_update", "route": "cuda",
-         "source": "src/repro_torch/kernels/cms_sketch/csrc/cms_sketch.cu",
-         "replaces": "src/repro/kernels/cms_sketch/kernel.py:89",
-         "launches": launches["cms_update"], "max_abs_err": err_u,
-         "ms": ms_u, "plain_ms": plain_u, "bound_ms": b_u, "bound_by": by_u,
-         "library_ms": lib_ms, "shape": shape},
-        {"name": "K4b cms_query", "route": "cuda",
-         "source": "src/repro_torch/kernels/cms_sketch/csrc/cms_sketch.cu",
-         "replaces": "src/repro/kernels/cms_sketch/kernel.py:114",
-         "launches": launches["cms_query"], "max_abs_err": err_q,
-         "ms": ms_q, "plain_ms": plain_q, "bound_ms": b_q, "bound_by": by_q,
-         "library_ms": None, "shape": shape},
-    ]
+    rows.append(k4a_row(" (the deduplicated pair list, 2^18 keys)", dedup, counts,
+                        torch.zeros_like(mid["table"]), seeds, {"stream": "dedup pairs"}))
+    for run, (a, b), sketch in (("main", (pa, pb), main["out"].aux["sketch"]),
+                                ("serve", serve["pairs"], serve["sketch"])):
+        label = "" if run == "main" else " (serve: the real pair count P)"
+        rows.append(k4b_row(label, sketch.table, pair_key(a, b), sketch.seeds,
+                            {"stream": f"{run}: the real pair count P"}))
+    rows.sort(key=lambda r: (r["name"].startswith("K4b"), r["name"] not in (
+        "K4a cms_update", "K4b cms_query")))
+    return rows
 
 
 def phase_compare(main) -> dict:
@@ -835,6 +995,13 @@ def phase_compare(main) -> dict:
             row.update(clusters=out.n_clusters, head_clusters=out.n_head_clusters,
                        game_rounds=out.game_rounds, game_converged=out.game_converged,
                        seconds_by_phase=out.timings)
+            if name != "s5p":  # the main run's audit is phase main's
+                row["game_audit"] = _game_audit(out, src, dst)
+                problems += _audit_problems(name, row["game_audit"])
+                want_k5 = 2 + out.aux["game"]["ordered_sums"]
+                if launches["segment_agg"] != want_k5:
+                    problems.append(f"{name}: K5 launched {launches['segment_agg']} times, "
+                                    f"not {want_k5} (the game's degrees and ordered sums)")
         emit(row)
         rows[name] = row
         parts_of[name] = parts
@@ -1167,7 +1334,7 @@ def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
     kernel_plan()
     k1 = check_k1(main, rt)
     k2 = check_k2(main, rt)
-    cms = check_cms(main)
+    cms = check_cms(main, serve)
     k3_g1, k3_extra = check_k3_g1(main, compare, rt)
     k5 = check_k5(serve)
     k6 = check_k6(lm, build)
@@ -1175,7 +1342,8 @@ def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
     rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k6, *k7]
     _check_rows(rows)
     main_k2 = k2[1]  # the main path's middle chunk
-    summary = [k1[0], main_k2, *cms, *k3_g1, *k5, k6[0], k7[1]]
+    main_k4 = [r for r in cms if r["name"] in ("K4a cms_update", "K4b cms_query")]
+    summary = [k1[0], main_k2, *main_k4, *k3_g1, *k5, k6[0], k7[1]]
     for r in summary:  # a latency bound for the serial scans, none for the rest
         r.setdefault("latency_bound_ms", None)
     return summary, rows
@@ -1241,7 +1409,7 @@ def phase_serve(products_scale: float) -> dict:
     out = s5p_partition(g.src, g.dst, n, S5PConfig(k=32), device=dev)
     torch.cuda.synchronize()
     s5p_s = time.perf_counter() - t0
-    game_k5 = launch_counts()["segment_agg"]  # the game's two degree sums
+    game_k5 = launch_counts()["segment_agg"]  # the game's degree sums and ordered sums
     s_t, d_t = torch.from_numpy(g.src).to(dev), torch.from_numpy(g.dst).to(dev)
     rf = replication_factor(s_t, d_t, out.parts, n_vertices=n, k=32)
     bal = load_balance(out.parts, k=32)
@@ -1293,9 +1461,9 @@ def phase_serve(products_scale: float) -> dict:
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     gnn_profile = _profile_query_gnn(server, params, feats, cfg)
-    audit = _game_audit(out)
-    if audit["delta_bits_cuda"] != audit["delta_bits_cpu"]:
-        problems.append(f"the game's δ differs between cuda and cpu: {audit}")
+    audit = _game_audit(out, g.src, g.dst)
+    problems += _audit_problems("serve", audit)
+    theta = theta_capture(g.src, g.dst, out, S5PConfig(k=32))
 
     # the same forward on the CPU, through the plain K5
     t0 = time.perf_counter()
@@ -1308,9 +1476,12 @@ def phase_serve(products_scale: float) -> dict:
     n_chunks = math.ceil(E / S5PConfig(k=32).chunk_size)
     if fwd_k5 != 6 or full_k5 != 6 or any(k != 6 for k in point_k5):
         problems.append(f"K5 launches per forward {fwd_k5}, {full_k5}, {point_k5}, not 6")
-    if game_k5 != 2 or launches["segment_agg"] - game_k5 != 6 * 18:
+    want_k5 = 2 + out.aux["game"]["ordered_sums"]
+    if game_k5 != want_k5 or launches["segment_agg"] - game_k5 != 6 * 18:
         problems.append(f"K5 launched {launches['segment_agg']} times, {game_k5} in S5P's "
-                        "game: not 2 + 6 x 18")
+                        f"game: not {want_k5} + 6 x 18")
+    if not theta["ends_at_run_sketch"]:
+        problems.append("the replayed Θ stream does not end at the run's sketch")
     if launches["cluster_scan"] != n_chunks or launches["assign_scan"] != n_chunks:
         problems.append(f"K1/K2 launches {launches} != {n_chunks} chunks")
     if launches["cms_update"] < 1 or launches["cms_query"] < 1:
@@ -1342,9 +1513,12 @@ def phase_serve(products_scale: float) -> dict:
         "components": int(np.unique(labels).size),
         "max_memory_allocated": peak, "launches": launches,
         "query_gnn_profile": gnn_profile, "game_audit": audit,
+        "theta_stream": {key: theta[key] for key in ("n_chunks", "pairs_streamed",
+                                                      "ends_at_run_sketch")},
     }
     for step, keys in (("graph", ("graph", "V", "E", "generate_graph_s", "generate_features_s")),
-                       ("s5p", ("k", "rf", "balance", "s5p_s", "s5p_seconds", "game_audit")),
+                       ("s5p", ("k", "rf", "balance", "s5p_s", "s5p_seconds", "game_audit",
+                                "theta_stream")),
                        ("gas", ("sync_bytes_per_superstep", "layout_s", "supersteps",
                                 "supersteps_s", "components")),
                        ("latency", ("latency", "query_gnn_profile")), ("gcn", ("gcn",)),
@@ -1353,7 +1527,9 @@ def phase_serve(products_scale: float) -> dict:
     if problems:
         raise SystemExit("chip_smoke serve phase failed: " + "; ".join(problems))
     return {"info": info, "params": params, "feats": feats, "bundle": bundle, "cfg": cfg,
-            "launches": launches}
+            "launches": launches, "theta": theta, "pairs": (out.aux["incremental"]["pair_a"],
+                                                            out.aux["incremental"]["pair_b"]),
+            "sketch": out.aux["sketch"]}
 
 
 def _profile_query_gnn(server, params, feats, cfg) -> dict:

@@ -9,7 +9,9 @@ to ``repro.core.cms`` (the seeds come from :func:`repro_torch.random.randint`).
 Representation: uint32 arithmetic is emulated in int64 masked with
 ``0xFFFFFFFF`` (keys and query results are int64 holding uint32 values);
 the table keeps the uint32 bit pattern in an int32 tensor.  On CUDA,
-update and query run in the K4a/K4b kernels (``kernels/cms_sketch``).
+update and query run in the K4a/K4b kernels (``kernels/cms_sketch``): an
+update copies the table and K4a adds into the copy, one launch beside the
+copy.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from .. import random as _random
 from .._device import resolve_device
-from ..kernels.cms_sketch import kernel as _k
+from ..kernels.cms_sketch import ops as _ops
+from ..kernels.cms_sketch.ref import u32_bits
 from ..random import M32, mul32
 from ..streaming import PartitionerCarry
 
@@ -104,30 +107,22 @@ def _row_cols(keys: torch.Tensor, seeds: torch.Tensor, width: int) -> torch.Tens
     return h % width
 
 
-def _wrapping_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Add two int32 tables as uint32, wrapping in ℤ/2³²."""
-    return _k.u32_bits(a.to(torch.int64) + b.to(torch.int64))
-
-
 def cms_update(sketch: CMSketch, keys: torch.Tensor,
                counts: torch.Tensor | None = None) -> CMSketch:
     """Add ``counts`` (default 1, may be negative) at ``keys``: a new
     sketch whose table wraps in ℤ/2³²."""
-    if counts is None:
-        counts = torch.ones_like(keys)
-    delta = _k.cms_update(keys, sketch.seeds, sketch.width, sketch.depth,
-                          counts)
-    return CMSketch(table=_wrapping_add(sketch.table, delta), seeds=sketch.seeds)
+    return _ops.cms_update_kernel(sketch, keys, counts)
 
 
 def cms_query(sketch: CMSketch, keys: torch.Tensor) -> torch.Tensor:
     """Point query: min over rows (unsigned), as int64 holding uint32."""
-    return _k.cms_query(sketch.table, keys, sketch.seeds)
+    return _ops.cms_query_kernel(sketch, keys)
 
 
 def cms_merge(a: CMSketch, b: CMSketch) -> CMSketch:
     """Merge two sketches built with identical seeds (element-wise sum)."""
-    return CMSketch(table=_wrapping_add(a.table, b.table), seeds=a.seeds)
+    table = u32_bits(a.table.to(torch.int64) + b.table.to(torch.int64))
+    return CMSketch(table=table, seeds=a.seeds)
 
 
 def cms_retract(sketch: CMSketch, keys: torch.Tensor,
@@ -135,7 +130,7 @@ def cms_retract(sketch: CMSketch, keys: torch.Tensor,
     """Subtract ``counts`` (default 1) at ``keys``: the exact inverse of the
     same :func:`cms_update`."""
     if counts is None:
-        counts = torch.ones_like(keys)
+        counts = torch.ones_like(keys, dtype=torch.int64)
     return cms_update(sketch, keys, -counts.to(torch.int64))
 
 

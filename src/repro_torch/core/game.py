@@ -17,12 +17,43 @@ Only the rows of the batch can move, so each batch computes ``W`` for its
 own rows from a cluster-sorted adjacency (CSR) instead of for all C rows;
 the cost matrix is the reference's expression in its operation order,
 rounded as the reference's compiled program rounds it (:func:`_costs`).
-Θ is integer-valued, so the float32 scatter-adds of ``W[i, p]`` and the
-partition sizes are exact in any order while each total stays below
-2**24; the cluster degrees (a CMS Θ overestimates them past 2**24 at
-R-MAT scale 20) are summed in the reference's order on K5, and the
-whole-array sums of δ and of the objective in the reference's order too
-(:func:`~.._fp32.xla_sum_f32`).
+
+The reference adds every float32 sum cell by cell in index order; the
+card's ``index_add_`` adds with atomics in an order that varies.  Every
+term is non-negative (Θ is integer-valued, a cluster size a multiple of
+½), so no partial sum in any order exceeds the exact total, and rounding
+is monotone: a total below the limit (2**24 for integers, 2**23 for
+halves) is exact in every order, and an atomic total below it proves the
+exact one is.  So, per game (:func:`_static_bounds`, from the exact
+degrees and Σ sizes in float64):
+
+- W[i, p] ≤ deg_i.  A batch that holds a row with deg_i ≥ 2**24 (a *hub
+  batch*) sums W in the reference's order on K5 (:func:`_segment_sum`: the
+  adjacency holds each row's pairs with ``pair_a == i`` by index, then
+  those with ``pair_b == i``, and a stable grouping by cell keeps that
+  order, which is ``w.at[a, ·].add`` followed by ``w.at[b, ·].add``);
+  every other batch keeps ``index_add_``.
+- Where the exact Σ sizes ≥ 2**23, the partition sizes stay atomic but
+  are guarded: a running (k,) max of each batch's totals stays on the
+  device and is read with ``wanted`` at the round's one sync.  If it
+  reached 2**23, the round is replayed from its starting assignment with
+  the same acceptance draws and the sizes summed on K5 in index order; a
+  round is a function of its start and its draws, so the replay gives the
+  reference's bits.  While the sizes summed in order still reach 2**23,
+  the next round starts in order (no atomic pass to throw away); below
+  2**23 it returns to the guard.  In order, K5 runs each partition's
+  chain only from where its exact running total reaches 2**23: below, the
+  chain's state is the exact prefix (:func:`_part_sizes`).  Below 2**23 in
+  all, no guard runs.
+- The cluster degrees (a CMS Θ overestimates them past 2**24 at R-MAT
+  scale 20) are always summed in the reference's order on K5, and the
+  whole-array sums of δ and of the objective in the reference's order too
+  (:func:`~.._fp32.xla_sum_f32`); :func:`social_welfare` and
+  :func:`best_response_gap` run once a call and take the ordered sums.
+
+:class:`GameResult` reports the hub batches, the ordered sums (one K5
+launch each on the card), the replayed and the ordered rounds and the
+largest guarded partition size and hub-batch W seen.
 This is plain PyTorch: the reference computes the game outside any Pallas
 kernel.  The masked game (``leader_mask``/``move_mask``/``move_cost``)
 waits for the touch-up and incremental slice.
@@ -38,7 +69,7 @@ import torch
 from .. import random as _random
 from .._fp32 import fma_f32 as _fma_f32
 from .._fp32 import xla_sum_f32 as _xla_sum
-from ..kernels.segment_agg import segment_agg, segment_layout
+from ..kernels.segment_agg import LONG_ROW_EDGES, SegmentLayout, segment_agg
 
 __all__ = [
     "GameInputs",
@@ -66,10 +97,21 @@ class GameInputs(NamedTuple):
     k: int
 
 
+W_LIMIT = 2**24  # integer-valued float32 sums are exact in any order below it
+SIZE_LIMIT = 2**23  # the same for sums of multiples of ½ (the cluster sizes)
+
+
 class GameResult(NamedTuple):
     assignment: torch.Tensor  # (C,) int32 cluster → partition
     rounds: int  # rounds played
     converged: bool  # no player wanted to move in the last round
+    hub_batches: int = 0  # batches that sum W in order (a row with deg ≥ 2**24)
+    ordered_sums: int = 0  # ordered sums taken by batch updates (a K5 launch each)
+    size_guard: bool = False  # the exact Σ sizes ≥ 2**23: partition sizes guarded
+    replayed_rounds: int = 0  # rounds replayed with the sizes in order
+    ordered_rounds: int = 0  # rounds whose sizes were summed in order (replays too)
+    max_part_size: float = 0.0  # largest exact partition size in a guarded batch
+    max_w_hub: float = 0.0  # largest W[i, p] in a hub batch
 
 
 def init_assignment(sizes, k: int) -> np.ndarray:
@@ -96,10 +138,23 @@ def compute_delta(sizes: torch.Tensor, degs: torch.Tensor, k: int) -> torch.Tens
 def _segment_sum(w: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.ops.segment_sum(w, ids, n)`` as XLA's CPU scatter adds it: each
     segment in index order, one float32 add at a time.  That is K5's
-    function (products ``w·1``), so on the card it runs on K5, where
-    atomics would add in another order once a total passes 2**24."""
-    ones = torch.ones((1, 1), dtype=torch.float32, device=w.device)
-    lay = segment_layout(torch.zeros_like(ids), ids, n, w, device=w.device)
+    function (products ``w·1``), so on the card it runs on K5, where atomics
+    would add in another order once a total passes the float32 limits.  The
+    stable grouping by segment and its row pointers stay on the device (no
+    host sync); every segment goes to K5's short rows (a warp's chain past
+    64 entries), so no long-row list has to be counted on the host."""
+    dev = w.device
+    ids = ids.long()  # ids < 0 are dropped
+    order = torch.argsort(ids, stable=True)
+    sorted_ids = ids[order]
+    row_ptr = torch.searchsorted(sorted_ids, torch.arange(n + 1, device=dev))
+    m = int(ids.numel())
+    lay = SegmentLayout(
+        src=torch.zeros(m, dtype=torch.int32, device=dev), dst=sorted_ids.to(torch.int32),
+        w=w[order].contiguous(), row_ptr=row_ptr, order=order, n_rows=n,
+        n_src=int(m > 0), n_edges=m, long_rows=torch.zeros(0, dtype=torch.int32, device=dev),
+        long_row_edges=min(max(m, LONG_ROW_EDGES), 2**31 - 1))
+    ones = torch.ones((1, 1), dtype=torch.float32, device=dev)
     return segment_agg(ones, lay)[:, 0]
 
 
@@ -112,15 +167,44 @@ def _cluster_degrees(inputs: GameInputs, n_clusters: int) -> torch.Tensor:
 
 def _neighbor_partition_weight(inputs: GameInputs, assign: torch.Tensor,
                                n_clusters: int) -> torch.Tensor:
-    """W[i, p] for every cluster, via two scatter-adds over the pair list."""
+    """W[i, p] for every cluster in the reference's order: its two
+    scatter-adds (``w.at[a, P(b)].add`` then ``w.at[b, P(a)].add``) are one
+    cell-keyed sum over the pair list followed by its mirror."""
+    k = inputs.k
     a = inputs.pair_a.long().clamp(max=n_clusters)
     b = inputs.pair_b.long().clamp(max=n_clusters)
     assign_ext = torch.cat([assign.long(), assign.new_zeros(1, dtype=torch.long)])
-    w = torch.zeros((n_clusters + 1, inputs.k), dtype=torch.float32,
-                    device=inputs.pair_w.device)
-    w.index_put_((a, assign_ext[b]), inputs.pair_w, accumulate=True)
-    w.index_put_((b, assign_ext[a]), inputs.pair_w, accumulate=True)
-    return w[:n_clusters]
+    cells = torch.cat([a * k + assign_ext[b], b * k + assign_ext[a]])
+    w = _segment_sum(torch.cat([inputs.pair_w, inputs.pair_w]), cells,
+                     (n_clusters + 1) * k)
+    return w.view(n_clusters + 1, k)[:n_clusters]
+
+
+def _part_sizes(sizes: torch.Tensor, assign: torch.Tensor, k: int,
+                exact_below: float | None = None) -> torch.Tensor:
+    """|p| = Σ_{P(i)=p} |c_i|: by ``index_add_`` (atomics on the card) when
+    ``exact_below`` is None, else as the reference sums it (index order, one
+    float32 add at a time) on K5.  While a partition's running total stays
+    below ``exact_below`` (2**23 for multiples of ½) every add is exact, so
+    the chain's state there is the exact prefix (float64 here, exact): K5
+    runs each partition's chain from that prefix over its other members
+    only."""
+    dev = sizes.device
+    if exact_below is None:
+        return torch.zeros(k, dtype=torch.float32, device=dev).index_add_(
+            0, assign.long(), sizes)
+    a = assign.long()
+    order = torch.argsort(a, stable=True)
+    part, t = a[order], sizes[order]
+    incl = torch.cumsum(t.double(), 0)
+    base = torch.cat([incl.new_zeros(1), incl])[
+        torch.searchsorted(part, torch.arange(k, device=dev))]
+    tail = incl - base[part] >= exact_below
+    head = torch.zeros(k, dtype=torch.float64, device=dev).index_add_(
+        0, part, torch.where(tail, 0.0, t.double()))
+    # each partition's row: its exact head, then its other members in order
+    ids = torch.cat([torch.arange(k, device=dev), torch.where(tail, part, -1)])
+    return _segment_sum(torch.cat([head.float(), t]), ids, k)
 
 
 class _Adjacency(NamedTuple):
@@ -156,17 +240,64 @@ def _costs(a, hyp, t, inv_k, cur_p):
     return cost, cur[:, 0]
 
 
-def _batch_update(inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj):
-    """Best response of clusters ``[lo, hi)`` (one simultaneous batch),
-    updating ``assign`` in place.  Returns whether any of them had an
-    improving move (a device bool)."""
-    k = inputs.k
+class _Static(NamedTuple):
+    """What the exact totals prove, once per game (:func:`_static_bounds`)."""
+
+    hub_rows: np.ndarray  # rows whose W may pass 2**24: sum their batches in order
+    size_limit: float | None  # replay a round whose atomic sizes reach it; None: no guard
+
+
+def _static_bounds(inputs: GameInputs, n_clusters: int) -> _Static:
+    """The exact degrees and Σ sizes in float64 (exact in any order).
+    Where Θ is not integer-valued and non-negative, every row is a hub row;
+    where a size is not a non-negative multiple of ½, every round is
+    replayed (the limit is 0): the argument above holds for neither."""
+    sizes, pw = inputs.sizes, inputs.pair_w
+    C = n_clusters
+    w64 = pw.double()
+    deg = torch.zeros(C + 1, dtype=torch.float64, device=pw.device)
+    deg.index_add_(0, inputs.pair_a.long().clamp(max=C), w64)
+    deg.index_add_(0, inputs.pair_b.long().clamp(max=C), w64)
+    twice = sizes.double() * 2
+    facts = torch.stack([
+        ((pw == pw.trunc()) & (pw >= 0)).all().double(),
+        ((twice == twice.trunc()) & (twice >= 0)).all().double(),
+        sizes.double().sum()]).tolist()
+    if facts[0]:
+        hub_rows = torch.nonzero(deg[:C] >= W_LIMIT)[:, 0].cpu().numpy()
+    else:
+        hub_rows = np.arange(C)
+    if not facts[1]:
+        return _Static(hub_rows, 0.0)
+    return _Static(hub_rows, SIZE_LIMIT if facts[2] >= SIZE_LIMIT else None)
+
+
+def _batch_w(adj, assign, lo, hi, k, ordered: bool) -> torch.Tensor:
+    """W[i, p] for the rows ``[lo, hi)``: (hi − lo, k) float32, in the
+    reference's order on K5 when ``ordered``, else by ``index_add_``."""
     s, e = int(adj.indptr[lo]), int(adj.indptr[hi])
     cell = (adj.rows[s:e] - lo) * k + assign[adj.nbrs[s:e]].long()
+    if ordered:
+        return _segment_sum(adj.w[s:e], cell, (hi - lo) * k).view(hi - lo, k)
     w_ip = torch.zeros((hi - lo) * k, dtype=torch.float32, device=assign.device)
-    w_ip = w_ip.index_add_(0, cell, adj.w[s:e]).view(hi - lo, k)
-    part_sizes = torch.zeros(k, dtype=torch.float32, device=assign.device)
-    part_sizes.index_add_(0, assign.long(), inputs.sizes)
+    return w_ip.index_add_(0, cell, adj.w[s:e]).view(hi - lo, k)
+
+
+def _batch_update(inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj, *,
+                  hub=False, sizes_exact_below=None, size_max=None, w_max=None):
+    """Best response of clusters ``[lo, hi)`` (one simultaneous batch),
+    updating ``assign`` in place.  Returns whether any of them had an
+    improving move (a device bool).  ``hub`` sums W in order; the sizes
+    are summed in order when ``sizes_exact_below`` is given
+    (:func:`_part_sizes`); ``size_max`` ((k,)) and ``w_max`` (()) are
+    running maxima that the batch raises in place."""
+    k = inputs.k
+    w_ip = _batch_w(adj, assign, lo, hi, k, hub)
+    part_sizes = _part_sizes(inputs.sizes, assign, k, sizes_exact_below)
+    if size_max is not None:
+        torch.maximum(size_max, part_sizes, out=size_max)
+    if hub:
+        torch.maximum(w_max, w_ip.max(), out=w_max)
     sz = inputs.sizes[lo:hi, None]
     cur_p = assign[lo:hi].long()
     onehot = (torch.arange(k, device=assign.device) == cur_p[:, None]).to(torch.float32)
@@ -227,29 +358,69 @@ def run_game(inputs: GameInputs, n_clusters: int, *, batch_size: int = 256,
     batch = torch.where(leader, cid // bs, (cid - n_head) // bs)
     key0 = _random.PRNGKey(seed)
 
+    static = _static_bounds(inputs, C)
+    spans = [(b * bs, min(b * bs + bs, n_head)) for b in range(n_batches_h)]
+    spans += [(n_head + b * bs, min(n_head + b * bs + bs, C)) for b in range(n_batches_t)]
+    spans = [(lo, hi) for lo, hi in spans if hi > lo]
+    hubs = static.hub_rows
+    hub = [bool(np.searchsorted(hubs, lo) < np.searchsorted(hubs, hi)) for lo, hi in spans]
+    w_max = torch.zeros((), dtype=torch.float32, device=dev)
+    guard = static.size_limit is not None
+    size_max = torch.zeros(k, dtype=torch.float32, device=dev) if guard else None
+    ordered_sums = replayed = ordered_rounds = 0
+    max_size = 0.0
+
+    def play(lucky, in_order):
+        wanted = torch.zeros((), dtype=torch.bool, device=dev)
+        for (lo, hi), h in zip(spans, hub):  # Stage 1: leaders; Stage 2: followers
+            wanted |= _batch_update(
+                inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj, hub=h,
+                sizes_exact_below=static.size_limit if in_order else None,
+                size_max=size_max, w_max=w_max)
+        return wanted
+
+    def read(wanted):
+        """``wanted`` and the running size maximum in one transfer."""
+        vals = [wanted.to(torch.float32)]
+        if size_max is not None:
+            vals.append(size_max.max())
+        got = torch.stack(vals).tolist()
+        return bool(got[0]), (got[1] if size_max is not None else 0.0)
+
     rounds = 0
+    in_order = False  # the round sums the sizes in order from its start
     while True:  # at least one round; the last round's `wanted` decides
         lucky = _acceptance(key0, rounds, leader, batch, cid, accept)
-        wanted = torch.zeros((), dtype=torch.bool, device=dev)
-        spans = ([(b * bs, min(b * bs + bs, n_head)) for b in range(n_batches_h)]
-                 + [(n_head + b * bs, min(n_head + b * bs + bs, C))
-                    for b in range(n_batches_t)])
-        for lo, hi in spans:  # Stage 1: leaders; Stage 2: followers
-            if hi > lo:
-                wanted |= _batch_update(inputs, degs, assign, lo, hi, lucky,
-                                        dk, inv_k, adj)
+        start = assign.clone() if guard and not in_order else None
+        wanted, seen = read(play(lucky, in_order))
+        ordered_sums += sum(hub) + (len(spans) if in_order else 0)
+        if guard and not in_order and seen >= static.size_limit:  # may have rounded
+            assign.copy_(start)
+            size_max.zero_()
+            in_order = True
+            wanted, seen = read(play(lucky, True))
+            ordered_sums += sum(hub) + len(spans)
+            replayed += 1
+        if guard:
+            ordered_rounds += in_order
+            max_size = max(max_size, seen)  # below the limit, or summed in order: exact
+            size_max.zero_()
+            # sizes that reached the limit in order: the next round starts in order
+            in_order = in_order and seen >= static.size_limit
         rounds += 1
-        wanted = bool(wanted)
         if not (wanted and rounds < max_rounds):
             break
-    return GameResult(assignment=assign, rounds=rounds, converged=not wanted)
+    return GameResult(assignment=assign, rounds=rounds, converged=not wanted,
+                      hub_batches=sum(hub), ordered_sums=ordered_sums,
+                      size_guard=guard, replayed_rounds=replayed,
+                      ordered_rounds=ordered_rounds,
+                      max_part_size=max_size, max_w_hub=float(w_max) if any(hub) else 0.0)
 
 
 def social_welfare(inputs: GameInputs, assign: torch.Tensor, delta) -> torch.Tensor:
     """S(Λ) of Eq. (5) = δ·Σ|p|²/k + Σ Θ(p, V)/k (Theorem 4 identity)."""
     k = inputs.k
-    part_sizes = torch.zeros(k, dtype=torch.float32, device=assign.device)
-    part_sizes.index_add_(0, assign.long(), inputs.sizes)
+    part_sizes = _segment_sum(inputs.sizes, assign.long(), k)
     assign_ext = torch.cat([assign.long(), assign.new_zeros(1, dtype=torch.long)])
     cut = _xla_sum(inputs.pair_w * (assign_ext[inputs.pair_a.long()]
                                      != assign_ext[inputs.pair_b.long()]).to(torch.float32))
@@ -268,8 +439,7 @@ def best_response_gap(inputs: GameInputs, assign: torch.Tensor, n_clusters: int,
     k = inputs.k
     sizes = inputs.sizes
     w_ip = _neighbor_partition_weight(inputs, assign, n_clusters)
-    part_sizes = torch.zeros(k, dtype=torch.float32, device=assign.device)
-    part_sizes.index_add_(0, assign.long(), sizes)
+    part_sizes = _segment_sum(sizes, assign.long(), k)
     onehot = torch.nn.functional.one_hot(assign.long(), k).to(torch.float32)
     hyp = part_sizes[None, :] + sizes[:, None] * (1.0 - onehot)
     # the reference runs this op by op (no jit), so nothing is fused here

@@ -31,7 +31,7 @@ from . import game as _game
 from . import postprocess as _post
 from .cms import SketchCarry, cms_query, pair_key, suggest_params
 
-__all__ = ["S5PConfig", "S5POutput", "s5p_partition", "cluster_statistics"]
+__all__ = ["S5PConfig", "S5POutput", "s5p_partition", "cluster_statistics", "theta_pairs"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -107,6 +107,41 @@ def _edge_clusters(src, dst, res: _cl.ClusterResult, degrees, xi):
     return cu, cv, is_head
 
 
+def theta_pairs(src, dst, res: _cl.ClusterResult, degrees, xi: int, *,
+                edge_clusters=None) -> tuple[np.ndarray, np.ndarray]:
+    """The Θ pass's pair stream on the host, as the statistics pass streams
+    it: for every edge its three pair sets (primary and other-type
+    memberships of each endpoint), each pair as ``(min, max)`` cluster
+    ids, the pairs that are no pair (a self pair, a missing membership, a
+    self-loop edge) dropped.  ``edge_clusters`` is ``_edge_clusters``'s
+    result when the caller has it."""
+    dev = src.device
+    C = res.n_clusters
+    cu, cv, is_head = (edge_clusters if edge_clusters is not None
+                       else _edge_clusters(src, dst, res, degrees, xi))
+    valid = src != dst
+    s, d = src.long(), dst.long()
+    hu, hv = res.v2c_h[s], res.v2c_h[d]
+    tu, tv = res.v2c_t[s], res.v2c_t[d]
+    alt_u = torch.where(is_head, tu, hu)  # u's membership in the other table
+    alt_v = torch.where(is_head, tv, hv)
+    pair_sets = [
+        (cu, cv, valid),
+        (alt_u, cv, valid & (alt_u >= 0)),
+        (cu, alt_v, valid & (alt_v >= 0)),
+    ]
+    sentinel = torch.full((), C, dtype=torch.int32, device=dev)
+    a_parts, b_parts = [], []
+    for a, b, ok in pair_sets:
+        ok = ok & (a != b) & (a >= 0) & (b >= 0)
+        a_parts.append(torch.where(ok, torch.minimum(a, b), sentinel).cpu().numpy())
+        b_parts.append(torch.where(ok, torch.maximum(a, b), sentinel).cpu().numpy())
+    a_np = np.concatenate(a_parts)
+    b_np = np.concatenate(b_parts)
+    keep = a_np < C
+    return a_np[keep], b_np[keep]
+
+
 def cluster_statistics(src, dst, res: _cl.ClusterResult, degrees, xi: int, *,
                        use_cms: bool, cms_epsilon: float, cms_nu: float,
                        seed: int, chunk_size: int = 1 << 18):
@@ -114,9 +149,9 @@ def cluster_statistics(src, dst, res: _cl.ClusterResult, degrees, xi: int, *,
 
     An internal edge adds 1 to its cluster's size, a boundary edge ½ to
     each side.  Θ pairs span every pair of endpoint memberships (primary
-    and other-type); the pair list is deduped on the host (numpy), and the
-    counts come from a CMS streamed over the pairs (K4a, queried by K4b)
-    or from the exact dedup counts.
+    and other-type, :func:`theta_pairs`); the pair list is deduped on the
+    host (numpy), and the counts come from a CMS streamed over the pairs
+    (K4a, queried by K4b) or from the exact dedup counts.
     """
     dev = src.device
     C = res.n_clusters
@@ -136,34 +171,16 @@ def cluster_statistics(src, dst, res: _cl.ClusterResult, degrees, xi: int, *,
     sizes = sizes + seg(torch.where(boundary, half, zero), cu)
     sizes = sizes + seg(torch.where(boundary, half, zero), cv)
 
-    s, d = src.long(), dst.long()
-    hu, hv = res.v2c_h[s], res.v2c_h[d]
-    tu, tv = res.v2c_t[s], res.v2c_t[d]
-    alt_u = torch.where(is_head, tu, hu)  # u's membership in the other table
-    alt_v = torch.where(is_head, tv, hv)
-    pair_sets = [
-        (cu, cv, valid),
-        (alt_u, cv, valid & (alt_u >= 0)),
-        (cu, alt_v, valid & (alt_v >= 0)),
-    ]
-    sentinel = torch.full((), C, dtype=torch.int32, device=dev)
-    a_parts, b_parts = [], []
-    for a, b, ok in pair_sets:
-        ok = ok & (a != b) & (a >= 0) & (b >= 0)
-        a_parts.append(torch.where(ok, torch.minimum(a, b), sentinel).cpu().numpy())
-        b_parts.append(torch.where(ok, torch.maximum(a, b), sentinel).cpu().numpy())
-    a_np = np.concatenate(a_parts)
-    b_np = np.concatenate(b_parts)
+    a_np, b_np = theta_pairs(src, dst, res, degrees, xi, edge_clusters=(cu, cv, is_head))
     keys = a_np.astype(np.int64) * (C + 1) + b_np
-    uniq, counts = np.unique(keys[a_np < C], return_counts=True)
+    uniq, counts = np.unique(keys, return_counts=True)
     pa = torch.from_numpy((uniq // (C + 1)).astype(np.int32)).to(dev)
     pb = torch.from_numpy((uniq % (C + 1)).astype(np.int32)).to(dev)
 
     sketch_mem = 0
     if use_cms:
         w, depth = suggest_params(cms_epsilon, cms_nu)
-        pair_stream = EdgeStream(a_np[a_np < C], b_np[a_np < C], C + 1,
-                                 chunk_size=chunk_size, device=dev)
+        pair_stream = EdgeStream(a_np, b_np, C + 1, chunk_size=chunk_size, device=dev)
         theta = SketchCarry(w * max(1, int(math.sqrt(C))), depth, seed=seed,
                             device=dev)
         _, sketch = run_carry(pair_stream, theta)
@@ -260,6 +277,8 @@ def s5p_partition(src, dst, n_vertices: int, config: S5PConfig,
     _sync(dev)
     timings["postprocess"] = time.perf_counter() - t0
 
+    stats["game"] = {f: getattr(game, f) for f in game._fields if f != "assignment"}
+    stats["game"].update(batch_size=bs, n_head=n_head)
     stats["incremental"] = {
         "cluster_state": state, "degrees": degrees, "compact": res,
         "sizes": sizes, "pair_a": pa, "pair_b": pb, "pair_w": pw, "load": load,

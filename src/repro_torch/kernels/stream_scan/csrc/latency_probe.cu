@@ -3,7 +3,10 @@
 // through shared memory, one warp passing a value through a chain of
 // __shfl_sync, and one warp through a chain of redux.sync reductions.
 // Each step depends on the one before, so a run's time over its steps is
-// one round trip.  Not a kernel of any path: a measurement.
+// one round trip.  Beside them, the floors of a launch that K4a (the CMS
+// update) can reach: an empty kernel, and global atomic adds at distinct,
+// scattered addresses of an L2-resident table (the card's rate for them).
+// Not kernels of any path: measurements.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,9 +60,36 @@ __global__ void redux_chain_kernel(int steps, long long* out) {
   }
 }
 
+__global__ void empty_kernel() {}
+
+// n adds of 1, each at a scattered word of the table (a 32-bit hash of the
+// add's index, so the lanes of a warp hit distinct addresses).
+__global__ void atomic_rate_kernel(unsigned* table, unsigned words, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += stride) {
+    unsigned h = static_cast<unsigned>(i) * 0x9E3779B1u;
+    h ^= h >> 15;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    atomicAdd(table + h % words, 1u);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+int atomic_rate_launch(void* table, unsigned words, long long n, int blocks, void* stream) {
+  atomic_rate_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned*>(table), words, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 int shared_chase_launch(int steps, void* out, void* stream) {
   shared_chase_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(

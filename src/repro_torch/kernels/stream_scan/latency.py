@@ -31,6 +31,11 @@ Chains, per edge:
   the loads.
 - **K3 retract**: the picked counters read and written: 2 shared.
 - **G1** (grid): the two candidate loads, then the store: 2 shared.
+
+:func:`measure_launch_floor` measures what K4a (the CMS update, no chain)
+can reach at best: an empty launch, and the card's rate of global atomic
+adds at distinct, scattered addresses of an L2-resident table (the old
+K4a's one add a row and key).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from __future__ import annotations
 import ctypes
 
 __all__ = ["CHAIN_STEPS", "HBM_BYTES_PER_S", "latency_bound_ms",
-           "measure_round_trips", "retract_bytes_bound_ms"]
+           "measure_launch_floor", "measure_round_trips", "retract_bytes_bound_ms"]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
@@ -105,3 +110,45 @@ def measure_round_trips(steps: int = 1 << 20, reps: int = 5) -> dict:
         res[f"{name}_mhz"] = cycles / ns * 1e3
     res["steps"] = steps
     return res
+
+
+def measure_launch_floor(table_words: int, adds: int = 1 << 24, reps: int = 20) -> dict:
+    """On the current CUDA device: ``empty_launch_ms``, the mean CUDA-event
+    time of one empty launch (events around it, as ``chip_smoke.py`` times
+    a kernel); and ``atomic_adds_per_s``, the rate of ``adds`` global atomic
+    adds at distinct, scattered words of a ``table_words``-word table (the
+    least of ``reps`` launches, over 8 blocks of 256 threads an SM)."""
+    import torch
+
+    from .. import _build
+
+    lib = _build.load("latency_probe")
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    lib.atomic_rate_launch.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_longlong,
+                                       ctypes.c_int, ctypes.c_void_p]
+    lib.atomic_rate_launch.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    table = torch.zeros(int(table_words), dtype=torch.int32, device="cuda")
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+
+    def timed(launch) -> list[float]:
+        _build.check(launch(), "launch floor probe")
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _build.check(launch(), "launch floor probe")
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        return times
+
+    empty = timed(lambda: lib.empty_launch(stream))
+    atomic = timed(lambda: lib.atomic_rate_launch(table.data_ptr(), int(table_words),
+                                                 int(adds), blocks, stream))
+    return {"empty_launch_ms": sum(empty) / len(empty),
+            "atomic_adds_per_s": adds / (min(atomic) * 1e-3),
+            "atomic_probe_ms": min(atomic), "atomic_probe_adds": int(adds),
+            "atomic_probe_table_words": int(table_words)}

@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from repro.core import cms as jcms
+from repro.kernels.cms_sketch import cms_query_kernel as j_query_kernel
+from repro.kernels.cms_sketch import cms_update_kernel as j_update_kernel
 from repro.kernels.cms_sketch.kernel import cms_query_tpu, cms_update_tpu
 from repro.streaming import EdgeStream as JaxStream
 from repro.streaming import run_carry as jax_run_carry
@@ -118,3 +120,70 @@ def test_kernel_wrappers_cpu_route_is_the_plain_version():
     assert torch.equal(kcms.cms_query(table, keys, seeds),
                        kcms.query_ref(table, keys, seeds))
     assert kcms.launch_counts() == {"cms_update": 0, "cms_query": 0}
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_int64_keys_high_bits_and_wrapping_counts(seed):
+    """The kernels read the low 32 bits of int64 keys and counts: keys with
+    high bits set (and negative) hash as their uint32 pattern, negative
+    counts wrap in Z/2^32 from an empty table, as the reference's uint32
+    arithmetic does."""
+    a, b = _pairs(seed)
+    rng = np.random.default_rng(seed)
+    low = tcms.pair_key(torch.from_numpy(a), torch.from_numpy(b))
+    high = torch.from_numpy(rng.integers(-2**30, 2**30, low.numel())) << 32
+    keys = low + high
+    assert bool((keys >> 32 != 0).any()) and bool((keys < 0).any())
+    counts = torch.from_numpy(rng.integers(-9, 0, low.numel()))  # all negative
+    port = tcms.cms_update(tcms.make_sketch(61, 5, seed=seed, device="cpu"), keys, counts)
+    ref = jcms.cms_update(jcms.make_sketch(61, 5, seed=seed),
+                          jnp.asarray(low.numpy().astype(np.uint32)),
+                          jnp.asarray(counts.numpy()).astype(jnp.uint32))
+    np.testing.assert_array_equal(np.asarray(ref.table), _u32(port.table))
+    assert int(_u32(port.table).max()) > 2**31  # the sums wrapped
+    np.testing.assert_array_equal(np.asarray(jcms.cms_query(ref, jnp.asarray(
+        low.numpy().astype(np.uint32)))), tcms.cms_query(port, keys).numpy())
+
+
+def test_add_into_a_given_table():
+    """``cms_add`` adds into the table it is handed, in place and wrapping;
+    ``cms_update`` returns the batch's own table (the reference's contract)."""
+    a, b = _pairs(9)
+    keys = tcms.pair_key(torch.from_numpy(a), torch.from_numpy(b))
+    seeds = tcms.make_sketch(56, 5, seed=2, device="cpu").seeds
+    counts = torch.from_numpy(np.random.default_rng(9).integers(-3, 4, keys.numel()))
+    start = torch.from_numpy(np.random.default_rng(10).integers(
+        -2**31, 2**31, (5, 56)).astype(np.int32))
+    table = start.clone()
+    out = kcms.cms_add(table, keys, seeds, counts)
+    assert out.data_ptr() == table.data_ptr()
+    want = (start.numpy().view(np.uint32)
+            + kcms.cms_update(keys, seeds, 56, 5, counts).numpy().view(np.uint32))
+    np.testing.assert_array_equal(table.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(kcms.add_ref(start, keys, seeds, counts).numpy(),
+                                  table.numpy())
+    ones = kcms.cms_update(keys, seeds, 56, 5)
+    assert torch.equal(ones, kcms.update_ref(keys, seeds, 56, 5, torch.ones_like(keys)))
+
+
+@pytest.mark.parametrize("width,depth,n", [(64, 4, 1000), (256, 5, 5000),
+                                           (32, 3, 100)])
+def test_sketch_ops_match_reference_ops(width, depth, n):
+    """``repro_torch.kernels.cms_sketch.ops`` against the reference's ops,
+    run as ``tests/test_kernels.py::test_cms_kernel_bit_exact`` runs them
+    (the Pallas kernels, in interpret mode on the CPU)."""
+    sk = jcms.make_sketch(width, depth, seed=width)
+    keys = jax.random.randint(jax.random.PRNGKey(n), (n,), 0, 2**31 - 1
+                              ).astype(jnp.uint32)
+    ref = j_update_kernel(sk, keys)
+    port_sk = tcms.make_sketch(width, depth, seed=width, device="cpu")
+    tkeys = torch.from_numpy(np.asarray(keys).astype(np.int64))
+    port = kcms.cms_update_kernel(port_sk, tkeys)
+    assert port.seeds is port_sk.seeds and port.table is not port_sk.table
+    assert int(port_sk.table.abs().sum()) == 0  # the given sketch is left as it was
+    np.testing.assert_array_equal(np.asarray(ref.table), _u32(port.table))
+    q = keys[: min(n, 500)]
+    np.testing.assert_array_equal(np.asarray(j_query_kernel(ref, q)),
+                                  kcms.cms_query_kernel(port, tkeys[:q.shape[0]]).numpy())
+    twice = kcms.cms_update_kernel(port, tkeys, -torch.ones_like(tkeys))
+    assert int(twice.table.abs().sum()) == 0

@@ -177,3 +177,111 @@ def test_cluster_degrees_above_2_24(seed):
     d_ref = jgame.compute_delta(ji.sizes, jnp.asarray(want), 8)
     assert np.float32(d_ref).view(np.uint32) == tgame.compute_delta(
         ti.sizes, torch.from_numpy(got), 8).numpy().view(np.uint32)
+
+
+def _hub_inputs(w_scale, size_scale):
+    """The community graph's game inputs with the pairs of its largest-degree
+    cluster scaled by ``w_scale`` (its W[i, p] passes 2**24 during the
+    rounds) and the sizes by ``size_scale`` (a partition passes 2**23):
+    odd factors, so the float32 sums past those limits round."""
+    inputs, C = _game_inputs(_graph("community"), 8, True, False)
+    pa, pb, pw = (np.asarray(x) for x in (inputs.pair_a, inputs.pair_b, inputs.pair_w))
+    deg = np.zeros(C + 1)
+    np.add.at(deg, pa, pw)
+    np.add.at(deg, pb, pw)
+    hub = int(np.argmax(deg[:C]))
+    w = np.where((pa == hub) | (pb == hub), pw * np.float32(w_scale), pw).astype(np.float32)
+    return inputs._replace(sizes=inputs.sizes * np.float32(size_scale),
+                           pair_w=jnp.asarray(w)), C
+
+
+@pytest.mark.parametrize("w_scale,size_scale", [(1, 1), (100_003, 1), (1, 45_001),
+                                                (100_003, 45_001), (2_700_001, 56_789)])
+def test_game_hub_batches_and_guarded_sizes(w_scale, size_scale):
+    """W past 2**24 in a hub batch and partition sizes past 2**23 during the
+    rounds: the port's ordered sums and replayed rounds keep the reference's
+    assignment, rounds and welfare bits, and its report says they ran."""
+    inputs, C = _hub_inputs(w_scale, size_scale)
+    kw = dict(batch_size=jgame.default_batch_size(256, C), max_rounds=64,
+              accept_prob=0.9, seed=3)
+    ref = jgame.run_game(inputs, C, **kw)
+    port_inputs = interop.game_inputs(inputs, device="cpu")
+    port = tgame.run_game(port_inputs, C, **kw)
+    np.testing.assert_array_equal(np.asarray(ref.assignment), port.assignment.numpy())
+    assert (int(ref.rounds), bool(ref.converged)) == (port.rounds, port.converged)
+    d_ref = jgame.compute_delta(inputs.sizes, jgame._cluster_degrees(inputs, C), 8)
+    d = tgame.compute_delta(port_inputs.sizes, tgame._cluster_degrees(port_inputs, C), 8)
+    assert np.float32(d_ref).view(np.uint32) == d.numpy().view(np.uint32)
+    s_ref = np.float32(jgame.social_welfare(inputs, ref.assignment, d_ref))
+    s = tgame.social_welfare(port_inputs, port.assignment, d).numpy()
+    assert s_ref.view(np.uint32) == s.view(np.uint32)
+    assert float(jgame.best_response_gap(inputs, ref.assignment, C)) == float(
+        tgame.best_response_gap(port_inputs, port.assignment, C))
+    if w_scale > 1:
+        assert port.hub_batches > 0 and port.max_w_hub >= 2**24
+        assert port.ordered_sums >= port.hub_batches * port.rounds
+    else:
+        assert port.hub_batches == 0 and port.max_w_hub == 0
+    if size_scale > 1:
+        assert port.size_guard and port.replayed_rounds > 0
+        assert port.ordered_rounds >= port.replayed_rounds
+        assert port.max_part_size >= 2**23
+    else:
+        assert not port.size_guard and port.replayed_rounds == port.ordered_rounds == 0
+    if w_scale == size_scale == 1:
+        assert port.ordered_sums == 0
+
+
+def test_hub_w_in_reference_order():
+    """A hub batch's W, summed on the ordered path over the adjacency's
+    slice grouped stably by cell, equals the reference's ``w.at[a, ·].add``
+    followed by ``w.at[b, ·].add`` bit for bit, where the other order of
+    the two scatters gives other bits (the sums round)."""
+    inputs, C = _hub_inputs(2_700_001, 1)
+    k = 8
+    port_inputs = interop.game_inputs(inputs, device="cpu")
+    assign = np.random.default_rng(4).integers(0, k, C).astype(np.int32)
+    want = np.asarray(jgame._neighbor_partition_weight(inputs, jnp.asarray(assign), C))
+    t_assign = torch.from_numpy(assign)
+    adj = tgame._adjacency(port_inputs, C)
+    got = np.concatenate([tgame._batch_w(adj, t_assign, lo, min(lo + 16, C), k, True).numpy()
+                          for lo in range(0, C, 16)])
+    assert want.max() >= 2**24
+    np.testing.assert_array_equal(want, got)
+    np.testing.assert_array_equal(
+        want, tgame._neighbor_partition_weight(port_inputs, t_assign, C).numpy())
+    ext = np.concatenate([assign, [0]])
+    pa, pb, pw = (np.asarray(x) for x in (inputs.pair_a, inputs.pair_b, inputs.pair_w))
+    other = np.zeros((C + 1, k), np.float32)
+    for i in range(pa.size):  # b's scatter first
+        other[pb[i], ext[pa[i]]] += pw[i]
+    for i in range(pa.size):
+        other[pa[i], ext[pb[i]]] += pw[i]
+    assert not np.array_equal(other[:C], want)
+
+
+@pytest.mark.parametrize("scale", [1, 3001, 160_001, 700_001])
+def test_part_sizes_in_order_equal_a_float32_chain(scale):
+    """The ordered partition sizes (K5 from each chain's exact head) equal a
+    plain float32 chain in index order, where the totals pass 2**23 and
+    2**24 (odd multiples of ½, so the adds past the limit round), and
+    ``index_add_`` on the CPU does too."""
+    rng = np.random.default_rng(scale)
+    C, k = 3000, 5
+    sizes = (rng.integers(1, 200, C) * 0.5 * scale).astype(np.float32)
+    assign = rng.choice(k, C, p=[0.7, 0.1, 0.1, 0.1, 0.0]).astype(np.int32)
+    want = np.zeros(k, np.float32)
+    for i in range(C):
+        want[assign[i]] = np.float32(want[assign[i]] + sizes[i])
+    t_sizes, t_assign = torch.from_numpy(sizes), torch.from_numpy(assign)
+    for exact_below in (2.0**23, 0.0):
+        got = tgame._part_sizes(t_sizes, t_assign, k, exact_below).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(tgame._part_sizes(t_sizes, t_assign, k).numpy(), want)
+    np.testing.assert_array_equal(
+        np.asarray(jax.ops.segment_sum(jnp.asarray(sizes), jnp.asarray(assign), k)), want)
+    if scale > 1:
+        assert want.max() >= 2**23
+        exact = np.zeros(k)
+        np.add.at(exact, assign, sizes.astype(np.float64))
+        assert not np.array_equal(exact, want.astype(np.float64))  # the chain rounded

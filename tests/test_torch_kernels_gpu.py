@@ -204,6 +204,142 @@ def test_k4_cms_update_and_query(cuda):
                        query_ref(want, keys, seeds))
 
 
+def _k4_keys(n, hot, seed=0):
+    from repro_torch.core.cms import pair_key
+
+    rng = np.random.default_rng(seed)
+    if hot:  # one key n times
+        return torch.full((n,), int(pair_key(torch.tensor([3]), torch.tensor([7]))[0]))
+    a = torch.from_numpy(rng.integers(0, 5000, n).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 5000, n).astype(np.int32))
+    high = torch.from_numpy(rng.integers(-2**30, 2**30, n)) << 32  # read as the low 32 bits
+    return pair_key(a, b) + high
+
+
+@pytest.mark.parametrize("blocks_per_row", [0, 1, 7])
+@pytest.mark.parametrize("width", [28, 11_788, 16_384 + 1_000])
+@pytest.mark.parametrize("n,hot", [(0, False), (1, False), ((1 << 18) + 1, False),
+                                   (1 << 18, True)])
+def test_k4_update_add_and_query(cuda, n, hot, width, blocks_per_row):
+    """K4a and K4b bitwise against ``ref.py``: a hot-key stream (one key
+    2^18 times), widths that are not a multiple of a block's share (one
+    block's slice of 16,384 columns and a ragged second slice), n = 0, 1
+    and 2^18 + 1, int64 keys with high bits set, counts that wrap; K4a both
+    into its own table and into a given one, one launch a call."""
+    from repro_torch.core.cms import make_sketch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cms_sketch import (add_ref, cms_add, cms_query, cms_update,
+                                                launch_counts, query_ref, update_ref)
+    from repro_torch.kernels.cms_sketch.kernel import _lib
+
+    keys = _k4_keys(n, hot, seed=width)
+    rng = np.random.default_rng(n)
+    counts = torch.from_numpy(rng.integers(-3, 4, n))
+    seeds = make_sketch(width, 5, seed=3, device="cpu").seeds
+    kc, sc, cc = keys.to(cuda), seeds.to(cuda), counts.to(cuda)
+    before = launch_counts()
+    got = cms_update(kc, sc, width, 5, cc)
+    assert torch.equal(got.cpu(), update_ref(keys, seeds, width, 5, counts))
+    start = torch.from_numpy(rng.integers(-2**31, 2**31, (5, width)).astype(np.int32))
+    table = start.to(cuda)
+    out = cms_add(table, kc, sc, cc)
+    assert out.data_ptr() == table.data_ptr()
+    want = add_ref(start, keys, seeds, counts)
+    assert torch.equal(table.cpu(), want)
+    ones = cms_add(start.to(cuda), kc, sc)
+    assert torch.equal(ones.cpu(), add_ref(start, keys, seeds))
+    # the key slices a row that the C entry point takes when given them
+    sliced = start.to(cuda)
+    _build.check(_lib().cms_update_launch(
+        kc.data_ptr(), cc.data_ptr(), sc.data_ptr(), n, 5, width, sliced.data_ptr(),
+        blocks_per_row, torch.cuda.current_stream().cuda_stream), "cms_update")
+    assert torch.equal(sliced.cpu(), want)
+    q = cms_query(table, kc, sc)
+    assert q.dtype == torch.int64 and torch.equal(q.cpu(), query_ref(want, keys, seeds))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["cms_update"] - before["cms_update"] == (3 if n else 0)
+    assert after["cms_query"] - before["cms_query"] == (1 if n else 0)
+
+
+def test_k4_sketch_update_is_one_launch_and_a_copy(cuda):
+    """``core.cms.cms_update`` copies the table and adds into the copy: one
+    K4a launch and one other launch (the copy), the old sketch unchanged."""
+    from repro_torch.core.cms import cms_update, make_sketch, pair_key
+    from repro_torch.kernels.cms_sketch import launch_counts
+
+    sketch = make_sketch(11_788, 5, seed=0, device=cuda)
+    a = torch.arange(1 << 18, device=cuda, dtype=torch.int32) % 977
+    keys = pair_key(a, a.flip(0))
+    counts = torch.ones_like(keys)
+    torch.cuda.synchronize()
+    before = launch_counts()["cms_update"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        new = cms_update(sketch, keys, counts)
+        torch.cuda.synchronize()
+    assert launch_counts()["cms_update"] == before + 1
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) <= 2, [e.name for e in kernels]
+    assert int(sketch.table.abs().sum()) == 0 and int(new.table.sum()) != 0
+
+
+def _hub_game_inputs(w_scale, size_scale):
+    """``community_graph(600, 8, 6, seed=3)``'s game inputs (CMS Θ, k = 8)
+    with the pairs of its largest-degree cluster scaled by ``w_scale`` and
+    the sizes by ``size_scale``, as ``tests/test_torch_game.py`` builds them."""
+    from repro_torch.core import clustering as cl
+    from repro_torch.core import game as tgame
+    from repro_torch.core.s5p import cluster_statistics
+    from repro_torch.graphs import community_graph
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    s, d = torch.from_numpy(src).int(), torch.from_numpy(dst).int()
+    deg = cl.compute_degrees(s, d, n)
+    xi, kappa = int(2.0 * src.size / n), max(int(np.ceil(2.0 * src.size / 8)), 2)
+    res = cl.compact_clusters(cl.cluster_stream(s, d, n, xi=xi, kappa=kappa, device="cpu"),
+                              deg, xi)
+    sizes, pa, pb, pw, _ = cluster_statistics(s, d, res, deg, xi, use_cms=True,
+                                              cms_epsilon=0.1, cms_nu=0.01, seed=0)
+    C = res.n_clusters
+    cdeg = torch.zeros(C + 1, dtype=torch.float64)
+    cdeg.index_add_(0, pa.long(), pw.double()).index_add_(0, pb.long(), pw.double())
+    hub = int(cdeg[:C].argmax())
+    touch = (pa == hub) | (pb == hub)
+    pw = torch.where(touch, pw * np.float32(w_scale), pw)
+    return tgame.GameInputs(sizes=sizes * np.float32(size_scale), pair_a=pa, pair_b=pb,
+                            pair_w=pw, n_head=res.n_head, k=8), C
+
+
+@pytest.mark.parametrize("w_scale,size_scale", [(100_003, 45_001), (2_700_001, 56_789)])
+def test_game_hub_batches_and_replays_cuda_equal_cpu(cuda, w_scale, size_scale):
+    """W past 2**24 in hub batches and partition sizes past 2**23 during the
+    rounds: ten games in a row on the card equal the CPU's (the reference's
+    order) in assignment, rounds and report; each game launches K5 twice
+    for the degrees and once per ordered sum it reports."""
+    from repro_torch.core import game as tgame
+    from repro_torch.kernels.segment_agg import launch_counts
+
+    inputs, C = _hub_game_inputs(w_scale, size_scale)
+    on = tgame.GameInputs(*(t.to(cuda) for t in inputs[:4]), inputs.n_head, 8)
+    kw = dict(batch_size=tgame.default_batch_size(256, C), accept_prob=0.9, seed=3)
+    cpu = tgame.run_game(inputs, C, **kw)
+    assert cpu.hub_batches > 0 and cpu.replayed_rounds > 0 and cpu.max_w_hub >= 2**24
+    for _ in range(10):
+        before = launch_counts()["segment_agg"]
+        gpu = tgame.run_game(on, C, **kw)
+        torch.cuda.synchronize()
+        assert launch_counts()["segment_agg"] - before == 2 + gpu.ordered_sums
+        assert torch.equal(gpu.assignment.cpu(), cpu.assignment)
+        assert gpu._replace(assignment=None) == cpu._replace(assignment=None)
+    d = tgame.compute_delta(inputs.sizes, tgame._cluster_degrees(inputs, C), 8)
+    d_gpu = tgame.compute_delta(on.sizes, tgame._cluster_degrees(on, C), 8)
+    s_cpu = tgame.social_welfare(inputs, cpu.assignment, d)
+    s_gpu = tgame.social_welfare(on, gpu.assignment, d_gpu)
+    assert s_cpu.view(torch.int32).item() == s_gpu.cpu().view(torch.int32).item()
+    assert float(tgame.best_response_gap(inputs, cpu.assignment, C)) == float(
+        tgame.best_response_gap(on, gpu.assignment, C))
+
+
 def test_s5p_cuda_equals_cpu(cuda):
     from repro_torch.core.s5p import S5PConfig, s5p_partition
     from repro_torch.graphs import community_graph
