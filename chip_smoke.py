@@ -32,7 +32,24 @@ Phases, each printing one JSON line:
               that chunk; then PageRank (10 iterations) on the S5P and HDRF
               partitions: mirror-sync bytes, their ratio, seconds of the
               layout build and of the supersteps;
-5. serve    — the serving read side with GCN inference: the
+5. parallel — parallel ingest at S = 8 lanes on the main path's graph and
+              k, each run with the launch counters set to 0 just before
+              and read just after: S5P under ``S5PConfig(k, num_streams=8,
+              shard="hub", super_chunk="auto")`` with its touch-up (parts
+              in [0, k), the final load equal to the bincount of the
+              parts, K1 once per plan chunk, K2 once per plan chunk and
+              once per chunk of the touch-up's replay, K4a/K4b twice per
+              stream chunk for the hub plan plus the Θ pass's, K5 for both
+              games; the per-phase seconds, ``parallel_ingest``,
+              ``touch_up``, both games' audits, the peak memory and the RF
+              beside the sequential run's; the max load beside its cap is
+              reported: lanes place against the last merge's loads, as
+              the reference does); HDRF at S = 8 (hub, auto) on the
+              threads and the vmap backend, which must give equal bits,
+              K3 once per plan chunk; Greedy at S = 8 (range, super-chunk
+              8); the degree count at S = 8 (hub), equal to
+              ``compute_degrees``;
+6. serve    — the serving read side with GCN inference: the
               ``ogbn_products_like(seed=0)`` graph at scale 1.0 (2,449,029
               vertices), S5P at k = 32, ``build_bundle`` and
               ``BundleRegistry.publish``, ``GASServer`` for 10 PageRank
@@ -49,7 +66,7 @@ Phases, each printing one JSON line:
               on ``device="cpu"`` (rtol 1e-4, atol 1e-5: only ``x @ W``
               differs); one line each for the graph, S5P, GAS, latency,
               GCN and device numbers;
-6. kernels  — each kernel's wrapper on card tensors at the main path's
+7. kernels  — each kernel's wrapper on card tensors at the main path's
               shapes against its plain PyTorch version on the same inputs:
               K1–K5 bitwise equal (tolerance 0), K6 within the tolerance
               its row states (below); times by CUDA
@@ -87,7 +104,7 @@ Phases, each printing one JSON line:
               kernel's registers, with ``torch.sparse.mm`` on the same CSR matrix as
               the library call (for bf16 a CSR of bf16 weights; where
               PyTorch refuses it, the row records the error text);
-7. lm       — the LM serving path at full width: ``serve_lm`` of
+8. lm       — the LM serving path at full width: ``serve_lm`` of
               ``llama3-8b`` (32 layers, 8,030,261,248 parameters, bf16,
               seed 0) over 4 prompts of 4,096 tokens, then 32 greedy
               tokens, with the launch counters set to 0 just before and
@@ -111,7 +128,7 @@ Phases, each printing one JSON line:
               from the positions where not causal alone), and states the
               tile classes (``kv_tile_classes``) and the compiled kernel's
               registers, spills and shared memory;
-8. recsys   — the recsys serving path at xDeepFM's published config (39
+9. recsys   — the recsys serving path at xDeepFM's published config (39
               fields, embed 10, CIN 200-200-200, MLP 400-400, float32,
               50,453,809 parameters, seed 0): ``serve_recsys`` (init and the
               first ``serve_p99`` request), 16 more requests of 512 samples
@@ -135,12 +152,16 @@ Phases, each printing one JSON line:
               limits; one ``torch.einsum`` is timed beside it where its
               intermediate fits the card, and the bound is stated on the
               tensor cores (``k7_bounds``) beside the scalar one;
-9. parity   — every partitioner on ``community_graph(2000, 32, 8,
+10. parity  — every partitioner on ``community_graph(2000, 32, 8,
               seed=5)``, k = 8, on ``cuda`` and on ``cpu``: the parts must be
-              identical; and the game's δ where Σ(degs + sizes) passes 2**24
-              (Θ scaled by 3001), on both: the same bits and assignment.
+              identical; then S5P (with its touch-up), HDRF, Greedy and
+              grid at S = 4 lanes in each shard mode (range, rr, hub;
+              chunks of 1,024 edges), identical parts (and touch-up
+              counts) on both; and the game's δ where Σ(degs + sizes)
+              passes 2**24 (Θ scaled by 3001), on both: the same bits and
+              assignment.
 
-The kernel checks of phase 6 run after phases 7 and 8.
+The kernel checks of phase 7 run after phases 8 and 9.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -1047,8 +1068,219 @@ def phase_compare(main) -> dict:
     emit(info)
     if problems:
         raise SystemExit("chip_smoke compare phase failed: " + "; ".join(problems))
+    main["compare_rf"] = {name: r["rf"] for name, r in rows.items()}
+    main["compare_s"] = {name: r["seconds"] for name, r in rows.items()}
     return {"rows": rows, "pagerank": info, "parts": parts_of, "retract": retract,
             "launches": {name: r["launches"] for name, r in rows.items()}}
+
+
+def _touch_up_audit(out) -> dict:
+    """The touch-up's masked game against the same limits as the game's
+    (``_game_audit``): every (stage, window) it visits that holds a row of
+    exact degree ≥ 2**24 must be a hub batch, and the partition sizes must
+    be below 2**23 in all or guarded with the sizes in order where a
+    guarded total reached 2**23."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import game as G
+
+    tu = out.aux.get("touch_up", {})
+    game = tu.get("game")
+    if game is None:
+        return {"ran": False}
+    st = out.aux["incremental"]
+    pa, pb, pw, sizes = st["pair_a"], st["pair_b"], st["pair_w"], st["sizes"]
+    C = out.n_clusters
+    w64 = pw.double()
+    deg = torch.zeros(C + 1, dtype=torch.float64, device=pw.device)
+    deg = deg.index_add(0, pa.long().clamp(max=C), w64).index_add(
+        0, pb.long().clamp(max=C), w64)[:C]
+    hub = np.zeros(C, bool)
+    hub[torch.nonzero(deg >= G.W_LIMIT)[:, 0].cpu().numpy()] = True
+    move, bs = game["move_mask"], game["batch_size"]
+    lead = np.arange(C) < out.n_head_clusters
+    expected = 0
+    for role in (lead & move, ~lead & move):
+        for b in np.unique(np.nonzero(move)[0] // bs):
+            lo, hi = int(b) * bs, min(int(b) * bs + bs, C)
+            expected += bool(role[lo:hi].any() and hub[lo:hi].any())
+    sum_sizes = float(sizes.double().sum())
+    ok_sizes = sum_sizes < G.SIZE_LIMIT or (game["size_guard"] and (
+        game["max_part_size"] < G.SIZE_LIMIT or game["ordered_rounds"] > 0))
+    return {"ran": True, "movable_clusters": int(move.sum()),
+            "hub_batches": game["hub_batches"], "hub_batches_expected": expected,
+            "ordered_sums": game["ordered_sums"], "size_guard": game["size_guard"],
+            "replayed_rounds": game["replayed_rounds"],
+            "ordered_rounds": game["ordered_rounds"],
+            "w_sums_ordered_or_below_2^24": game["hub_batches"] == expected,
+            "part_sizes_below_2^23_or_replayed": ok_sizes}
+
+
+def phase_parallel(main) -> dict:
+    """Parallel ingest at S = 8 lanes on the main path's graph and k: S5P
+    (hub lanes, ``super_chunk="auto"``, the touch-up), HDRF on both
+    backends (equal bits), Greedy (range lanes, super-chunk 8) and the
+    degree count (hub lanes), each with the launch counters set to 0 just
+    before and read just after."""
+    import torch
+
+    from repro_torch.core.baselines import greedy_partition
+    from repro_torch.core.clustering import compute_degrees, compute_degrees_stream
+    from repro_torch.core.metrics import load_balance, partition_loads, replication_factor
+    from repro_torch.core.s5p import S5PConfig, s5p_partition, theta_pairs
+    from repro_torch.kernels.stream_scan import HdrfCarry
+    from repro_torch.streaming import EdgeStream, ParallelEdgeStream, last_ingest_stats, run_parallel
+
+    src, dst, n, k = main["src"], main["dst"], main["n"], main["cfg"].k
+    dev = torch.device("cuda")
+    E = int(src.shape[0])
+    S, B = 8, 1 << 16
+    n_chunks = math.ceil(E / B)
+    s_t = torch.from_numpy(src).to(dev)
+    d_t = torch.from_numpy(dst).to(dev)
+    problems, info = [], {"phase": "parallel", "num_streams": S, "E": E, "k": k}
+
+    def drive(fn):
+        """Run ``fn`` with the counters at 0; returns (result, seconds,
+        launches, the peak memory beyond what was allocated before)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return (got, time.perf_counter() - t0, launch_counts(),
+                torch.cuda.max_memory_allocated() - before)
+
+    def check_parts(name, parts):
+        p = parts.cpu().numpy()
+        if p.shape != (E,) or p.min() < 0 or p.max() >= k:
+            problems.append(f"{name}: parts outside [0, {k}) on a graph without self-loops")
+
+    # ---- S5P, hub lanes, auto cadence, the touch-up ----
+    cfg = S5PConfig(k=k, num_streams=S, shard="hub", super_chunk="auto")
+    out, wall, launches, peak = drive(lambda: s5p_partition(src, dst, n, cfg, device=dev))
+    check_parts("s5p", out.parts)
+    loads = partition_loads(out.parts, k=k)
+    load = out.aux["incremental"]["load"]
+    # the same plan on a new stream: the hub plan's launches and seconds
+    # alone (K4a and K4b twice per stream chunk)
+    stream = EdgeStream(src, dst, n, chunk_size=B, device=dev)
+    ps, plan_wall, plan_launches, _ = drive(lambda: ParallelEdgeStream(stream, S, shard="hub"))
+    plan_chunks = sum(len(lane) for lane in ps.lanes)
+    if plan_launches["cms_update"] != 2 * n_chunks or plan_launches["cms_query"] != 2 * n_chunks:
+        problems.append(f"the hub plan launched K4a/K4b {plan_launches}, not {2 * n_chunks} each")
+    tu = {key: v for key, v in out.aux.get("touch_up", {}).items() if key != "game"}
+    replay_chunks = math.ceil(tu.get("replayed_edges", 0) / B)
+    st = out.aux["incremental"]
+    pairs, _ = theta_pairs(s_t, d_t, st["compact"], st["degrees"], out.xi)
+    theta_chunks = math.ceil(pairs.size / (1 << 18))
+    tu_game = out.aux.get("touch_up", {}).get("game")
+    want = {"cluster_scan": plan_chunks, "assign_scan": plan_chunks + replay_chunks,
+            "cms_update": 2 * n_chunks + theta_chunks, "cms_query": 2 * n_chunks + 1,
+            "segment_agg": 2 + out.aux["game"]["ordered_sums"] + (
+                2 + tu_game["ordered_sums"] if tu_game else 0)}
+    rf = replication_factor(s_t, d_t, out.parts, n_vertices=n, k=k)
+    audit = _game_audit(out, src, dst)
+    tu_audit = _touch_up_audit(out)
+    row = {"step": "s5p", "shard": "hub", "super_chunk": "auto",
+           "rf": rf, "rf_sequential": main["info"]["rf"], "rf_over_sequential": rf / main["info"]["rf"],
+           "balance": load_balance(out.parts, k=k), "max_load": int(loads.max()),
+           "max_load_cap": out.max_load, "max_load_over_cap": int(loads.max()) - out.max_load,
+           "load_equals_bincount": bool(torch.equal(load, loads)),
+           "clusters": out.n_clusters, "head_clusters": out.n_head_clusters,
+           "clusters_sequential": main["info"]["clusters"],
+           "game_rounds": out.game_rounds, "game_converged": out.game_converged,
+           "seconds": out.timings, "wall_s": wall,
+           "seconds_sequential": main["info"]["seconds"],
+           "parallel_ingest": out.aux["parallel_ingest"], "touch_up": tu,
+           "launches": launches, "launches_expected": want, "plan_chunks": plan_chunks,
+           "hub_plan_s": plan_wall, "hub_plan_launches": plan_launches,
+           "hubs": ps.n_hubs, "hub_threshold": ps.hub_threshold,
+           "max_memory_allocated": peak, "game_audit": audit, "touch_up_audit": tu_audit}
+    emit({"phase": "parallel", **row})
+    info["s5p"] = row
+    if not row["load_equals_bincount"]:
+        problems.append("s5p: the final load is not the bincount of the parts")
+    for key, v in want.items():
+        if launches[key] != v:
+            problems.append(f"s5p: {key} launched {launches[key]} times, not {v}")
+    problems += _audit_problems("s5p S=8", audit)
+    if tu_audit.get("ran"):
+        for key in ("w_sums_ordered_or_below_2^24", "part_sizes_below_2^23_or_replayed"):
+            if not tu_audit[key]:
+                problems.append(f"s5p S=8: the touch-up audit fails {key}: {tu_audit}")
+    if not math.isfinite(rf) or not 1.0 <= rf <= k:
+        problems.append(f"s5p S=8: RF {rf} outside [1, k]")
+    del out
+
+    # ---- HDRF, hub lanes, auto cadence: threads and vmap, equal bits ----
+    hd = {}
+    for backend in ("threads", "vmap"):
+        pc = HdrfCarry(n, k, device=dev)
+        (parts, carry), wall, launches, peak = drive(lambda: run_parallel(
+            stream, pc, num_streams=S, super_chunk="auto", shard="hub", backend=backend))
+        ing = last_ingest_stats()
+        check_parts(f"hdrf {backend}", parts)
+        hd[backend] = (parts, carry)
+        plan = sum(lane.chunks for lane in ing.lanes)
+        r = {"step": "hdrf", "backend": backend, "shard": "hub", "super_chunk": "auto",
+             "rf": replication_factor(s_t, d_t, parts, n_vertices=n, k=k),
+             "rf_sequential": main["compare_rf"]["hdrf"],
+             "max_load": int(partition_loads(parts, k=k).max()), "wall_s": wall,
+             "seconds_sequential": main["compare_s"]["hdrf"], "launches": launches,
+             "plan_chunks": plan, "merges": len(ing.schedule),
+             "schedule": _compress(ing.schedule),
+             "lanes": [vars(lane) for lane in ing.lanes], "max_memory_allocated": peak}
+        emit({"phase": "parallel", **r})
+        info[f"hdrf_{backend}"] = r
+        if launches["scoring_scan"] != plan:
+            problems.append(f"hdrf {backend}: K3 launched {launches['scoring_scan']} times, "
+                            f"not once per plan chunk ({plan})")
+    same = torch.equal(hd["threads"][0], hd["vmap"][0]) and all(
+        torch.equal(a, b) for a, b in zip(hd["threads"][1][:3], hd["vmap"][1][:3]))
+    info["hdrf_threads_equal_vmap"] = same
+    if not same:
+        problems.append("hdrf: the threads and vmap backends differ")
+    del hd
+
+    # ---- Greedy, range lanes, super-chunk 8 ----
+    parts, wall, launches, peak = drive(lambda: greedy_partition(
+        src, dst, n, k, stream=stream, num_streams=S, super_chunk=8, shard="range"))
+    check_parts("greedy", parts)
+    r = {"step": "greedy", "shard": "range", "super_chunk": 8,
+         "rf": replication_factor(s_t, d_t, parts, n_vertices=n, k=k),
+         "rf_sequential": main["compare_rf"]["greedy"], "wall_s": wall,
+         "seconds_sequential": main["compare_s"]["greedy"], "launches": launches,
+         "merges": len(last_ingest_stats().schedule), "max_memory_allocated": peak}
+    emit({"phase": "parallel", **r})
+    info["greedy"] = r
+    if launches["scoring_scan"] != n_chunks:
+        problems.append(f"greedy: K3 launched {launches['scoring_scan']} times, not {n_chunks}")
+
+    # ---- the degree count, hub lanes (the plan built above): equal to
+    # compute_degrees ----
+    deg, wall, launches, _ = drive(lambda: compute_degrees_stream(stream, S, "auto", "hub"))
+    exact = bool(torch.equal(deg, compute_degrees(s_t, d_t, n)))
+    r = {"step": "degrees", "shard": "hub", "equal_compute_degrees": exact, "wall_s": wall,
+         "launches": launches}
+    emit({"phase": "parallel", **r})
+    info["degrees"] = r
+    if not exact:
+        problems.append("degrees at S=8 (hub) differ from compute_degrees")
+    if launches["cms_update"] or launches["cms_query"]:
+        problems.append(f"the cached hub plan launched K4a/K4b again: {launches}")
+    if problems:
+        raise SystemExit("chip_smoke parallel phase failed: " + "; ".join(problems))
+    return info
+
+
+def _compress(schedule) -> str:
+    from repro_torch.streaming.parallel import _compress_schedule
+
+    return _compress_schedule(schedule)
 
 
 def _compare_retract(main, hdrf_parts, s_t, d_t) -> dict:
@@ -1658,11 +1890,34 @@ def phase_parity() -> dict:
         cpu = fn(src, dst, n, 8, 0, device="cpu").numpy()
         seconds[name] = [t1 - t0, time.perf_counter() - t1]
         differing[name] = int((gpu != cpu).sum()) if gpu.shape == cpu.shape else -1
+    # S = 4 lanes in every shard mode (chunks of 1,024 edges: 8 chunks)
+    touch_up = {}
+    for shard in ("range", "rr", "hub"):
+        for name in ("s5p", "hdrf", "greedy", "grid"):
+            kw = dict(chunk_size=1024, num_streams=4, shard=shard,
+                      super_chunk="auto" if name in ("s5p", "hdrf") else 2)
+            if name == "s5p":
+                kw["full_output"] = True
+            row = f"{name} S=4 {shard}"
+            t0 = time.perf_counter()
+            gpu = PARTITIONERS[name](src, dst, n, 8, 0, device="cuda", **kw)
+            t1 = time.perf_counter()
+            cpu = PARTITIONERS[name](src, dst, n, 8, 0, device="cpu", **kw)
+            seconds[row] = [t1 - t0, time.perf_counter() - t1]
+            if name == "s5p":
+                tu = [{key: v for key, v in o.aux.get("touch_up", {}).items() if key != "game"}
+                      for o in (gpu, cpu)]
+                touch_up[row] = {"cuda": tu[0], "same": tu[0] == tu[1]}
+                differing[row + " touch_up"] = int(tu[0] != tu[1])
+                gpu, cpu = gpu.parts, cpu.parts
+            gpu, cpu = gpu.cpu().numpy(), cpu.numpy()
+            differing[row] = int((gpu != cpu).sum()) if gpu.shape == cpu.shape else -1
     same = all(v == 0 for v in differing.values())
     delta = _delta_above_2_24()
     info = {"phase": "parity", "graph": "community_graph(2000, 32, 8, seed=5)",
             "k": 8, "E": int(src.shape[0]), "parts_identical": same,
-            "differing_edges": differing, "cuda_cpu_s": seconds, "delta_above_2^24": delta}
+            "differing_edges": differing, "cuda_cpu_s": seconds, "touch_up": touch_up,
+            "delta_above_2^24": delta}
     emit(info)
     if not same:
         raise SystemExit(f"chip_smoke: cuda and cpu parts differ on the community graph: {differing}")
@@ -2340,12 +2595,16 @@ def main(argv=None) -> int:
     results = {"device": dev, "build": build}
     main_run = phase_main(args.scale)
     compare = phase_compare(main_run)
+    t0 = time.perf_counter()
+    parallel = phase_parallel(main_run)
+    parallel["phase_s"] = time.perf_counter() - t0
+    emit({"phase": "parallel", "step": "done", "phase_s": parallel["phase_s"]})
     serve = phase_serve(args.products_scale)
     lm = phase_lm()
     recsys = phase_recsys()
     summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build)
     results.update(main=main_run["info"], compare=compare["rows"],
-                   pagerank=compare["pagerank"], serve=serve["info"])
+                   pagerank=compare["pagerank"], parallel=parallel, serve=serve["info"])
     del serve
     results["parity"] = phase_parity()
     results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], recsys=recsys["info"],

@@ -19,10 +19,11 @@ contract as S5P; each returns ``(E,)`` int32 parts on its device (default
 
 Bit for bit the reference's ``repro.core.baselines``.  The uint32 hashing
 is done as ``core/cms.py`` does it: uint32 values in int64 masked to 32
-bits, products by :func:`repro_torch.random.mul32`.  Parallel ingest
-(``num_streams > 1``), the vmapped batched engines
-(``hdrf_partition_batched``, ``grid_partition_multi_seed``) and file
-streams wait for slice 4 of the port.
+bits, products by :func:`repro_torch.random.mul32`.  Grid, Greedy and HDRF
+take the parallel-ingest options (``num_streams``, ``super_chunk``,
+``shard``: ``run_parallel``); ``hdrf_partition_batched`` and
+``grid_partition_multi_seed`` step many scenarios over one read of the
+stream (``run_scan_batched`` with ``make_chunk_fn``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 from .._device import resolve_device
 from ..kernels import stream_scan as _scan
 from ..random import M32, mul32
-from ..streaming import as_stream, run_carry
+from ..streaming import as_stream, run_parallel, run_scan_batched, stack_carries
 from . import clustering as _cl
 from . import postprocess as _post
 from .s5p import S5PConfig, _as_int32, s5p_partition
@@ -46,6 +47,8 @@ __all__ = [
     "grid_partition",
     "greedy_partition",
     "hdrf_partition",
+    "hdrf_partition_batched",
+    "grid_partition_multi_seed",
     "two_ps_partition",
     "clugp_partition",
     "PARTITIONERS",
@@ -96,13 +99,6 @@ def _grid_rowcol(n_vertices, k, c, seed, device):
     return cell // c, cell % c
 
 
-def _stream(src, dst, n_vertices, stream, chunk_size, num_streams,
-            super_chunk, shard, device):
-    _cl._check_sequential(num_streams, super_chunk, shard)
-    return as_stream(src, dst, n_vertices, stream=stream,
-                     chunk_size=chunk_size, device=device)
-
-
 def grid_partition(src, dst, n_vertices, k, seed=0, *, stream=None,
                    chunk_size=None, num_streams=1, super_chunk=8,
                    shard="range", device=None):
@@ -111,11 +107,27 @@ def grid_partition(src, dst, n_vertices, k, seed=0, *, stream=None,
     Candidate set: grid intersection of u's row/col with v's — cells
     (row_u, col_v) and (row_v, col_u); degenerate → own cell.
     """
-    st = _stream(src, dst, n_vertices, stream, chunk_size, num_streams,
-                 super_chunk, shard, device)
+    st = as_stream(src, dst, n_vertices, stream=stream, chunk_size=chunk_size,
+                   device=device)
     _, c = _grid_dims(k)
     row, col = _grid_rowcol(n_vertices, k, c, seed, st.device)
-    parts, _ = run_carry(st, _scan.GridCarry(k, row, col, c, device=st.device))
+    parts, _ = run_parallel(st, _scan.GridCarry(k, row, col, c, device=st.device),
+                            num_streams=num_streams, super_chunk=super_chunk,
+                            shard=shard)
+    return parts
+
+
+def grid_partition_multi_seed(src, dst, n_vertices, k, seeds, *, stream=None,
+                              chunk_size=None, device=None):
+    """Grid for every seed over one read of the stream: ``(len(seeds), E)``
+    parts, row i equal to ``grid_partition(..., seed=seeds[i])``."""
+    st = as_stream(src, dst, n_vertices, stream=stream, chunk_size=chunk_size,
+                   device=device)
+    _, c = _grid_dims(k)
+    carries = stack_carries([
+        _scan.grid_init(k, *_grid_rowcol(n_vertices, k, c, s, st.device), c,
+                            device=st.device) for s in seeds])
+    parts, _ = run_scan_batched(st, carries, _scan.make_chunk_fn("grid"))
     return parts
 
 
@@ -123,9 +135,11 @@ def greedy_partition(src, dst, n_vertices, k, seed=0, *, stream=None,
                      chunk_size=None, num_streams=1, super_chunk=8,
                      shard="range", device=None):
     """PowerGraph Greedy: 4-case replica-aware assignment."""
-    st = _stream(src, dst, n_vertices, stream, chunk_size, num_streams,
-                 super_chunk, shard, device)
-    parts, _ = run_carry(st, _scan.GreedyCarry(n_vertices, k, device=st.device))
+    st = as_stream(src, dst, n_vertices, stream=stream, chunk_size=chunk_size,
+                   device=device)
+    parts, _ = run_parallel(st, _scan.GreedyCarry(n_vertices, k, device=st.device),
+                            num_streams=num_streams, super_chunk=super_chunk,
+                            shard=shard)
     return parts
 
 
@@ -133,10 +147,32 @@ def hdrf_partition(src, dst, n_vertices, k, seed=0, lam: float = 1.1, *,
                    stream=None, chunk_size=None, num_streams=1,
                    super_chunk=8, shard="range", device=None):
     """High-Degree Replicated First (partial-degree variant, as published)."""
-    st = _stream(src, dst, n_vertices, stream, chunk_size, num_streams,
-                 super_chunk, shard, device)
+    st = as_stream(src, dst, n_vertices, stream=stream, chunk_size=chunk_size,
+                   device=device)
     pc = _scan.HdrfCarry(n_vertices, k, lam, device=st.device)
-    parts, _ = run_carry(st, pc)
+    parts, _ = run_parallel(st, pc, num_streams=num_streams,
+                            super_chunk=super_chunk, shard=shard)
+    return parts
+
+
+def hdrf_partition_batched(src, dst, n_vertices, ks, lams=None, *,
+                           stream=None, chunk_size=None, device=None):
+    """HDRF for every scenario over one read of the stream: scenario i
+    runs ``ks[i]`` partitions (padded to ``max(ks)``, K3's ``k_active``)
+    and λ ``lams[i]`` (default 1.1).  Returns ``(len(ks), E)`` parts."""
+    if not ks:
+        raise ValueError("ks must name at least one partition count")
+    if lams is None:
+        lams = [1.1] * len(ks)
+    if len(ks) != len(lams):
+        raise ValueError("ks and lams length mismatch")
+    st = as_stream(src, dst, n_vertices, stream=stream, chunk_size=chunk_size,
+                   device=device)
+    kmax = max(ks)
+    carries = stack_carries([
+        _scan.hdrf_init(n_vertices, kmax, lam, k_active=k, device=st.device)
+        for k, lam in zip(ks, lams)])
+    parts, _ = run_scan_batched(st, carries, _scan.make_chunk_fn("hdrf"))
     return parts
 
 

@@ -12,7 +12,10 @@ The state is the 10-leaf :class:`ClusterState` of ``repro.core.clustering``
 fold runs in the K1 kernel (``kernels/stream_scan``); on the CPU in
 :func:`cluster_chunk`, a sequential transcription of the kernel's
 statement order.  Both update the state in place.  Only the insert path is
-ported; ``cluster_retract_chunk`` waits for the decremental slice.
+ported; ``cluster_retract_chunk`` waits for dynamic partitioning (ROADMAP
+Queue 1 item 3).  ``cluster_stream`` ingests S lanes at once through
+``run_parallel`` (``num_streams > 1``), merging the lanes' states by
+:attr:`ClusterCarry.merge_ops`.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from .._device import resolve_device
 from ..kernels.stream_scan import kernel as _scan
-from ..streaming import PartitionerCarry, as_stream, run_carry
+from ..streaming import COUNTED, SUM, PartitionerCarry, as_stream, run_parallel
 
 __all__ = [
     "ClusterState",
@@ -35,6 +38,7 @@ __all__ = [
     "cluster_chunk",
     "cluster_stream",
     "compute_degrees",
+    "compute_degrees_stream",
     "compact_clusters",
 ]
 
@@ -108,12 +112,27 @@ class _Lists:
             t.copy_(torch.tensor(getattr(self, name), dtype=torch.int32))
 
 
+def _rd(vol: list, c: int) -> int:
+    """``vol[c]`` as the reference's gather reads it: clamped to the last
+    slot (only merged lanes hand out ids past ``V``)."""
+    return vol[min(c, len(vol) - 1)]
+
+
+def _add(vol: list, c: int, x: int) -> None:
+    """``vol.at[c].add(x)``: an id past the last slot is dropped."""
+    if c < len(vol):
+        vol[c] = _w32(vol[c] + x)
+
+
 def _edge_step(s: _Lists, u: int, v: int, real: bool, *, deg, xi: int,
                kappa: int, global_tail: bool) -> None:
     """One Algorithm-1 step, in the reference kernel's statement order.
 
     Masked writes of the reference add zero to the sink slot and are
-    skipped here, which leaves every slot bit-identical.
+    skipped here, which leaves every slot bit-identical.  Cluster ids past
+    the volume arrays (parallel lanes whose merged id counters passed
+    ``V``) read the last slot and drop their writes, as XLA's gathers and
+    scatters do.
     """
     du = deg[u]
     dv = deg[v]
@@ -125,14 +144,14 @@ def _edge_step(s: _Lists, u: int, v: int, real: bool, *, deg, xi: int,
         cu, cv = s.v2c_h[u], s.v2c_h[v]
         new_u, new_v = cu < 0, cv < 0
         cu2 = s.next_h if new_u else cu
-        s.next_h += int(new_u)
+        s.next_h = _w32(s.next_h + int(new_u))
         cv2 = s.next_h if new_v else cv
-        s.next_h += int(new_v)
+        s.next_h = _w32(s.next_h + int(new_v))
         vol = s.vol_h
         if new_u:
-            vol[cu2] = _w32(vol[cu2] + du)
+            _add(vol, cu2, du)
         if new_v:
-            vol[cv2] = _w32(vol[cv2] + dv)
+            _add(vol, cv2, dv)
         s.cnt_h[u] = _w32(s.cnt_h[u] + 1)
         s.cnt_h[v] = _w32(s.cnt_h[v] + 1)
         if new_u:
@@ -141,14 +160,14 @@ def _edge_step(s: _Lists, u: int, v: int, real: bool, *, deg, xi: int,
             s.alloc_h[v] = _w32(s.alloc_h[v] + dv)
         s.v2c_h[u] = cu2
         s.v2c_h[v] = cv2
-        vu, vv = vol[cu2], vol[cv2]
+        vu, vv = _rd(vol, cu2), _rd(vol, cv2)
         both_small = vu < kappa and vv < kappa and cu2 != cv2
         u_is_i = _w32(vu - du) <= _w32(vv - dv)  # tie -> u
         ci, cj = (cu2, cv2) if u_is_i else (cv2, cu2)
         i_vtx, di = (u, du) if u_is_i else (v, dv)
-        if both_small and _w32(vol[cj] + di) < kappa:
-            vol[cj] = _w32(vol[cj] + di)
-            vol[ci] = _w32(vol[ci] - di)
+        if both_small and _w32(_rd(vol, cj) + di) < kappa:
+            _add(vol, cj, di)
+            _add(vol, ci, -di)
             s.v2c_h[i_vtx] = cj
 
     # ---------------- tail branch (local-degree volumes) -----------------
@@ -156,25 +175,25 @@ def _edge_step(s: _Lists, u: int, v: int, real: bool, *, deg, xi: int,
         tu, tv = s.v2c_t[u], s.v2c_t[v]
         tnew_u, tnew_v = tu < 0, tv < 0
         tu2 = s.next_t if tnew_u else tu
-        s.next_t += int(tnew_u)
+        s.next_t = _w32(s.next_t + int(tnew_u))
         tv2 = s.next_t if tnew_v else tv
-        s.next_t += int(tnew_v)
+        s.next_t = _w32(s.next_t + int(tnew_v))
         vol = s.vol_t
         if global_tail:
             if tnew_u:
-                vol[tu2] = _w32(vol[tu2] + du)
+                _add(vol, tu2, du)
             if tnew_v:
-                vol[tv2] = _w32(vol[tv2] + dv)
+                _add(vol, tv2, dv)
         else:  # lines 14-15: vol(·) and ld(·) += 1 for both endpoints
-            vol[tu2] = _w32(vol[tu2] + 1)
-            vol[tv2] = _w32(vol[tv2] + 1)
+            _add(vol, tu2, 1)
+            _add(vol, tv2, 1)
             s.ld[u] = _w32(s.ld[u] + 1)
             s.ld[v] = _w32(s.ld[v] + 1)
         s.v2c_t[u] = tu2
         s.v2c_t[v] = tv2
         s.cnt_t[u] = _w32(s.cnt_t[u] + 1)
         s.cnt_t[v] = _w32(s.cnt_t[v] + 1)
-        tvu, tvv = vol[tu2], vol[tv2]
+        tvu, tvv = _rd(vol, tu2), _rd(vol, tv2)
         t_small = tvu < kappa and tvv < kappa and tu2 != tv2
         tu_is_i = tvu <= tvv  # tie -> u
         tci, tcj = (tu2, tv2) if tu_is_i else (tv2, tu2)
@@ -182,10 +201,10 @@ def _edge_step(s: _Lists, u: int, v: int, real: bool, *, deg, xi: int,
         ldi = deg[ti] if global_tail else s.ld[ti]
         t_mig = t_small
         if global_tail:
-            t_mig = t_mig and _w32(vol[tcj] + ldi) < kappa
+            t_mig = t_mig and _w32(_rd(vol, tcj) + ldi) < kappa
         if t_mig:
-            vol[tcj] = _w32(vol[tcj] + ldi)
-            vol[tci] = _w32(vol[tci] - ldi)
+            _add(vol, tcj, ldi)
+            _add(vol, tci, -ldi)
             s.v2c_t[ti] = tcj
 
 
@@ -207,9 +226,19 @@ def cluster_chunk(state: ClusterState, src, dst, degrees, *, xi: int,
 
 class ClusterCarry(PartitionerCarry):
     """Algorithm 1 as a carry (state-only).  Each chunk goes through
-    ``cluster_scan``: K1 on CUDA, the plain fold on the CPU."""
+    ``cluster_scan``: K1 on CUDA, the plain fold on the CPU.
+
+    Merge ops as the reference declares them: volumes, local degrees and
+    id counters SUM their lanes' deltas; the membership counters are
+    COUNTED; the two vertex → cluster tables SUM too but are
+    ``pick_first``, so a vertex two lanes reassigned in one super-chunk
+    keeps the lowest lane's (real) id instead of a telescoped sum."""
 
     emits_parts = False
+    retract_exact = False  # migrations are history-dependent
+    # v2c_h, v2c_t, vol_h, vol_t, ld, next_h, next_t, cnt_h, cnt_t, alloc_h
+    merge_ops = (SUM, SUM, SUM, SUM, SUM, SUM, SUM, COUNTED, COUNTED, SUM)
+    pick_first = (0, 1)
 
     def __init__(self, degrees: torch.Tensor, n_vertices: int, *, xi: int,
                  kappa: int, global_tail: bool = False):
@@ -228,6 +257,37 @@ class ClusterCarry(PartitionerCarry):
                                     global_tail=self.global_tail)
         return ClusterState(*leaves), None
 
+    def check_lane_start(self, carry) -> None:
+        """K1 keeps every cluster id inside the (V + 1)-slot volume arrays.
+        A lane hands out at most one id per unassigned vertex a table, so
+        from ``next`` it hands out ids below ``next + #unassigned``.  Merged
+        lanes sum their id counters, and past ``V + 1`` the reference reads
+        the last slot and drops the writes (the plain version does too),
+        which K1 does not: on the card such a start raises (ROADMAP Queue 3
+        j).  ``super_chunk="auto"`` folds Alg. 1 in isolation, from the
+        empty state."""
+        if carry.next_h.device.type != "cuda":
+            return
+        top = torch.stack([carry.next_h + (carry.v2c_h < 0).sum(),
+                           carry.next_t + (carry.v2c_t < 0).sum()]).max()
+        if int(top) > self.n_vertices + 1:
+            raise NotImplementedError(
+                f"merged Alg. 1 lanes may hand out cluster ids up to {int(top) - 1}, "
+                f"past the {self.n_vertices + 1}-slot volume arrays K1 keeps them "
+                "in (ROADMAP Queue 3 j); use super_chunk='auto', which folds "
+                "clustering lanes in isolation")
+
+    def occupancy_contest(self, before, after) -> float:
+        """Reassignment churn between merge bases: the fraction of assigned
+        vertices whose cluster id moved (assigned → another id) over both
+        tables; fresh assignments are growth, not contention."""
+        changed = active = 0
+        for b, a in ((before.v2c_h, after.v2c_h), (before.v2c_t, after.v2c_t)):
+            changed = changed + ((b >= 0) & (a >= 0) & (a != b)).sum()
+            active = active + (a >= 0).sum()
+        got = torch.stack([changed, active]).tolist()
+        return got[0] / max(got[1], 1)
+
 
 class DegreeCarry(PartitionerCarry):
     """One-pass global degree count as a carry (state-only).  Padding is
@@ -236,6 +296,8 @@ class DegreeCarry(PartitionerCarry):
 
     emits_parts = False
     supports_retract = True
+    retract_exact = True
+    merge_ops = (SUM,)
 
     def __init__(self, n_vertices: int, device=None):
         self.n_vertices = int(n_vertices)
@@ -265,6 +327,17 @@ def compute_degrees(src: torch.Tensor, dst: torch.Tensor, n_vertices: int) -> to
     return deg.index_add(0, dst.long(), ones)
 
 
+def compute_degrees_stream(stream, num_streams: int = 1,
+                           super_chunk: int | str = 8, shard: str = "range") -> torch.Tensor:
+    """The one-pass degree count, chunk by chunk: bit-identical to
+    :func:`compute_degrees` for any ``num_streams``, ``super_chunk`` and
+    ``shard`` (integer sums commute)."""
+    _, deg = run_parallel(stream, DegreeCarry(stream.n_vertices, stream.device),
+                          num_streams=num_streams, super_chunk=super_chunk,
+                          shard=shard)
+    return deg
+
+
 def cluster_stream(src, dst, n_vertices: int, *, xi: int, kappa: int,
                    chunk_size: int = 1 << 16, global_tail: bool = False,
                    stream=None, num_streams: int = 1, super_chunk=8,
@@ -273,8 +346,9 @@ def cluster_stream(src, dst, n_vertices: int, *, xi: int, kappa: int,
 
     Degrees are the one-pass global precompute.  Runs on ``stream.device``
     when a stream is given, else on ``device`` (default ``cuda``).
+    ``num_streams > 1`` ingests S lanes (``shard``) merged every
+    ``super_chunk`` chunks (``run_parallel``); 1 is the sequential fold.
     """
-    _check_sequential(num_streams, super_chunk, shard)
     stream = as_stream(src, dst, n_vertices, stream=stream,
                        chunk_size=chunk_size, device=device)
     dev = stream.device
@@ -283,16 +357,9 @@ def cluster_stream(src, dst, n_vertices: int, *, xi: int, kappa: int,
                               stream.n_vertices)
     pc = ClusterCarry(degrees, stream.n_vertices, xi=xi, kappa=kappa,
                       global_tail=global_tail)
-    _, state = run_carry(stream, pc)
+    _, state = run_parallel(stream, pc, num_streams=num_streams,
+                            super_chunk=super_chunk, shard=shard)
     return state
-
-
-def _check_sequential(num_streams, super_chunk, shard) -> None:
-    """Parallel ingest is not ported yet: refuse its options."""
-    if num_streams != 1 or super_chunk != 8 or shard != "range":
-        raise NotImplementedError(
-            "parallel ingest (num_streams > 1, super_chunk, shard) waits for "
-            "slice 4 of the port")
 
 
 def compact_clusters(state: ClusterState, degrees: torch.Tensor, xi: int) -> ClusterResult:

@@ -26,7 +26,7 @@ from .._device import resolve_device
 from ..kernels.cms_sketch import ops as _ops
 from ..kernels.cms_sketch.ref import u32_bits
 from ..random import M32, mul32
-from ..streaming import PartitionerCarry
+from ..streaming import REPLICATED, SUM, PartitionerCarry
 
 __all__ = [
     "CMSketch",
@@ -138,10 +138,14 @@ class SketchCarry(PartitionerCarry):
     """The Θ statistics pass as a carry: a CMS over cluster-pair keys.
 
     The stream's (src, dst) are cluster-id pairs; each valid pair adds one
-    at its order-insensitive key (padding adds zero)."""
+    at its order-insensitive key (padding adds zero).  The table SUMs in
+    ℤ/2³² (int32 adds wrap), so lanes merge exactly; the seeds are
+    REPLICATED."""
 
     emits_parts = False
     supports_retract = True
+    retract_exact = True
+    merge_ops = (SUM, REPLICATED)
 
     def __init__(self, width: int, depth: int, seed: int = 0, device=None):
         self.width = int(width)

@@ -55,8 +55,18 @@ degrees and Σ sizes in float64):
 launch each on the card), the replayed and the ordered rounds and the
 largest guarded partition size and hub-batch W seen.
 This is plain PyTorch: the reference computes the game outside any Pallas
-kernel.  The masked game (``leader_mask``/``move_mask``/``move_cost``)
-waits for the touch-up and incremental slice.
+kernel.
+
+The masked game (``leader_mask``/``move_mask``, the reference's
+``_run_game_masked_jit``) names the leaders by a mask and lets only
+``move_mask`` clusters move.  It visits the batch windows
+``[b·bs, (b+1)·bs)`` that hold a movable cluster (not offset at
+``n_head``), leaders' stage first, each with the role mask of its stage,
+and draws window b's acceptance bits from ``fold_in(split(fold_in(key0,
+round))[stage], b)``.  A window with no movable cluster of the stage's role
+is a no-op there and is skipped.  The hub batches and the size guard work
+as above.  The migration cost of elastic resharding (``move_cost``,
+``home``) waits for ROADMAP Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -284,13 +294,15 @@ def _batch_w(adj, assign, lo, hi, k, ordered: bool) -> torch.Tensor:
 
 
 def _batch_update(inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj, *,
-                  hub=False, sizes_exact_below=None, size_max=None, w_max=None):
+                  hub=False, sizes_exact_below=None, size_max=None, w_max=None,
+                  active=None):
     """Best response of clusters ``[lo, hi)`` (one simultaneous batch),
     updating ``assign`` in place.  Returns whether any of them had an
     improving move (a device bool).  ``hub`` sums W in order; the sizes
     are summed in order when ``sizes_exact_below`` is given
     (:func:`_part_sizes`); ``size_max`` ((k,)) and ``w_max`` (()) are
-    running maxima that the batch raises in place."""
+    running maxima that the batch raises in place.  ``active`` ((C,)
+    bool, the masked game) limits the moves to its clusters."""
     k = inputs.k
     w_ip = _batch_w(adj, assign, lo, hi, k, hub)
     part_sizes = _part_sizes(inputs.sizes, assign, k, sizes_exact_below)
@@ -308,6 +320,8 @@ def _batch_update(inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj, *,
     strictly_better = cost.amin(dim=1) < cur
     best = torch.where(strictly_better, cost.argmin(dim=1), cur_p)
     improves = strictly_better & (best != cur_p)
+    if active is not None:
+        improves = improves & active[lo:hi]
     assign[lo:hi] = torch.where(improves & lucky[lo:hi], best, cur_p).to(torch.int32)
     return improves.any()
 
@@ -331,16 +345,47 @@ def run_game(inputs: GameInputs, n_clusters: int, *, batch_size: int = 256,
              leader_mask=None, move_mask=None, move_cost=None,
              home=None) -> GameResult:
     """Damped best-response dynamics to a pure Nash equilibrium (the
-    unmasked game of ``repro.core.game.run_game``), on the device of
-    ``inputs.sizes``."""
-    if any(x is not None for x in (leader_mask, move_mask, move_cost, home)):
+    reference's ``run_game``), on the device of ``inputs.sizes``.  With
+    ``leader_mask`` or ``move_mask`` given, the masked game (module
+    docstring); the other masks default to ``arange(C) < n_head`` and all
+    movable."""
+    if move_cost is not None or home is not None:
         raise NotImplementedError(
-            "the masked game (leader_mask, move_mask, move_cost, home) waits "
-            "for the touch-up and incremental slice (slice 5) of the port")
+            "the migration-cost game of elastic resharding (move_cost, home) "
+            "waits for ROADMAP Queue 1 item 4")
     dev = inputs.sizes.device
     C, k, n_head = int(n_clusters), inputs.k, inputs.n_head
     if assign0 is None:
         assign0 = init_assignment(inputs.sizes, k)
+    masked = leader_mask is not None or move_mask is not None
+    bs = int(batch_size)
+    cid = torch.arange(C, dtype=torch.int64, device=dev)
+    if masked:
+        lead = (np.arange(C) < n_head if leader_mask is None
+                else np.asarray(leader_mask, bool))
+        move = np.ones(C, bool) if move_mask is None else np.asarray(move_mask, bool)
+        # only the windows that hold a movable cluster are worth visiting
+        windows = np.unique(np.nonzero(move)[0] // bs)
+        if windows.size == 0:  # every player frozen: a no-op equilibrium
+            return GameResult(assignment=torch.as_tensor(
+                np.asarray(assign0), dtype=torch.int32).to(dev).clone(),
+                rounds=0, converged=True)
+        stages = []  # (lo, hi, active) per stage, leaders' first
+        for role in (lead & move, ~lead & move):
+            active = torch.from_numpy(role).to(dev)
+            stages += [(int(b) * bs, min(int(b) * bs + bs, C), active)
+                       for b in windows if role[int(b) * bs:int(b) * bs + bs].any()]
+        leader = torch.from_numpy(lead).to(dev)
+        batch = cid // bs
+    else:
+        n_batches_h = max(1, -(-n_head // bs))
+        n_batches_t = max(1, -(-(C - n_head) // bs))
+        stages = [(b * bs, min(b * bs + bs, n_head), None) for b in range(n_batches_h)]
+        stages += [(n_head + b * bs, min(n_head + b * bs + bs, C), None)
+                   for b in range(n_batches_t)]
+        stages = [(lo, hi, a) for lo, hi, a in stages if hi > lo]
+        leader = cid < n_head
+        batch = torch.where(leader, cid // bs, (cid - n_head) // bs)
     degs = _cluster_degrees(inputs, C)
     if delta is None:
         delta = compute_delta(inputs.sizes, degs, k)
@@ -350,20 +395,12 @@ def run_game(inputs: GameInputs, n_clusters: int, *, batch_size: int = 256,
     accept = torch.tensor(accept_prob, dtype=torch.float32, device=dev)
     assign = torch.as_tensor(np.asarray(assign0), dtype=torch.int32).to(dev).clone()
     adj = _adjacency(inputs, C)
-    bs = int(batch_size)
-    n_batches_h = max(1, -(-n_head // bs))
-    n_batches_t = max(1, -(-(C - n_head) // bs))
-    cid = torch.arange(C, dtype=torch.int64, device=dev)
-    leader = cid < n_head
-    batch = torch.where(leader, cid // bs, (cid - n_head) // bs)
     key0 = _random.PRNGKey(seed)
 
     static = _static_bounds(inputs, C)
-    spans = [(b * bs, min(b * bs + bs, n_head)) for b in range(n_batches_h)]
-    spans += [(n_head + b * bs, min(n_head + b * bs + bs, C)) for b in range(n_batches_t)]
-    spans = [(lo, hi) for lo, hi in spans if hi > lo]
     hubs = static.hub_rows
-    hub = [bool(np.searchsorted(hubs, lo) < np.searchsorted(hubs, hi)) for lo, hi in spans]
+    hub = [bool(np.searchsorted(hubs, lo) < np.searchsorted(hubs, hi))
+           for lo, hi, _ in stages]
     w_max = torch.zeros((), dtype=torch.float32, device=dev)
     guard = static.size_limit is not None
     size_max = torch.zeros(k, dtype=torch.float32, device=dev) if guard else None
@@ -372,11 +409,11 @@ def run_game(inputs: GameInputs, n_clusters: int, *, batch_size: int = 256,
 
     def play(lucky, in_order):
         wanted = torch.zeros((), dtype=torch.bool, device=dev)
-        for (lo, hi), h in zip(spans, hub):  # Stage 1: leaders; Stage 2: followers
+        for (lo, hi, active), h in zip(stages, hub):  # leaders, then followers
             wanted |= _batch_update(
                 inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj, hub=h,
                 sizes_exact_below=static.size_limit if in_order else None,
-                size_max=size_max, w_max=w_max)
+                size_max=size_max, w_max=w_max, active=active)
         return wanted
 
     def read(wanted):
@@ -393,13 +430,13 @@ def run_game(inputs: GameInputs, n_clusters: int, *, batch_size: int = 256,
         lucky = _acceptance(key0, rounds, leader, batch, cid, accept)
         start = assign.clone() if guard and not in_order else None
         wanted, seen = read(play(lucky, in_order))
-        ordered_sums += sum(hub) + (len(spans) if in_order else 0)
+        ordered_sums += sum(hub) + (len(stages) if in_order else 0)
         if guard and not in_order and seen >= static.size_limit:  # may have rounded
             assign.copy_(start)
             size_max.zero_()
             in_order = True
             wanted, seen = read(play(lucky, True))
-            ordered_sums += sum(hub) + len(spans)
+            ordered_sums += sum(hub) + len(stages)
             replayed += 1
         if guard:
             ordered_rounds += in_order

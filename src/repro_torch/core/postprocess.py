@@ -8,7 +8,8 @@ less-loaded endpoint partition (ties to ``P_u``).
 
 On CUDA each chunk runs in the K2 kernel (``kernels/stream_scan``); on the
 CPU in :func:`_assign_steps`, a sequential transcription.  The carry is
-the ``(k,)`` int32 load vector.
+the ``(k,)`` int32 load vector (merge op SUM, so S lanes place at once
+through ``run_parallel``).
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels.stream_scan import kernel as _scan
-from ..streaming import PartitionerCarry, as_stream, run_carry
-from .clustering import _check_sequential, _w32
+from ..streaming import SUM, PartitionerCarry, as_stream, run_parallel
+from .clustering import _w32
 
 __all__ = ["AssignCarry", "assign_edges", "assign_edges_stream"]
 
@@ -73,6 +74,8 @@ class AssignCarry(PartitionerCarry):
     are constants.  Each chunk goes through ``assign_scan`` (K2 on CUDA)."""
 
     supports_retract = True
+    retract_exact = True
+    merge_ops = (SUM,)
 
     def __init__(self, k: int, max_load: int, c2p: torch.Tensor):
         self.k = int(k)
@@ -106,12 +109,14 @@ def assign_edges_stream(src, dst, is_head_edge, cu, cv, c2p, k: int,
     The per-edge attributes ride along the stream as extras, so a
     reordered stream keeps them aligned; parts come back in arrival order.
     Runs on ``stream.device`` when a stream is given, else on ``device``.
+    ``num_streams > 1`` places S lanes at once (``run_parallel``).
     """
-    _check_sequential(num_streams, super_chunk, shard)
     stream = as_stream(src, dst, stream=stream, chunk_size=chunk_size,
                        device=device)
     pc = AssignCarry(k, max_load, torch.as_tensor(c2p).to(stream.device))
-    return run_carry(stream, pc, is_head_edge, cu, cv)
+    return run_parallel(stream, pc, is_head_edge, cu, cv,
+                        num_streams=num_streams, super_chunk=super_chunk,
+                        shard=shard)
 
 
 def assign_edges(src, dst, is_head_edge, cu, cv, c2p, k: int, max_load: int,

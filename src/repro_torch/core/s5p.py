@@ -10,8 +10,16 @@ Variants: CMS-backed Θ (default) or exact Θ (``use_cms=False``), S5P-B
 (``bounded=True``: global degrees everywhere, no κ cap, no maxLoad) and
 the one-stage game (``one_stage=True``).  Runs on ``device`` (default
 ``cuda``): there Alg. 1, Alg. 3 and the CMS go through the K1, K2 and
-K4a/K4b kernels.  Parallel ingest, the touch-up, the incremental and
-drift knobs and the hybrid budget are not ported yet and raise.
+K4a/K4b kernels.
+
+Parallel ingest (``num_streams > 1``): the clustering and placement
+passes run S lanes (``shard``: range, round-robin or hub) merged every
+``super_chunk`` chunks (or ``"auto"``), the Θ pair stream S range lanes
+(its sketch is linear, so its table equals the sequential one).  Then the
+touch-up (``touch_up``, :func:`_touch_up`) plays a masked game of at most
+``refine_rounds`` rounds over the clusters that two or more lanes wrote
+and re-places the edges of the clusters that moved.  The drift knobs
+(ROADMAP Queue 1 item 3) and the hybrid budget (item 6) raise.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..streaming import EdgeStream, run_carry
+from ..streaming import EdgeStream, ParallelEdgeStream, last_ingest_stats, run_carry, run_parallel
 from . import clustering as _cl
 from . import game as _game
 from . import postprocess as _post
@@ -52,11 +60,16 @@ class S5PConfig:
     bounded: bool = False  # S5P-B (§5.3)
     one_stage: bool = False  # Fig. 7d ablation
     seed: int = 0
-    # not ported yet: each must keep its default (see __post_init__)
+    # parallel ingest: S lanes a pass, merged every super_chunk chunks
+    # (or "auto"); shard is range | round-robin (rr) | hub
     num_streams: int = 1
     super_chunk: int | str = 8
     shard: str = "range"
+    # after a parallel run: a masked game of at most refine_rounds rounds
+    # over the clusters two or more lanes wrote, then their edges re-placed
     touch_up: bool = True
+    # the drift knobs (each must keep its default: see __post_init__);
+    # refine_rounds, between them, is also the touch-up's round budget
     drift_rf_threshold: float = 0.05
     drift_balance_threshold: float = 0.10
     refine_rounds: int = 16
@@ -65,21 +78,16 @@ class S5PConfig:
     host_budget: int | None = None
 
     def __post_init__(self):
-        if (self.num_streams != 1 or self.super_chunk != 8
-                or self.shard != "range" or self.touch_up is not True):
-            raise NotImplementedError(
-                "parallel ingest and its touch-up (num_streams, super_chunk, "
-                "shard, touch_up) wait for slice 4 of the port")
         if (self.drift_rf_threshold, self.drift_balance_threshold,
-                self.refine_rounds, self.drift_churn_threshold,
-                self.xi_refresh_threshold) != (0.05, 0.10, 16, 0.25, 0.5):
+                self.drift_churn_threshold, self.xi_refresh_threshold) != (
+                    0.05, 0.10, 0.25, 0.5):
             raise NotImplementedError(
                 "incremental re-partitioning and its drift knobs wait for "
-                "slice 5 of the port")
+                "dynamic partitioning, ROADMAP Queue 1 item 3")
         if self.host_budget is not None:
             raise NotImplementedError(
                 "the memory-budget hybrid partitioner (host_budget) waits "
-                "for slice 5 of the port")
+                "for ROADMAP Queue 1 item 6")
 
 
 @dataclasses.dataclass
@@ -144,14 +152,17 @@ def theta_pairs(src, dst, res: _cl.ClusterResult, degrees, xi: int, *,
 
 def cluster_statistics(src, dst, res: _cl.ClusterResult, degrees, xi: int, *,
                        use_cms: bool, cms_epsilon: float, cms_nu: float,
-                       seed: int, chunk_size: int = 1 << 18):
+                       seed: int, chunk_size: int = 1 << 18,
+                       num_streams: int = 1, super_chunk: int | str = 8):
     """Stream pass 2: cluster sizes and inter-cluster adjacency Θ.
 
     An internal edge adds 1 to its cluster's size, a boundary edge ½ to
     each side.  Θ pairs span every pair of endpoint memberships (primary
     and other-type, :func:`theta_pairs`); the pair list is deduped on the
     host (numpy), and the counts come from a CMS streamed over the pairs
-    (K4a, queried by K4b) or from the exact dedup counts.
+    (K4a, queried by K4b) or from the exact dedup counts.  The pair stream
+    shards by range over ``num_streams`` lanes: the sketch is linear, so
+    the merged table is the sequential one bit for bit.
     """
     dev = src.device
     C = res.n_clusters
@@ -183,7 +194,8 @@ def cluster_statistics(src, dst, res: _cl.ClusterResult, degrees, xi: int, *,
         pair_stream = EdgeStream(a_np, b_np, C + 1, chunk_size=chunk_size, device=dev)
         theta = SketchCarry(w * max(1, int(math.sqrt(C))), depth, seed=seed,
                             device=dev)
-        _, sketch = run_carry(pair_stream, theta)
+        _, sketch = run_parallel(pair_stream, theta, num_streams=num_streams,
+                                 super_chunk=super_chunk)
         pw = cms_query(sketch, pair_key(pa, pb)).to(torch.float32)
         sketch_mem = sketch.memory_bytes()
     else:
@@ -235,7 +247,9 @@ def s5p_partition(src, dst, n_vertices: int, config: S5PConfig,
 
     # ---- Phase 1: skewness-aware streaming clustering (Alg. 1) ----
     state = _cl.cluster_stream(src, dst, n_vertices, xi=xi, kappa=kappa,
-                               global_tail=config.bounded, stream=stream)
+                               global_tail=config.bounded, stream=stream,
+                               num_streams=config.num_streams,
+                               super_chunk=config.super_chunk, shard=config.shard)
     res = _cl.compact_clusters(state, degrees, xi)
     _sync(dev)
     timings["clustering"] = time.perf_counter() - t0
@@ -251,7 +265,8 @@ def s5p_partition(src, dst, n_vertices: int, config: S5PConfig,
     t0 = time.perf_counter()
     sizes, pa, pb, pw, stats = cluster_statistics(
         src, dst, res, degrees, xi, use_cms=config.use_cms,
-        cms_epsilon=config.cms_epsilon, cms_nu=config.cms_nu, seed=config.seed)
+        cms_epsilon=config.cms_epsilon, cms_nu=config.cms_nu, seed=config.seed,
+        num_streams=config.num_streams, super_chunk=config.super_chunk)
     _sync(dev)
     timings["statistics"] = time.perf_counter() - t0
 
@@ -273,12 +288,23 @@ def s5p_partition(src, dst, n_vertices: int, config: S5PConfig,
     cu, cv, is_head = _edge_clusters(src, dst, res, degrees, xi)
     parts, load = _post.assign_edges_stream(
         src, dst, is_head, cu.clamp(min=0), cv.clamp(min=0), game.assignment,
-        k, max_load, stream=stream)
+        k, max_load, stream=stream, num_streams=config.num_streams,
+        super_chunk=config.super_chunk, shard=config.shard)
     _sync(dev)
     timings["postprocess"] = time.perf_counter() - t0
+    stats["parallel_ingest"] = last_ingest_stats().as_dict()  # the placement pass
 
-    stats["game"] = {f: getattr(game, f) for f in game._fields if f != "assignment"}
+    stats["game"] = _game_report(game)
     stats["game"].update(batch_size=bs, n_head=n_head)
+    c2p = game.assignment
+    if (config.num_streams > 1 and config.touch_up
+            and config.refine_rounds > 0 and res.n_clusters > 1):
+        t0 = time.perf_counter()
+        parts, load, c2p, stats["touch_up"] = _touch_up(
+            src, dst, n_vertices, config, stream, res, inputs, bs, cu, cv,
+            is_head, sizes, parts, load, c2p, k, max_load)
+        _sync(dev)
+        timings["touch_up"] = time.perf_counter() - t0
     stats["incremental"] = {
         "cluster_state": state, "degrees": degrees, "compact": res,
         "sizes": sizes, "pair_a": pa, "pair_b": pb, "pair_w": pw, "load": load,
@@ -287,5 +313,69 @@ def s5p_partition(src, dst, n_vertices: int, config: S5PConfig,
         parts=parts, k=k, n_clusters=res.n_clusters,
         n_head_clusters=res.n_head, game_rounds=game.rounds,
         game_converged=game.converged, xi=xi, kappa=kappa, max_load=max_load,
-        cluster_assignment=game.assignment.cpu().numpy(), timings=timings,
-        aux=stats)
+        cluster_assignment=c2p.cpu().numpy(), timings=timings, aux=stats)
+
+
+def _game_report(game: _game.GameResult) -> dict:
+    return {f: getattr(game, f) for f in game._fields if f != "assignment"}
+
+
+def _touch_up(src, dst, n_vertices, config, stream, res, inputs, bs, cu, cv,
+              is_head, sizes, parts, load, c2p, k, max_load):
+    """The reference's post-ingest touch-up: a masked game of at most
+    ``refine_rounds`` rounds over the clusters whose edges two or more
+    lanes folded (the only ones whose state could differ across lanes),
+    then the edges of the clusters that moved are lifted out of the load
+    vector and placed again, in arrival order, against the new table.
+    The plan is deterministic, so rebuilding it gives the ingest's lanes.
+    Returns ``(parts, load, c2p, stats)``."""
+    dev = parts.device
+    C = res.n_clusters
+    lanes = ParallelEdgeStream(stream, config.num_streams,
+                               shard=config.shard).edge_lanes()
+    cu_np = cu.cpu().numpy()
+    cv_np = cv.cpu().numpy()
+    valid = (src != dst).cpu().numpy()
+    c_all = np.concatenate([cu_np[valid], cv_np[valid]])
+    l_all = np.concatenate([lanes[valid], lanes[valid]])
+    ok = c_all >= 0
+    mn = np.full(C, np.iinfo(np.int32).max, np.int64)
+    mx = np.full(C, -1, np.int64)
+    np.minimum.at(mn, c_all[ok], l_all[ok])
+    np.maximum.at(mx, c_all[ok], l_all[ok])
+    contested = mx > mn  # folded by two or more lanes
+    move_mask = contested & (sizes.cpu().numpy() > 0)
+    stats = {"contested_clusters": int(contested.sum()), "moved_clusters": 0,
+             "replayed_edges": 0, "rounds": 0}
+    if not move_mask.any():
+        return parts, load, c2p, stats
+    c2p_np = c2p.cpu().numpy()
+    refined = _game.run_game(
+        inputs, C, batch_size=bs, max_rounds=config.refine_rounds,
+        accept_prob=config.game_accept_prob, assign0=c2p_np,
+        seed=config.seed + 1, leader_mask=np.arange(C) < inputs.n_head,
+        move_mask=move_mask)
+    stats["rounds"] = int(refined.rounds)
+    stats["game"] = _game_report(refined)
+    stats["game"].update(batch_size=bs, move_mask=move_mask)
+    c2p_new = refined.assignment
+    moved = np.flatnonzero(c2p_new.cpu().numpy() != c2p_np)
+    stats["moved_clusters"] = int(moved.size)
+    if not moved.size:
+        return parts, load, c2p, stats
+    moved_mask = np.zeros(C, bool)
+    moved_mask[moved] = True
+    aff = valid & (moved_mask[np.maximum(cu_np, 0)] | moved_mask[np.maximum(cv_np, 0)])
+    aidx = np.flatnonzero(aff)
+    stats["replayed_edges"] = int(aidx.size)
+    idx = torch.from_numpy(aidx).to(dev)
+    old_parts = parts[idx]
+    load = load - torch.bincount(old_parts.long(), minlength=k).to(load.dtype)
+    re_stream = EdgeStream(src[idx].cpu().numpy(), dst[idx].cpu().numpy(), n_vertices,
+                           chunk_size=config.chunk_size, device=dev)
+    ac = _post.AssignCarry(k, max_load, c2p_new)
+    re_parts, load = run_carry(re_stream, ac, is_head[idx], cu[idx].clamp(min=0),
+                               cv[idx].clamp(min=0), carry=load)
+    parts = parts.clone()
+    parts[idx] = re_parts
+    return parts, load, c2p_new, stats

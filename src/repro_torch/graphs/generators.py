@@ -10,6 +10,9 @@
   Figure 3 (used by the unit tests to pin Algorithm-1 behaviour).
 - :func:`community_graph` — degree-corrected SBM (power-law degrees plus
   planted communities).
+- :func:`block_rmat_graph` — hub-heavy R-MAT blocks with planted
+  communities, hidden by a relabelling (the parallel-ingest gate's graph).
+- :func:`graph_skewness` — the paper's §2.3 skewness statistics.
 
 NumPy only: the same seeds give the same arrays as ``repro.graphs``.
 """
@@ -24,6 +27,8 @@ __all__ = [
     "community_graph",
     "erdos_renyi_graph",
     "toy_graph_fig3",
+    "block_rmat_graph",
+    "graph_skewness",
 ]
 
 
@@ -182,3 +187,60 @@ def toy_graph_fig3():
     src = np.array([e[0] for e in edges], np.int32)
     dst = np.array([e[1] for e in edges], np.int32)
     return src, dst, 12
+
+
+def block_rmat_graph(
+    block_scale: int = 7,
+    n_blocks: int = 32,
+    edge_factor: int = 8,
+    a: float = 0.65,
+    b: float = 0.12,
+    c: float = 0.12,
+    inter_frac: float = 0.08,
+    seed: int = 0,
+):
+    """Hub-heavy R-MAT with planted blocks: ``n_blocks`` independent R-MATs
+    of ``2**block_scale`` vertices, ``inter_frac``·E uniform inter-block
+    edges, vertex ids and arrival order permuted so the blocks are
+    invisible to a streaming partitioner.  Returns (src, dst, n_vertices)."""
+    rng = np.random.default_rng(seed)
+    bs = 1 << block_scale
+    n = bs * n_blocks
+    srcs, dsts = [], []
+    for blk in range(n_blocks):
+        s, d, _ = rmat_graph(block_scale, edge_factor, a=a, b=b, c=c,
+                             seed=seed * 7919 + blk)
+        srcs.append(s.astype(np.int64) + blk * bs)
+        dsts.append(d.astype(np.int64) + blk * bs)
+    src = np.concatenate(srcs)
+    dst = np.concatenate(dsts)
+    m_inter = int(inter_frac * src.size)
+    isrc = rng.integers(0, n, m_inter)
+    idst = rng.integers(0, n, m_inter)
+    keep = isrc != idst
+    src = np.concatenate([src, isrc[keep]])
+    dst = np.concatenate([dst, idst[keep]])
+    perm = rng.permutation(n)
+    src, dst = perm[src], perm[dst]
+    order = rng.permutation(src.size)
+    return src[order].astype(np.int32), dst[order].astype(np.int32), n
+
+
+def graph_skewness(src, dst, n_vertices: int):
+    """(ρ, ρ₁, ρ₂, ρ₃) per paper §2.3: the power-law exponent fitted on the
+    degree histogram, Pearson's two skewness coefficients, and |E| − (3|V| − 6)."""
+    deg = np.bincount(src, minlength=n_vertices) + np.bincount(dst, minlength=n_vertices)
+    deg = deg[deg > 0].astype(np.float64)
+    vals, counts = np.unique(deg, return_counts=True)
+    mask = (vals > 0) & (counts > 0)
+    x = np.log(vals[mask])
+    y = np.log(counts[mask])
+    rho = float(-np.polyfit(x, y, 1)[0]) if x.size >= 2 else float("nan")
+    sigma = deg.std()
+    mean = deg.mean()
+    mode = float(vals.astype(np.int64)[np.argmax(counts)])
+    median = float(np.median(deg))
+    rho1 = float((mean - mode) / sigma) if sigma > 0 else 0.0
+    rho2 = float(3 * (mean - median) / sigma) if sigma > 0 else 0.0
+    rho3 = int(src.shape[0] - (3 * n_vertices - 6))
+    return rho, rho1, rho2, rho3

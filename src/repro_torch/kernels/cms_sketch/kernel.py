@@ -16,6 +16,7 @@ and counts the launch; on CPU tensors it runs the plain version in
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -29,6 +30,14 @@ _LAUNCHES = {"cms_update": 0, "cms_query": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+
+
+_COUNT_LOCK = threading.Lock()  # parallel-ingest lanes launch from threads
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def launch_counts() -> dict[str, int]:
@@ -93,7 +102,7 @@ def cms_add(table: torch.Tensor, keys: torch.Tensor, seeds: torch.Tensor,
         return table
     k64, s64 = _i64(keys), _i64(seeds)
     c64 = None if counts is None else _i64(counts)
-    _LAUNCHES["cms_update"] += 1
+    _count("cms_update")
     code = _lib().cms_update_launch(
         k64.data_ptr(), None if c64 is None else c64.data_ptr(), s64.data_ptr(), n,
         int(depth), int(width), table.data_ptr(), 0,
@@ -123,7 +132,7 @@ def cms_query(table: torch.Tensor, keys: torch.Tensor,
     if n:
         k64, s64 = _i64(keys), _i64(seeds)
         tab = table.contiguous()
-        _LAUNCHES["cms_query"] += 1
+        _count("cms_query")
         code = _lib().cms_query_launch(
             k64.data_ptr(), s64.data_ptr(), tab.data_ptr(), n, int(depth),
             int(width), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

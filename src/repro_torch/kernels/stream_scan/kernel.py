@@ -19,6 +19,7 @@ inputs to its outputs.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -36,6 +37,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _MAX_K = 4096
+
+
+_COUNT_LOCK = threading.Lock()  # parallel-ingest lanes launch from threads
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def launch_counts() -> dict[str, int]:
@@ -114,7 +123,7 @@ def cluster_scan(state, src, dst, degrees, *, xi: int, kappa: int,
     _check_int32("degrees", degrees, dev, (V,))
     if E == 0:
         return state
-    _LAUNCHES["cluster_scan"] += 1
+    _count("cluster_scan")
     code = _lib().cluster_scan_launch(
         src.data_ptr(), dst.data_ptr(), E, E, degrees.data_ptr(), V,
         *(leaf.data_ptr() for leaf in state), int(xi), int(kappa),
@@ -157,7 +166,7 @@ def assign_scan(load, src, dst, is_head_edge, pcu, pcv, *, max_load,
     if E == 0:
         return out, load
     limit = E if sign > 0 else int(n_valid)
-    _LAUNCHES["assign_scan"] += 1
+    _count("assign_scan")
     code = _lib().assign_scan_launch(
         src.data_ptr(), dst.data_ptr(), head.data_ptr(), pcu.data_ptr(),
         pcv.data_ptr(), parts.data_ptr() if sign < 0 else None, E, limit,
@@ -217,7 +226,7 @@ def scoring_scan(src, dst, load, rep, pd=None, lam=None, *, mode: str,
         return out, load, rep, pd if hdrf else None
     limit = E if sign > 0 else int(n_valid)
     plan = scoring_plan(k)
-    _LAUNCHES["scoring_scan" if sign > 0 else "scoring_retract"] += 1
+    _count("scoring_scan" if sign > 0 else "scoring_retract")
     code = _scoring_lib().scoring_scan_launch(
         src.data_ptr(), dst.data_ptr(), None if sign > 0 else parts.data_ptr(),
         E, limit, int(sign), int(hdrf), k, k_act,
@@ -252,7 +261,7 @@ def grid_scan(load, row, col, n_cols: int, src, dst):
     out = torch.empty((E,), dtype=torch.int32, device=dev)
     if E == 0:
         return out, load
-    _LAUNCHES["grid_scan"] += 1
+    _count("grid_scan")
     code = _scoring_lib().grid_scan_launch(
         src.data_ptr(), dst.data_ptr(), row.data_ptr(), col.data_ptr(), E,
         int(n_cols), load_k, load.data_ptr(), out.data_ptr(), _stream_ptr(dev))

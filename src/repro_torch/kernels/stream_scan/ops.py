@@ -20,16 +20,21 @@ PartitionerCarry` implementations live here too (``GreedyCarry`` /
 CUDA carry and the plain version on a CPU one; ``retract_chunk`` is K3
 with ``sign=-1`` (grid: the vectorised inverse), which subtracts exactly
 the load, replica-count and partial-degree accounting the insert added.
-The parallel-ingest merge algebra of the reference's carries is not
-ported yet.
+Their merge ops are the reference's: loads and partial degrees SUM, the
+counted replica tables COUNTED, λ, the active-partition mask and the grid
+tables REPLICATED.  :func:`make_chunk_fn` is the chunk function of the
+batched engines (``run_scan_batched``), which read λ and ``k_active`` from
+each row; the carries pass their own and so never read the card.
 """
 
 from __future__ import annotations
 
 import logging
 
+import numpy as np
+
 from ..._device import resolve_device
-from ...streaming.carry import PartitionerCarry
+from ...streaming.carry import COUNTED, REPLICATED, SUM, PartitionerCarry
 from . import ref as _ref
 from .kernel import grid_scan, scoring_scan
 from .plan import SHARED_MEM_BYTES
@@ -98,11 +103,14 @@ def _greedy_step(carry, src, dst):
     return (load, rep), parts
 
 
-def _hdrf_step(carry, src, dst):
-    """``kmask`` is ``arange(k) < k_active``, as ``hdrf_init`` builds it."""
-    load, rep, pd, lam, kmask = carry
-    parts, *_ = scoring_scan(src, dst, load, rep, pd, float(lam), mode="hdrf",
-                             k_active=int(kmask.sum()))
+def _hdrf_step(carry, src, dst, lam=None, k_active=None):
+    """``kmask`` is ``arange(k) < k_active``, as ``hdrf_init`` builds it;
+    λ and ``k_active`` are read from the carry unless given."""
+    load, rep, pd, lam_t, kmask = carry
+    if lam is None:
+        lam, k_active = float(lam_t), int(kmask.sum())
+    parts, *_ = scoring_scan(src, dst, load, rep, pd, lam, mode="hdrf",
+                             k_active=k_active)
     return carry, parts
 
 
@@ -130,6 +138,8 @@ class GreedyCarry(PartitionerCarry):
     """PowerGraph Greedy as a carry: (load, counted replica table)."""
 
     supports_retract = True
+    retract_exact = True
+    merge_ops = (SUM, COUNTED)
 
     def __init__(self, n_vertices: int, k: int, *, device=None):
         self.n_vertices = int(n_vertices)
@@ -156,6 +166,8 @@ class HdrfCarry(PartitionerCarry):
     so the card runs it too."""
 
     supports_retract = True
+    retract_exact = True
+    merge_ops = (SUM, COUNTED, SUM, REPLICATED, REPLICATED)
 
     def __init__(self, n_vertices: int, k: int, lam: float = 1.1, *,
                  k_active: int | None = None, device=None):
@@ -170,7 +182,9 @@ class HdrfCarry(PartitionerCarry):
                               k_active=self.k_active, device=self.device)
 
     def step_chunk(self, carry, src, dst, n_valid, *extras):
-        return _hdrf_step(carry, src, dst)
+        # λ as the carry's float32 holds it, and k_active, from the host
+        return _hdrf_step(carry, src, dst, float(np.float32(self.lam)),
+                          self.k if self.k_active is None else int(self.k_active))
 
     def retract_chunk(self, carry, src, dst, n_valid, parts, *extras):
         load, rep, pd, _, _ = carry
@@ -183,6 +197,8 @@ class GridCarry(PartitionerCarry):
     """Grid partitioning as a carry: (load, row/col tables, #cols)."""
 
     supports_retract = True
+    retract_exact = True
+    merge_ops = (SUM, REPLICATED, REPLICATED, REPLICATED)
 
     def __init__(self, k: int, row, col, n_cols: int, *, device=None):
         self.k = int(k)

@@ -1,26 +1,140 @@
 """PartitionerCarry — the carry protocol every streaming consumer speaks.
 
-A streaming partitioner is an ``init / step_chunk / retract_chunk /
-finalize`` quadruple over an O(|V| + k) carry:
+A streaming partitioner is an ``init / step_chunk / retract_chunk / merge /
+finalize`` quintuple over an O(|V| + k) carry:
 
 - ``init()``          — the identity carry (empty tables, zero loads);
 - ``step_chunk``      — fold one EdgeStream chunk into the carry and
   optionally emit per-edge results (``parts``) for that chunk;
 - ``retract_chunk``   — undo the accounting ``step_chunk`` did for these
   edges, given their recorded ``parts``;
+- ``merge``           — reconcile carries folded by independent lanes of
+  one stream (:func:`~repro_torch.streaming.parallel.run_parallel`);
 - ``finalize``        — extract the consumer-facing result.
 
-The merge algebra of ``repro.streaming.carry`` (parallel ingest) is not
-ported yet.
+Merge semantics are declared per leaf in :attr:`PartitionerCarry.merge_ops`,
+in the order :func:`tree_flatten` visits the carry: tuples and NamedTuples
+(``ClusterState``, ``CMSketch``) are walked depth first, anything else is a
+leaf (a tensor, or a Python scalar such as the grid's ``n_cols``, which is
+always ``REPLICATED``).  The ops are those of ``repro.streaming.carry``:
+
+- ``SUM`` — additive statistics (loads, volumes, degrees, CMS tables, id
+  counters).  Carries that diverged from a common ``base`` merge as
+  ``base + Σ (cᵢ − base)``.  int32 adds wrap, so the CMS table (int32
+  holding uint32 bit patterns) is the group ℤ/2³² here as in the reference.
+- ``COUNTED`` — occupancy counters (replica tables); merged like SUM.
+- ``REPLICATED`` — constants threaded through the carry; the first wins.
+- ``OR`` / ``MAX`` — the monotone ops, for external consumers.
+
+``pick_first`` leaves (vertex → cluster tables) keep the lowest lane's
+value where several lanes changed a cell.  ``SUM``/``COUNTED`` leaves form
+a group: :meth:`~PartitionerCarry.signed_delta`, :meth:`~PartitionerCarry.
+negate` and :meth:`~PartitionerCarry.apply_delta` invert bit for bit.
+
+The port's carries may update their tensors in place (K1–K3 write through
+the tensors they are handed), so the merges here always build new tensors
+and never write into the carries they read.  ``merge_collective`` (the
+reference's ``shard_map`` merge) waits for multi-device S5P (ROADMAP Queue 1
+item 7).
 """
 
 from __future__ import annotations
 
-__all__ = ["PartitionerCarry"]
+from typing import Any, Callable, Iterable, Sequence
+
+import torch
+
+__all__ = [
+    "SUM",
+    "COUNTED",
+    "OR",
+    "MAX",
+    "REPLICATED",
+    "MERGE_OPS",
+    "GROUP_OPS",
+    "CARRY_REPR",
+    "PartitionerCarry",
+    "FnCarry",
+    "RetractCarry",
+    "tree_flatten",
+    "tree_leaves",
+    "tree_unflatten",
+]
+
+SUM = "sum"
+COUNTED = "counted"
+OR = "or"
+MAX = "max"
+REPLICATED = "replicated"
+
+MERGE_OPS = (SUM, COUNTED, OR, MAX, REPLICATED)
+
+#: ops whose leaves form an abelian group under merge
+GROUP_OPS = (SUM, COUNTED)
+
+#: representation generation of the carry algebra (2 = counted / group)
+CARRY_REPR = 2
+
+_LEAF = object()
+
+
+def _walk(x, leaves: list):
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return (type(x), [_walk(c, leaves) for c in x])
+    leaves.append(x)
+    return _LEAF
+
+
+def tree_flatten(tree) -> tuple[list, Any]:
+    """``(leaves, spec)``: tuples and NamedTuples walked depth first, every
+    other object a leaf; ``None`` holds no leaf (as in ``jax.tree_util``).
+    Plain recursion, no closures: a self-referencing closure would keep the
+    leaves (the lanes' tensors) alive until the cyclic collector runs."""
+    leaves: list = []
+    return leaves, _walk(tree, leaves)
+
+
+def _build(spec, it):
+    if spec is None:
+        return None
+    if spec is _LEAF:
+        return next(it)
+    typ, kids = spec
+    vals = [_build(k, it) for k in kids]
+    return typ(vals) if typ is tuple else typ(*vals)
+
+
+def tree_unflatten(spec, leaves: Iterable):
+    return _build(spec, iter(leaves))
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def _check_ops(ops: Sequence[str], n_leaves: int) -> None:
+    if len(ops) != n_leaves:
+        raise ValueError(
+            f"merge_ops declares {len(ops)} fields but the carry has "
+            f"{n_leaves} leaves")
+    for op in ops:
+        if op not in MERGE_OPS:
+            raise ValueError(f"unknown merge op {op!r}; one of {MERGE_OPS}")
+
+
+def _or_leaf(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b if a.dtype == torch.bool else torch.maximum(a, b)
+
+
+def _neg(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=x.dtype, device=x.device) - x
 
 
 class PartitionerCarry:
-    """Base class: implement ``init`` and ``step_chunk``.
+    """Base class: declare :attr:`merge_ops`, implement ``init`` and
+    ``step_chunk``.
 
     ``step_chunk(carry, src, dst, n_valid, *extras) -> (carry, parts)``;
     ``n_valid`` is the chunk's unpadded length (padding entries are (0, 0)
@@ -29,12 +143,24 @@ class PartitionerCarry:
     may update the carry's tensors in place and return them.
     """
 
+    #: one merge op per carry leaf, in :func:`tree_flatten` order
+    merge_ops: tuple[str, ...] = ()
+
+    #: leaf indices whose merge keeps the lowest changed lane's value
+    pick_first: tuple[int, ...] = ()
+
     #: False for state-only consumers whose step_chunk returns parts=None
     emits_parts: bool = True
 
     #: True once the consumer implements :meth:`retract_chunk`
     supports_retract: bool = False
 
+    #: True when retract_chunk(step_chunk(c, chunk), chunk, parts) == c
+    #: bitwise (the scoring carries); False where retraction is an
+    #: approximation (Alg. 1 clustering: migrations depend on history)
+    retract_exact: bool = False
+
+    # ------------------------------------------------------------ protocol
     def init(self):
         raise NotImplementedError
 
@@ -49,3 +175,204 @@ class PartitionerCarry:
 
     def finalize(self, carry):
         return carry
+
+    def check_lane_start(self, carry) -> None:
+        """Called by ``run_parallel`` on each merge base that lanes are
+        about to fold from; raises where this carry's kernel cannot fold
+        from it (the default accepts every carry)."""
+
+    # -------------------------------------------------------- group algebra
+    def _zip(self, *trees):
+        flats = [tree_flatten(t) for t in trees]
+        spec = flats[0][1]
+        _check_ops(self.merge_ops, len(flats[0][0]))
+        return spec, [f[0] for f in flats]
+
+    def signed_delta(self, after, before):
+        """The group difference ``after ⊖ before`` per leaf (REPLICATED
+        leaves pass ``after`` through; the monotone ops raise)."""
+        spec, (fa, fb) = self._zip(after, before)
+        out = []
+        for op, a, b in zip(self.merge_ops, fa, fb):
+            if op in GROUP_OPS:
+                out.append(a - b)
+            elif op == REPLICATED:
+                out.append(a)
+            else:
+                raise ValueError(
+                    f"merge op {op!r} is monotone — it has no signed delta")
+        return tree_unflatten(spec, out)
+
+    def negate(self, delta):
+        """The group inverse of a signed delta (identity on REPLICATED)."""
+        spec, (fd,) = self._zip(delta)
+        out = []
+        for op, x in zip(self.merge_ops, fd):
+            if op in GROUP_OPS:
+                out.append(_neg(x))
+            elif op == REPLICATED:
+                out.append(x)
+            else:
+                raise ValueError(
+                    f"merge op {op!r} is monotone — it has no inverse")
+        return tree_unflatten(spec, out)
+
+    def apply_delta(self, carry, delta):
+        """``carry ⊕ delta``; ``apply_delta(apply_delta(c, δ), negate(δ))
+        == c`` bit for bit."""
+        spec, (fc, fd) = self._zip(carry, delta)
+        out = []
+        for op, c, d in zip(self.merge_ops, fc, fd):
+            if op in GROUP_OPS:
+                out.append((c + d).to(c.dtype))
+            elif op == REPLICATED:
+                out.append(c)
+            else:
+                raise ValueError(
+                    f"merge op {op!r} is monotone — signed deltas do not "
+                    "apply")
+        return tree_unflatten(spec, out)
+
+    # ------------------------------------------------------------- merging
+    def merge(self, carries: Iterable[Any], base: Any | None = None):
+        """Reconcile carries of independent lanes.  With ``base``, each is
+        a divergence from it (``base + Σ (cᵢ − base)``); without, SUM
+        leaves add.  ``merge([c])`` returns ``c`` itself."""
+        carries = list(carries)
+        if not carries:
+            raise ValueError("merge() needs at least one carry")
+        if len(carries) == 1:
+            return carries[0]
+        spec, cols = self._zip(*carries)
+        base_flat = tree_leaves(base) if base is not None else None
+        out = []
+        for i, op in enumerate(self.merge_ops):
+            leaves = [c[i] for c in cols]
+            if op in GROUP_OPS:
+                if i in self.pick_first and base_flat is not None:
+                    b = base_flat[i]
+                    acc = b.clone()
+                    taken = torch.zeros(b.shape, dtype=torch.bool, device=b.device)
+                    for x in leaves:
+                        ch = x != b
+                        acc = torch.where(ch & ~taken, x, acc)
+                        taken = taken | ch
+                    out.append(acc.to(leaves[0].dtype))
+                    continue
+                acc = leaves[0]
+                for x in leaves[1:]:
+                    acc = acc + x
+                if base_flat is not None:
+                    acc = acc - (len(leaves) - 1) * base_flat[i].to(acc.dtype)
+                out.append(acc)
+            elif op in (OR, MAX):
+                acc = leaves[0]
+                for x in leaves[1:]:
+                    acc = _or_leaf(acc, x) if op == OR else torch.maximum(acc, x)
+                out.append(acc)
+            else:  # REPLICATED
+                out.append(leaves[0])
+        return tree_unflatten(spec, out)
+
+    def merge_stacked(self, stacked, base: Any | None = None):
+        """Merge a carry whose tensor leaves carry a leading lane axis (the
+        batched backend's layout), one reduction per leaf.  Non-tensor
+        leaves are shared by every lane and pass through."""
+        spec, (flat,) = self._zip(stacked)
+        base_flat = tree_leaves(base) if base is not None else None
+        out = []
+        for i, op in enumerate(self.merge_ops):
+            x = flat[i]
+            if not isinstance(x, torch.Tensor):
+                out.append(x)
+            elif op in GROUP_OPS:
+                if i in self.pick_first and base_flat is not None:
+                    b = base_flat[i]
+                    changed = x != b[None, ...]
+                    first = changed.to(torch.uint8).argmax(dim=0)
+                    picked = x.gather(0, first[None, ...])[0]
+                    out.append(torch.where(changed.any(dim=0), picked, b).to(x.dtype))
+                    continue
+                acc = x.sum(dim=0, dtype=x.dtype)
+                if base_flat is not None:
+                    acc = acc - (x.shape[0] - 1) * base_flat[i].to(acc.dtype)
+                out.append(acc.to(x.dtype))
+            elif op == OR:
+                out.append(x.any(dim=0) if x.dtype == torch.bool else x.amax(dim=0))
+            elif op == MAX:
+                out.append(x.amax(dim=0))
+            else:  # REPLICATED
+                out.append(x[0])
+        return tree_unflatten(spec, out)
+
+    def occupancy_contest(self, before, after) -> float:
+        """The fraction of active cells whose zero/nonzero projection
+        flipped between two merge bases: over the COUNTED leaves, else the
+        SUM leaves, else 0 (what ``super_chunk="auto"`` backs off on)."""
+        spec, (fb, fa) = self._zip(before, after)
+        for pick in (COUNTED, SUM):
+            changed = active = None
+            for op, b, a in zip(self.merge_ops, fb, fa):
+                if op != pick:
+                    continue
+                c = ((b != 0) != (a != 0)).sum()
+                n = (a != 0).sum()
+                changed = c if changed is None else changed + c
+                active = n if active is None else active + n
+            if changed is not None:
+                got = torch.stack([changed, active]).tolist()
+                return got[0] / max(got[1], 1)
+        return 0.0
+
+    def merge_collective(self, local, base, axis: str):
+        raise NotImplementedError(
+            "merge_collective (the shard_map merge) waits for multi-device "
+            "S5P, ROADMAP Queue 1 item 7")
+
+
+class FnCarry(PartitionerCarry):
+    """Adapter: a bare ``(carry0, chunk_fn)`` pair as a PartitionerCarry
+    (``chunk_fn(carry, src, dst, *extras)``); no merge semantics — the
+    sequential ``run_scan`` only."""
+
+    def __init__(self, carry0, chunk_fn: Callable):
+        self._carry0 = carry0
+        self._chunk_fn = chunk_fn
+
+    def init(self):
+        return self._carry0
+
+    def step_chunk(self, carry, src, dst, n_valid, *extras):
+        return self._chunk_fn(carry, src, dst, *extras)
+
+
+class RetractCarry(PartitionerCarry):
+    """Adapter: a consumer's **retraction** as a fold.  ``step_chunk`` is
+    the wrapped consumer's ``retract_chunk``, with the deleted edges'
+    recorded ``parts`` as the first stream extra (``with_parts=False``
+    forwards ``None``).  Retraction only subtracts on group leaves, so a
+    deletion batch shards through ``run_parallel`` like an insertion."""
+
+    emits_parts = False
+
+    def __init__(self, pc: PartitionerCarry, *, with_parts: bool = True):
+        if not pc.supports_retract:
+            raise NotImplementedError(
+                f"{type(pc).__name__} does not support edge deletion")
+        self._pc = pc
+        self._with_parts = bool(with_parts)
+
+    @property
+    def merge_ops(self) -> tuple[str, ...]:
+        return self._pc.merge_ops
+
+    def init(self):
+        return self._pc.init()
+
+    def step_chunk(self, carry, src, dst, n_valid, *extras):
+        if self._with_parts:
+            parts, extras = extras[0], extras[1:]
+        else:
+            parts = None
+        return (self._pc.retract_chunk(carry, src, dst, n_valid, parts,
+                                       *extras), None)

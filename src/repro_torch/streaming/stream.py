@@ -87,6 +87,9 @@ class EdgeStream:
         self.seed = int(seed)
         self.window = int(window)
         self._order = self._make_order()
+        #: parallel-ingest plans built over this stream, a pure function of
+        #: its edges, kept for the passes that replay it (``parallel.py``)
+        self.plans: dict = {}
 
     def _make_order(self) -> np.ndarray | None:
         if self.ordering == "natural":

@@ -95,9 +95,13 @@ def test_scans_at_other_chunk_sizes(name, chunk_size):
 
 @pytest.mark.parametrize("name", ["grid", "greedy", "hdrf", "s5p", "s5p-exact"])
 def test_parallel_ingest_is_not_ported(name):
+    """Parallel ingest is ported now: two lanes give the reference's parts."""
     src, dst, n, _ = random_graph(1)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tb.PARTITIONERS[name](src, dst, n, 4, 0, num_streams=2, device="cpu")
+    want = np.asarray(jb.PARTITIONERS[name](src, dst, n, 4, 0, chunk_size=17,
+                                            num_streams=2))
+    got = tb.PARTITIONERS[name](src, dst, n, 4, 0, chunk_size=17, num_streams=2,
+                                device="cpu")
+    np.testing.assert_array_equal(want, got.numpy())
 
 
 def test_baselines_need_a_device(monkeypatch):

@@ -93,10 +93,19 @@ def test_degree_carry_masks_padding():
 
 
 def test_parallel_options_raise():
+    """Parallel clustering is ported (two lanes give the reference's state);
+    only invalid parallel options raise."""
     src, dst, n, _ = random_graph(0)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tcl.cluster_stream(src, dst, n, xi=XI, kappa=KAPPA, num_streams=2,
-                           device="cpu")
+    want = jcl.cluster_stream(src, dst, n, xi=XI, kappa=KAPPA, chunk_size=16,
+                              num_streams=2, super_chunk=2)
+    got = tcl.cluster_stream(src, dst, n, xi=XI, kappa=KAPPA, chunk_size=16,
+                             num_streams=2, super_chunk=2, device="cpu")
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    for kw in ({"super_chunk": 0}, {"shard": "diagonal"}, {"num_streams": 0}):
+        with pytest.raises(ValueError):
+            tcl.cluster_stream(src, dst, n, xi=XI, kappa=KAPPA, chunk_size=16,
+                               device="cpu", **{"num_streams": 2, **kw})
 
 
 # ------------------------------------------------ K1's tile plan (staged)

@@ -104,10 +104,13 @@ def test_init_assignment_and_batch_size():
 
 
 def test_masked_game_raises():
+    """The masked game is ported (tests/test_torch_parallel.py holds it to
+    the reference); its migration cost (elastic resharding) still raises."""
     inputs, C = _game_inputs(_graph("0"), 4, False, False)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tgame.run_game(interop.game_inputs(inputs, device="cpu"), C,
-                       move_mask=np.ones(C, bool))
+    for kw in ({"move_cost": np.ones(C, np.float32)}, {"home": np.zeros(C, np.int32)}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            tgame.run_game(interop.game_inputs(inputs, device="cpu"), C,
+                           move_mask=np.ones(C, bool), **kw)
 
 
 @pytest.mark.parametrize("scale", [3001, 4097, 4099, 7919, 8191])

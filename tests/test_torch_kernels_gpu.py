@@ -1104,3 +1104,110 @@ def test_s5p_row_placement_cuda_equals_cpu(cuda):
     shard_g, mat_g = s5p_row_placement(rows, samples, 64, k=4, device=cuda)
     np.testing.assert_array_equal(shard_g, shard_c)
     np.testing.assert_array_equal(mat_g, mat_c)
+
+
+# ------------------------------------------------------ parallel ingest
+
+def _lane_carries(n, dev):
+    from repro_torch.core.clustering import ClusterCarry, DegreeCarry
+    from repro_torch.core.cms import SketchCarry
+    from repro_torch.core.postprocess import AssignCarry
+    from repro_torch.kernels.stream_scan import GreedyCarry, GridCarry, HdrfCarry
+
+    deg = torch.full((n,), 5, dtype=torch.int32, device=dev)
+    row = (torch.arange(n, dtype=torch.int32, device=dev) % 4)
+    c2p = torch.arange(64, dtype=torch.int32, device=dev) % 8
+    return {
+        "greedy": lambda: GreedyCarry(n, 8, device=dev),
+        "hdrf": lambda: HdrfCarry(n, 8, device=dev),
+        "grid": lambda: GridCarry(8, row, row % 2, 2, device=dev),
+        "cluster": lambda: ClusterCarry(deg, n, xi=3, kappa=400),
+        "assign": lambda: AssignCarry(8, 2000, c2p),
+        "degree": lambda: DegreeCarry(n, device=dev),
+        "sketch": lambda: SketchCarry(512, 5, seed=1, device=dev),
+    }
+
+
+@pytest.mark.parametrize("shard", ["range", "rr", "hub"])
+@pytest.mark.parametrize("name", ["greedy", "hdrf", "grid", "cluster", "assign", "degree",
+                                  "sketch"])
+def test_parallel_lanes_on_streams_equal_one_stream(cuda, name, shard):
+    """S = 4 lanes, each issuing on its own stream (threads), give the bits
+    of the same lanes stepped on one stream (vmap) and of the CPU."""
+    from repro_torch.streaming import EdgeStream, run_parallel
+    from repro_torch.streaming.carry import tree_leaves
+
+    src, dst, n = _graph(scale=11, seed=2)
+    rng = np.random.default_rng(0)
+    E = src.size
+    ex = ((rng.random(E) < 0.4), rng.integers(0, 64, E).astype(np.int32),
+          rng.integers(0, 64, E).astype(np.int32)) if name == "assign" else ()
+    sc = "auto" if name in ("cluster", "hdrf") else 2
+    got = {}
+    for dev, backend in ((cuda, "threads"), (cuda, "vmap"), (torch.device("cpu"), "threads")):
+        stream = EdgeStream(src, dst, n, chunk_size=1024, device=dev)
+        exd = tuple(torch.from_numpy(e).to(dev) for e in ex)
+        parts, carry = run_parallel(stream, _lane_carries(n, dev)[name](), *exd,
+                                    num_streams=4, super_chunk=sc, shard=shard,
+                                    backend=backend)
+        torch.cuda.synchronize()
+        got[(dev.type, backend)] = (None if parts is None else parts.cpu(),
+                                    [x.cpu() if isinstance(x, torch.Tensor) else x
+                                     for x in tree_leaves(carry)])
+    want = got[("cpu", "threads")]
+    for key in (("cuda", "threads"), ("cuda", "vmap")):
+        p, leaves = got[key]
+        assert (p is None) == (want[0] is None), key
+        if p is not None:
+            assert torch.equal(p, want[0]), key
+        for i, (a, b) in enumerate(zip(leaves, want[1])):
+            assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, (key, i)
+
+
+def test_parallel_lanes_repeatable_and_counted(cuda):
+    """HDRF at S = 8 hub lanes on a 2^14-vertex R-MAT, three times: equal
+    bits each time, one K3 launch per plan chunk."""
+    from repro_torch.kernels.stream_scan import HdrfCarry, launch_counts, reset_launch_counts
+    from repro_torch.streaming import EdgeStream, last_ingest_stats, run_parallel
+
+    src, dst, n = _graph(scale=14, seed=3)
+    stream = EdgeStream(src, dst, n, chunk_size=4096, device=cuda)
+    runs = []
+    for _ in range(3):
+        reset_launch_counts()
+        parts, carry = run_parallel(stream, HdrfCarry(n, 32, device=cuda), num_streams=8,
+                                    super_chunk="auto", shard="hub")
+        torch.cuda.synchronize()
+        chunks = sum(lane.chunks for lane in last_ingest_stats().lanes)
+        assert launch_counts()["scoring_scan"] == chunks
+        runs.append((parts.cpu(), carry[1].cpu()))
+    for p, rep in runs[1:]:
+        assert torch.equal(p, runs[0][0]) and torch.equal(rep, runs[0][1])
+
+
+@pytest.mark.parametrize("shard", ["range", "hub"])
+def test_s5p_parallel_with_touch_up_cuda_equals_cpu(cuda, shard):
+    from repro_torch.core.s5p import S5PConfig, s5p_partition
+    from repro_torch.graphs import community_graph
+
+    src, dst, n = community_graph(2000, n_communities=32, avg_degree=8, seed=5)
+    cfg = S5PConfig(k=8, chunk_size=512, num_streams=4, shard=shard, super_chunk="auto")
+    a = s5p_partition(src, dst, n, cfg, device=cuda)
+    b = s5p_partition(src, dst, n, cfg, device="cpu")
+    assert torch.equal(a.parts.cpu(), b.parts)
+    assert np.array_equal(a.cluster_assignment, b.cluster_assignment)
+    keys = ("contested_clusters", "moved_clusters", "replayed_edges", "rounds")
+    assert [a.aux["touch_up"][k] for k in keys] == [b.aux["touch_up"][k] for k in keys]
+
+
+def test_merged_cluster_ids_past_the_tables_raise_on_the_card(cuda):
+    """Fixed-cadence clustering lanes that merge id counters past V + 1 run
+    on the CPU with the reference's clamp and drop, and raise on the card
+    (K1 keeps ids inside its tables)."""
+    from repro_torch.core.clustering import cluster_stream
+
+    src, dst, n = _graph(scale=10, seed=4)
+    kw = dict(xi=1 << 20, kappa=1 << 20, chunk_size=256, num_streams=8, super_chunk=1)
+    cluster_stream(src, dst, n, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Queue 3 j"):
+        cluster_stream(src, dst, n, device=cuda, **kw)

@@ -78,13 +78,16 @@ def test_community_fixture_k8(community_bench_graph, use_cms):
 
 
 def test_unported_options_raise():
-    for kw, slice_no in [({"num_streams": 2}, "slice 4"), ({"shard": "hub"}, "slice 4"),
-                         ({"super_chunk": 4}, "slice 4"), ({"touch_up": False}, "slice 4"),
-                         ({"refine_rounds": 3}, "slice 5"),
-                         ({"drift_rf_threshold": 0.1}, "slice 5"),
-                         ({"host_budget": 1 << 20}, "slice 5")]:
-        with pytest.raises(NotImplementedError, match=slice_no):
+    for kw, item in [({"drift_rf_threshold": 0.1}, "Queue 1 item 3"),
+                     ({"drift_churn_threshold": 0.5}, "Queue 1 item 3"),
+                     ({"xi_refresh_threshold": 0.1}, "Queue 1 item 3"),
+                     ({"host_budget": 1 << 20}, "Queue 1 item 6")]:
+        with pytest.raises(NotImplementedError, match=item):
             S5PConfig(k=4, **kw)
+    # the parallel-ingest options and the touch-up are ported
+    for kw in ({"num_streams": 2}, {"shard": "hub"}, {"super_chunk": 4},
+               {"super_chunk": "auto"}, {"touch_up": False}, {"refine_rounds": 3}):
+        S5PConfig(k=4, **kw)
 
 
 def test_no_valid_edges():
