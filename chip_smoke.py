@@ -49,6 +49,16 @@ Phases, each printing one JSON line:
               K3 once per plan chunk; Greedy at S = 8 (range, super-chunk
               8); the degree count at S = 8 (hub), equal to
               ``compute_degrees``;
+5b. ooc    — out-of-core ingest on the main path's graph and k: the
+              edges written as 15 shards of 2^20 edges (``write_shards``,
+              timed), S5P under the default ``S5PConfig`` from a natural
+              ``ShardedEdgeStream`` (parts and cluster assignment equal to
+              phase main's, the same launch counts), HDRF at S = 8 (hub,
+              auto) from disk (parts equal to phase parallel's: the hub
+              plan pages through ``_edges_at``), and HDRF from disk at
+              R-MAT scale 14 under the shuffled, dst-sorted and windowed
+              orderings (each equal to the in-memory stream's parts on
+              the card), each stream's ``budget.peak_bytes`` beside 8·E;
 6. serve    — the serving read side with GCN inference: the
               ``ogbn_products_like(seed=0)`` graph at scale 1.0 (2,449,029
               vertices), S5P at k = 32, ``build_bundle`` and
@@ -79,7 +89,10 @@ Phases, each printing one JSON line:
               empty state and from the state after half the chunks (K1
               under S5P, S5P-B, 2PS-L's ξ = -1 and CLUGP's ξ; K3 in both
               modes, each insert followed by its retract, which must
-              restore the state), and 4,096 edges onto the final state;
+              restore the state), 4,096 edges onto the final state, and a
+              65,536-edge chunk from a merge base whose id counters passed
+              V + 1 (16 clustering lanes merged every chunk, CLUGP's ξ: the
+              reference's clamp and drop);
               each row also holds two launches against each other and
               names the first differing leaf and index on a mismatch; K3's
               rung and tile and K1's tile are printed for k = 8, 32, 256
@@ -159,7 +172,10 @@ Phases, each printing one JSON line:
               chunks of 1,024 edges), identical parts (and touch-up
               counts) on both; and the game's δ where Σ(degs + sizes)
               passes 2**24 (Θ scaled by 3001), on both: the same bits and
-              assignment.
+              assignment; and ROADMAP Queue 3 j's input (8 clustering lanes
+              merged every chunk on ``rmat_graph(10, edge_factor=8,
+              seed=4)``, ξ = κ = 2^20, chunks of 256: ``next_t`` passes
+              V + 1), every leaf of the state equal on both.
 
 The kernel checks of phase 7 run after phases 8 and 9.
 
@@ -673,7 +689,36 @@ def check_k1(main, rt) -> list[dict]:
     rows.append(_k1_row("K1 cluster_scan (Alg. 1 fold) S5P, 4,096 edges, final state",
                         inc["cluster_state"], src, dst, degrees, kw, rt, launches,
                         {"variant": "S5P", "state": "final", "chunk_index": 0}))
+    rows.append(_k1_merged_row(main, degrees, kappa, mid, rt, launches))
     return rows
+
+
+def _k1_merged_row(main, degrees, kappa, mid, rt, launches) -> dict:
+    """K1 from a merge base whose id counters passed V + 1 (ROADMAP Queue 3
+    j at scale): 16 clustering lanes (range) merged every chunk over the
+    main stream's first ``mid`` chunks, every edge tail (CLUGP's ξ), then
+    chunk ``mid`` folded from that base on the card and by the plain fold."""
+    import torch
+
+    from repro_torch.core.clustering import ClusterCarry
+    from repro_torch.streaming import EdgeStream, run_parallel
+
+    n, L = main["n"], 1 << 16
+    kw = dict(xi=2**31 - 2, kappa=kappa, global_tail=False)
+    head = EdgeStream(main["src"][:mid * L], main["dst"][:mid * L], n, chunk_size=L,
+                      device="cuda")
+    _, base = run_parallel(head, ClusterCarry(degrees, n, **kw), num_streams=16,
+                           super_chunk=1, shard="range")
+    src, dst = main_chunk(main, mid)
+    touched = torch.unique(torch.cat([src, dst])).long()
+    info = {"variant": "CLUGP xi, 16 range lanes merged every chunk", "state": "merged",
+            "chunk_index": mid, "V": n, "next_h": int(base.next_h),
+            "next_t": int(base.next_t),
+            "chunk_vertices_with_ids_past_V": int((base.v2c_t[touched] > n).sum())}
+    if info["next_t"] <= n + 1:
+        raise SystemExit(f"chip_smoke: the merged lanes' id counter did not pass V + 1: {info}")
+    return _k1_row("K1 cluster_scan (Alg. 1 fold) CLUGP, merge base past V + 1", tuple(base),
+                   src, dst, degrees, kw, rt, launches, info)
 
 
 INT32_MAX = 2**31 - 1
@@ -1236,6 +1281,8 @@ def phase_parallel(main) -> dict:
              "lanes": [vars(lane) for lane in ing.lanes], "max_memory_allocated": peak}
         emit({"phase": "parallel", **r})
         info[f"hdrf_{backend}"] = r
+        if backend == "threads":
+            main["hdrf_hub_s"] = wall
         if launches["scoring_scan"] != plan:
             problems.append(f"hdrf {backend}: K3 launched {launches['scoring_scan']} times, "
                             f"not once per plan chunk ({plan})")
@@ -1244,6 +1291,7 @@ def phase_parallel(main) -> dict:
     info["hdrf_threads_equal_vmap"] = same
     if not same:
         problems.append("hdrf: the threads and vmap backends differ")
+    main["hdrf_hub_parts"] = hd["threads"][0].cpu()  # phase ooc's reference
     del hd
 
     # ---- Greedy, range lanes, super-chunk 8 ----
@@ -1274,6 +1322,128 @@ def phase_parallel(main) -> dict:
         problems.append(f"the cached hub plan launched K4a/K4b again: {launches}")
     if problems:
         raise SystemExit("chip_smoke parallel phase failed: " + "; ".join(problems))
+    return info
+
+
+def phase_ooc(main) -> dict:
+    """Out-of-core ingest on the main path's graph and k: the edges written
+    as shards of 2^20 edges, S5P under the default ``S5PConfig`` from a
+    natural ``ShardedEdgeStream`` (its parts and launch counts must equal
+    phase main's), HDRF at 8 hub lanes (auto) from disk (its parts must
+    equal phase parallel's: the hub plan pages through ``_edges_at``), and
+    at R-MAT scale 14 HDRF from disk under the shuffled, dst-sorted and
+    windowed orderings (each equal to the in-memory stream's parts on the
+    card); each run with the launch counters set to 0 just before and read
+    just after, each stream's ``budget.peak_bytes`` beside the edge list's
+    8·E bytes.  The shards live under ``build/`` and are removed after."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.baselines import hdrf_partition
+    from repro_torch.core.s5p import s5p_partition
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.streaming import (EdgeStream, ShardedEdgeStream, last_ingest_stats,
+                                       read_manifest, write_shards)
+
+    src, dst, n, cfg = main["src"], main["dst"], main["n"], main["cfg"]
+    k, E, B, S = cfg.k, int(src.shape[0]), cfg.chunk_size, 8
+    n_chunks = math.ceil(E / B)
+    dev = torch.device("cuda")
+    root = os.path.join(ROOT, "build", "chip_smoke_ooc")
+    shutil.rmtree(root, ignore_errors=True)
+    problems, info = [], {"phase": "ooc", "E": E, "k": k, "edge_list_bytes": 8 * E}
+
+    def drive(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0, launch_counts()
+
+    try:
+        t0 = time.perf_counter()
+        man = write_shards(os.path.join(root, "main"), src, dst, n_vertices=n)
+        meta = read_manifest(man)[1]
+        info.update(write_shards_s=time.perf_counter() - t0, shards=len(meta["shards"]),
+                    shard_edges=meta["shard_edges"],
+                    shard_bytes=sum(os.path.getsize(os.path.join(root, "main", f))
+                                    for f in os.listdir(os.path.join(root, "main"))))
+        emit({"phase": "ooc", "step": "write_shards", **info})
+
+        # ---- S5P from disk, natural: phase main's bits and launches ----
+        with ShardedEdgeStream(man, chunk_size=B, device=dev) as st:
+            out, wall, launches = drive(lambda: s5p_partition(src, dst, n, cfg, stream=st))
+            peak = st.budget.peak_bytes
+        row = {"step": "s5p natural",
+               "parts_equal_main": bool(torch.equal(out.parts, main["out"].parts)),
+               "assignment_equal_main": bool(np.array_equal(out.cluster_assignment,
+                                                            main["out"].cluster_assignment)),
+               "game_rounds": out.game_rounds, "seconds": out.timings, "wall_s": wall,
+               "seconds_main": main["info"]["seconds"], "wall_s_main": main["info"]["wall_s"],
+               "peak_bytes": peak, "peak_over_edge_list": peak / (8 * E),
+               "launches": launches, "launches_main": main["launches"]}
+        emit({"phase": "ooc", **row})
+        info["s5p"] = row
+        if not (row["parts_equal_main"] and row["assignment_equal_main"]):
+            problems.append("s5p from disk differs from phase main")
+        if launches != main["launches"]:
+            problems.append(f"s5p from disk launched {launches}, phase main {main['launches']}")
+        del out
+
+        # ---- HDRF, 8 hub lanes, auto, from disk: phase parallel's bits ----
+        with ShardedEdgeStream(man, chunk_size=B, device=dev) as st:
+            parts, wall, launches = drive(lambda: hdrf_partition(
+                None, None, n, k, stream=st, num_streams=S, super_chunk="auto", shard="hub"))
+            peak = st.budget.peak_bytes
+        plan = sum(lane.chunks for lane in last_ingest_stats().lanes)
+        row = {"step": "hdrf hub", "num_streams": S,
+               "parts_equal_parallel": bool(torch.equal(parts.cpu(), main["hdrf_hub_parts"])),
+               "wall_s": wall, "wall_s_parallel": main["hdrf_hub_s"], "plan_chunks": plan,
+               "peak_bytes": peak, "peak_over_edge_list": peak / (8 * E), "launches": launches}
+        emit({"phase": "ooc", **row})
+        info["hdrf_hub"] = row
+        if not row["parts_equal_parallel"]:
+            problems.append("hdrf at 8 hub lanes from disk differs from phase parallel")
+        if (launches["scoring_scan"] != plan or launches["cms_update"] != 2 * n_chunks
+                or launches["cms_query"] != 2 * n_chunks):
+            problems.append(f"hdrf hub from disk launched {launches}: K3 not once per plan "
+                            f"chunk ({plan}) or the plan's K4a/K4b not {2 * n_chunks} each")
+        del parts
+
+        # ---- R-MAT scale 14: the reorderings from disk against memory ----
+        s14, d14, n14 = rmat_graph(14, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=0)
+        man14 = write_shards(os.path.join(root, "rmat14"), s14, d14, shard_edges=1 << 16,
+                             n_vertices=n14)
+        B14 = 1 << 14
+        info["rmat14"] = {"E": int(s14.size), "shard_edges": 1 << 16, "chunk": B14}
+        for ordering in ("shuffled", "dst-sorted", "windowed"):
+            kw = dict(chunk_size=B14, ordering=ordering, seed=0, window=4096)
+            want = hdrf_partition(None, None, n14, k,
+                                  stream=EdgeStream(s14, d14, n14, device=dev, **kw))
+            t0 = time.perf_counter()
+            st = ShardedEdgeStream(man14, scratch_dir=os.path.join(root, "scratch"),
+                                   device=dev, **kw)
+            open_s = time.perf_counter() - t0  # the reorder pass and its spills
+            with st:
+                got, wall, launches = drive(
+                    lambda: hdrf_partition(None, None, n14, k, stream=st))
+                peak = st.budget.peak_bytes
+            row = {"step": f"hdrf rmat:14 {ordering}", "open_s": open_s, "wall_s": wall,
+                   "parts_equal_memory": bool(torch.equal(want, got)), "peak_bytes": peak,
+                   "peak_over_edge_list": peak / (8 * s14.size), "launches": launches}
+            emit({"phase": "ooc", **row})
+            info[f"hdrf_{ordering}"] = row
+            if not row["parts_equal_memory"]:
+                problems.append(f"hdrf from disk ({ordering}) differs from memory")
+            if launches["scoring_scan"] != math.ceil(s14.size / B14):
+                problems.append(f"hdrf {ordering}: K3 launched {launches['scoring_scan']} times")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise SystemExit("chip_smoke ooc phase failed: " + "; ".join(problems))
     return info
 
 
@@ -1914,16 +2084,40 @@ def phase_parity() -> dict:
             differing[row] = int((gpu != cpu).sum()) if gpu.shape == cpu.shape else -1
     same = all(v == 0 for v in differing.values())
     delta = _delta_above_2_24()
+    merged = _merged_ids_past_v()
     info = {"phase": "parity", "graph": "community_graph(2000, 32, 8, seed=5)",
             "k": 8, "E": int(src.shape[0]), "parts_identical": same,
             "differing_edges": differing, "cuda_cpu_s": seconds, "touch_up": touch_up,
-            "delta_above_2^24": delta}
+            "delta_above_2^24": delta, "merged_ids_past_V": merged}
     emit(info)
+    if not merged["same"] or merged["next_t"] <= merged["V"] + 1:
+        raise SystemExit(f"chip_smoke: Alg. 1 lanes merged past V + 1 differ, cuda vs cpu: "
+                         f"{merged}")
     if not same:
         raise SystemExit(f"chip_smoke: cuda and cpu parts differ on the community graph: {differing}")
     if not delta["same"]:
         raise SystemExit(f"chip_smoke: the game's δ above 2**24 differs, cuda vs cpu: {delta}")
     return info
+
+
+def _merged_ids_past_v() -> dict:
+    """ROADMAP Queue 3 j's input: clustering lanes merged every chunk sum
+    their id counters past V + 1, where K1 reads slot V and drops the adds
+    as the plain fold does; every leaf of the state, cuda against cpu."""
+    from repro_torch.core.clustering import ClusterState, cluster_stream
+    from repro_torch.graphs import rmat_graph
+
+    src, dst, n = rmat_graph(10, edge_factor=8, seed=4)
+    kw = dict(xi=1 << 20, kappa=1 << 20, chunk_size=256, num_streams=8, super_chunk=1)
+    t0 = time.perf_counter()
+    gpu = cluster_stream(src, dst, n, device="cuda", **kw)
+    t1 = time.perf_counter()
+    cpu = cluster_stream(src, dst, n, device="cpu", **kw)
+    diff = first_diff(gpu, cpu, ClusterState._fields)
+    return {"graph": "rmat_graph(10, edge_factor=8, seed=4)", "V": n,
+            "next_h": int(cpu.next_h), "next_t": int(cpu.next_t), "same": diff is None,
+            "first_diff": diff, "cuda_cpu_s": [t1 - t0, time.perf_counter() - t1], **{
+                key: v for key, v in kw.items() if key != "xi"}, "xi": kw["xi"]}
 
 
 def _delta_above_2_24() -> dict:
@@ -2599,12 +2793,17 @@ def main(argv=None) -> int:
     parallel = phase_parallel(main_run)
     parallel["phase_s"] = time.perf_counter() - t0
     emit({"phase": "parallel", "step": "done", "phase_s": parallel["phase_s"]})
+    t0 = time.perf_counter()
+    ooc = phase_ooc(main_run)
+    ooc["phase_s"] = time.perf_counter() - t0
+    emit({"phase": "ooc", "step": "done", "phase_s": ooc["phase_s"]})
     serve = phase_serve(args.products_scale)
     lm = phase_lm()
     recsys = phase_recsys()
     summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build)
     results.update(main=main_run["info"], compare=compare["rows"],
-                   pagerank=compare["pagerank"], parallel=parallel, serve=serve["info"])
+                   pagerank=compare["pagerank"], parallel=parallel, ooc=ooc,
+                   serve=serve["info"])
     del serve
     results["parity"] = phase_parity()
     results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], recsys=recsys["info"],

@@ -257,26 +257,6 @@ class ClusterCarry(PartitionerCarry):
                                     global_tail=self.global_tail)
         return ClusterState(*leaves), None
 
-    def check_lane_start(self, carry) -> None:
-        """K1 keeps every cluster id inside the (V + 1)-slot volume arrays.
-        A lane hands out at most one id per unassigned vertex a table, so
-        from ``next`` it hands out ids below ``next + #unassigned``.  Merged
-        lanes sum their id counters, and past ``V + 1`` the reference reads
-        the last slot and drops the writes (the plain version does too),
-        which K1 does not: on the card such a start raises (ROADMAP Queue 3
-        j).  ``super_chunk="auto"`` folds Alg. 1 in isolation, from the
-        empty state."""
-        if carry.next_h.device.type != "cuda":
-            return
-        top = torch.stack([carry.next_h + (carry.v2c_h < 0).sum(),
-                           carry.next_t + (carry.v2c_t < 0).sum()]).max()
-        if int(top) > self.n_vertices + 1:
-            raise NotImplementedError(
-                f"merged Alg. 1 lanes may hand out cluster ids up to {int(top) - 1}, "
-                f"past the {self.n_vertices + 1}-slot volume arrays K1 keeps them "
-                "in (ROADMAP Queue 3 j); use super_chunk='auto', which folds "
-                "clustering lanes in isolation")
-
     def occupancy_contest(self, before, after) -> float:
         """Reassignment churn between merge bases: the fraction of assigned
         vertices whose cluster id moved (assigned → another id) over both
@@ -344,7 +324,8 @@ def cluster_stream(src, dst, n_vertices: int, *, xi: int, kappa: int,
                    shard: str = "range", device=None) -> ClusterState:
     """Run Algorithm 1 over the whole stream in fixed-size chunks.
 
-    Degrees are the one-pass global precompute.  Runs on ``stream.device``
+    Degrees are the one-pass global precompute (a chunked pass over an
+    out-of-core stream).  Runs on ``stream.device``
     when a stream is given, else on ``device`` (default ``cuda``).
     ``num_streams > 1`` ingests S lanes (``shard``) merged every
     ``super_chunk`` chunks (``run_parallel``); 1 is the sequential fold.
@@ -352,9 +333,15 @@ def cluster_stream(src, dst, n_vertices: int, *, xi: int, kappa: int,
     stream = as_stream(src, dst, n_vertices, stream=stream,
                        chunk_size=chunk_size, device=device)
     dev = stream.device
-    degrees = compute_degrees(torch.from_numpy(stream.src).to(dev),
-                              torch.from_numpy(stream.dst).to(dev),
-                              stream.n_vertices)
+    # a stream without host arrays (out of core) counts degrees chunk by
+    # chunk: integer sums, so the same bits
+    src_full = getattr(stream, "src", None)
+    if src_full is not None:
+        degrees = compute_degrees(torch.from_numpy(src_full).to(dev),
+                                  torch.from_numpy(stream.dst).to(dev),
+                                  stream.n_vertices)
+    else:
+        degrees = compute_degrees_stream(stream)
     pc = ClusterCarry(degrees, stream.n_vertices, xi=xi, kappa=kappa,
                       global_tail=global_tail)
     _, state = run_parallel(stream, pc, num_streams=num_streams,

@@ -18,8 +18,9 @@ passes run S lanes (``shard``: range, round-robin or hub) merged every
 (its sketch is linear, so its table equals the sequential one).  Then the
 touch-up (``touch_up``, :func:`_touch_up`) plays a masked game of at most
 ``refine_rounds`` rounds over the clusters that two or more lanes wrote
-and re-places the edges of the clusters that moved.  The drift knobs
-(ROADMAP Queue 1 item 3) and the hybrid budget (item 6) raise.
+and re-places the edges of the clusters that moved.  The stream may be
+an out-of-core ``ShardedEdgeStream`` (edge shards paged from disk).  The
+drift knobs (ROADMAP Queue 1 item 3) and the hybrid budget (item 6) raise.
 """
 
 from __future__ import annotations
@@ -225,8 +226,11 @@ def _as_int32(x, dev) -> torch.Tensor:
 def s5p_partition(src, dst, n_vertices: int, config: S5PConfig,
                   stream: EdgeStream | None = None, *, device=None) -> S5POutput:
     """Partition an edge list with S5P.  ``src``/``dst`` are int arrays or
-    tensors; the run happens on ``device`` (default ``cuda``), or on the
-    device of ``stream`` when one is passed."""
+    tensors in arrival order; the run happens on ``device`` (default
+    ``cuda``), or on the device of ``stream`` when one is passed.  Every
+    pass over the edges replays ``stream``, which may page them from disk
+    (``ShardedEdgeStream``); the degrees, the statistics and the
+    placement's cluster ids read the arrival arrays, as in the reference."""
     dev = stream.device if stream is not None else resolve_device(device)
     src = _as_int32(src, dev)
     dst = _as_int32(dst, dev)

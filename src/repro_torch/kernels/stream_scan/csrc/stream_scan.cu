@@ -44,7 +44,12 @@
 //     take cluster slots 0, 1, ...; the vertices' other cluster ids go into
 //     a head and a tail hash of 4T ids and take the slots after them;
 //  5. every cluster slot gathers its volume (also at the ids still to be
-//     handed out: the reference adds to what is stored there).
+//     handed out: the reference adds to what is stored there), and the
+//     block votes whether any slot's id is past V.  Only merged lanes hand
+//     out such ids (their id counters are sums); a tile that holds one
+//     folds in fold_tile_clamped, the reference's clamp and drop (a read
+//     past V reads slot V as it stands, an add past V is dropped), so
+//     fold_tile keeps no branch for it.
 // The fold then runs fold_edge's statement order on slots; a new cluster
 // is slot nh - nh0.  The clusters a tile touches are closed under the fold
 // (an endpoint's cluster, a new id, or the other endpoint's cluster on a
@@ -297,6 +302,116 @@ __device__ __forceinline__ void fold_tile(int cnt, const int* e_rec, int4* vst,
   }
 }
 
+// A cluster table of the tile that holds an id past V: merged parallel-
+// ingest lanes sum their id counters, so later allocations hand out ids
+// past the (V + 1)-slot volume array.  The reference's gather reads slot V
+// there, as it stands at that edge, and its scatter drops the add; slot V's
+// own reads and writes are kept.  sV is V's cluster slot in the tile (-1
+// when no slot holds id V: then nothing in the tile writes slot V, and
+// volV is its value).
+struct ClampedVol {
+  int* vol;
+  const int* ids;  // cluster id of each slot
+  int V, sV, volV;
+  __device__ __forceinline__ int rd(int c) const {
+    return ids[c] > V ? (sV >= 0 ? vol[sV] : volV) : vol[c];
+  }
+  __device__ __forceinline__ void add(int c, int x) const {
+    if (ids[c] <= V) vol[c] = wadd(vol[c], x);
+  }
+};
+
+// fold_tile for a tile that holds an id past V: the plain fold's statement
+// order (core/clustering.py::_edge_step), every volume read and add through
+// ClampedVol and nothing forwarded in registers, since a dropped add is not
+// read back.  Rare (merged lanes only), so fold_tile keeps no branch for it.
+__device__ __noinline__ void fold_tile_clamped(int cnt, const int* e_rec,
+                                               int4* vst, ClampedVol hv,
+                                               ClampedVol tv, int kappa,
+                                               bool global_tail, int& nh,
+                                               int& nt) {
+  int* vs = reinterpret_cast<int*>(vst);
+  for (int e = 0; e < cnt; ++e) {
+    const int rec = e_rec[e];
+    if (!(rec & kValidBit)) continue;
+    const int su = rec & 0xFFF;
+    const int sv = (rec >> 12) & 0xFFF;
+    const int4 xu = vst[su];
+    const int4 xv = vst[sv];
+    const int du = xu.w;
+    const int dv = xv.w;
+    if (rec & kHeadBit) {
+      const bool new_u = xu.x < 0;
+      const bool new_v = xv.x < 0;
+      const int cu2 = new_u ? nh : xu.x;
+      nh += new_u ? 1 : 0;
+      const int cv2 = new_v ? nh : xv.x;
+      nh += new_v ? 1 : 0;
+      if (new_u) hv.add(cu2, du);
+      if (new_v) hv.add(cv2, dv);
+      vs[4 * su] = cu2;
+      vs[4 * sv] = cv2;
+      const int a = hv.rd(cu2);
+      const int b = hv.rd(cv2);
+      const bool both_small = (a < kappa) && (b < kappa) && cu2 != cv2;
+      const bool u_is_i = wsub(a, du) <= wsub(b, dv);  // tie -> u
+      const int ci = u_is_i ? cu2 : cv2;
+      const int cj = u_is_i ? cv2 : cu2;
+      const int di = u_is_i ? du : dv;
+      if (both_small && wadd(hv.rd(cj), di) < kappa) {
+        hv.add(cj, di);
+        hv.add(ci, -di);
+        vs[4 * (u_is_i ? su : sv)] = cj;
+      }
+    } else {
+      const bool tnew_u = xu.y < 0;
+      const bool tnew_v = xv.y < 0;
+      const int tu2 = tnew_u ? nt : xu.y;
+      nt += tnew_u ? 1 : 0;
+      const int tv2 = tnew_v ? nt : xv.y;
+      nt += tnew_v ? 1 : 0;
+      int ldu = xu.z, ldv = xv.z;
+      if (global_tail) {
+        if (tnew_u) tv.add(tu2, du);
+        if (tnew_v) tv.add(tv2, dv);
+      } else {
+        tv.add(tu2, 1);
+        tv.add(tv2, 1);
+        ldu = wadd(ldu, 1);
+        ldv = wadd(ldv, 1);
+        vs[4 * su + 2] = ldu;
+        vs[4 * sv + 2] = ldv;
+      }
+      vs[4 * su + 1] = tu2;
+      vs[4 * sv + 1] = tv2;
+      const int a = tv.rd(tu2);
+      const int b = tv.rd(tv2);
+      const bool t_small = (a < kappa) && (b < kappa) && tu2 != tv2;
+      const bool tu_is_i = a <= b;  // tie -> u
+      const int tci = tu_is_i ? tu2 : tv2;
+      const int tcj = tu_is_i ? tv2 : tu2;
+      const int ldi = global_tail ? (tu_is_i ? du : dv) : (tu_is_i ? ldu : ldv);
+      if (t_small && (!global_tail || wadd(tv.rd(tcj), ldi) < kappa)) {
+        tv.add(tcj, ldi);
+        tv.add(tci, -ldi);
+        vs[4 * (tu_is_i ? su : sv) + 1] = tcj;
+      }
+    }
+  }
+}
+
+// The position of a key in an open-addressing table, or -1.
+__device__ int hash_find(const int* keys, int size, int key) {
+  int pos = hash_home(key, size);
+  for (int probes = 0; probes < size; ++probes) {
+    const int cur = keys[pos];
+    if (cur == key) return pos;
+    if (cur == -1) return -1;
+    pos = pos + 1 == size ? 0 : pos + 1;
+  }
+  return -1;
+}
+
 // One chunk, one block of kFoldThreads; the layout is cluster_smem_bytes'.
 __global__ void __launch_bounds__(kFoldThreads)
 cluster_fold_kernel(const int* __restrict__ src, const int* __restrict__ dst,
@@ -408,19 +523,29 @@ cluster_fold_kernel(const int* __restrict__ src, const int* __restrict__ dst,
       if (vs[4 * j + 1] >= 0) vs[4 * j + 1] = tslot[vs[4 * j + 1]];
     }
     const int nch = sc[1], nct = sc[2];
+    int past = 0;  // a cluster id past V: the tile folds through ClampedVol
     for (int c = me; c < nch; c += nthr) {
       const int id = hid[c];
       hvol[c] = (id >= 0 && id <= V) ? s.volh[id] : 0;
+      past |= id > V;
     }
     for (int c = me; c < nct; c += nthr) {
       const int id = tid[c];
       tvol[c] = (id >= 0 && id <= V) ? s.volt[id] : 0;
+      past |= id > V;
     }
-    __syncthreads();
+    past = __syncthreads_or(past);
     // 6. the fold, one thread, in edge order
     if (me == 0) {
       int nh = 0, nt = 0;
-      fold_tile(cnt, e_rec, vst, hvol, tvol, kappa, global_tail != 0, nh, nt);
+      if (past) {
+        const int ph = hash_find(hkey, H, V), pt = hash_find(tkey, H, V);
+        const ClampedVol hv{hvol, hid, V, ph < 0 ? -1 : hslot[ph], s.volh[V]};
+        const ClampedVol tv{tvol, tid, V, pt < 0 ? -1 : tslot[pt], s.volt[V]};
+        fold_tile_clamped(cnt, e_rec, vst, hv, tv, kappa, global_tail != 0, nh, nt);
+      } else {
+        fold_tile(cnt, e_rec, vst, hvol, tvol, kappa, global_tail != 0, nh, nt);
+      }
       sc[5] = wadd(nh0, nh);
       sc[6] = wadd(nt0, nt);
     }

@@ -108,6 +108,27 @@ def _cluster_slots(ids, next_id, rng):
     return sid, [slot[c] if c >= 0 else -1 for c in ids], n_new
 
 
+class _TileVolumes(list):
+    """One tile's cluster-slot volumes.  A slot whose id is past ``V``
+    reads slot ``V`` (the slot holding id ``V``, else ``vol_v``, its value
+    in the table: nothing in the tile writes it) and drops its writes."""
+
+    def __init__(self, vols, ids, V, vol_v):
+        super().__init__(vols)
+        self._past = [c > V for c in ids]
+        self._sv = ids.index(V) if V in ids else None
+        self._vol_v = vol_v
+
+    def __getitem__(self, c):
+        if not self._past[c]:
+            return super().__getitem__(c)
+        return self._vol_v if self._sv is None else super().__getitem__(self._sv)
+
+    def __setitem__(self, c, x):
+        if not self._past[c]:
+            super().__setitem__(c, x)
+
+
 def cluster_chunk_staged(state, src, dst, degrees, *, xi, kappa,
                          global_tail=False, tile: int = K1_TILE,
                          slot_seed: int | None = None):
@@ -122,8 +143,10 @@ def cluster_chunk_staged(state, src, dst, degrees, *, xi, kappa,
     from 0, its counts and allocations into scratch: they never feed its
     decisions), then write every staged leaf back with slots turned into
     ids, the allocation of each vertex that started without a head cluster
-    and ends with one, and the id counters.  Volumes at ids outside
-    ``[0, V]`` are neither read nor written, as in the kernel.
+    and ends with one, and the id counters.  A slot whose id is past ``V``
+    (merged lanes' ids) reads slot ``V`` as it stands and drops its adds,
+    as the kernel's ``fold_tile_clamped`` and the reference do; volumes at
+    ids outside ``[0, V]`` are never written back.
     """
     from types import SimpleNamespace
 
@@ -151,7 +174,8 @@ def cluster_chunk_staged(state, src, dst, degrees, *, xi, kappa,
                 c[sv] = _w32(c[sv] + 1)
 
         def vols(table, ids):
-            return [int(table[c]) if 0 <= c <= V else 0 for c in ids]
+            return _TileVolumes([int(table[c]) if 0 <= c <= V else 0 for c in ids],
+                                ids, V, int(table[V]))
 
         scratch = [0] * len(vid)
         s = SimpleNamespace(

@@ -176,11 +176,6 @@ class PartitionerCarry:
     def finalize(self, carry):
         return carry
 
-    def check_lane_start(self, carry) -> None:
-        """Called by ``run_parallel`` on each merge base that lanes are
-        about to fold from; raises where this carry's kernel cannot fold
-        from it (the default accepts every carry)."""
-
     # -------------------------------------------------------- group algebra
     def _zip(self, *trees):
         flats = [tree_flatten(t) for t in trees]

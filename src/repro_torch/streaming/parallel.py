@@ -243,7 +243,7 @@ def _hub_plan(st: EdgeStream, S: int, threshold: int):
     for i in range(st.n_chunks):
         lo, hi = i * B, min((i + 1) * B, E)
         sl = slice(lo, hi) if order is None else order[lo:hi]
-        s, t = st.src[sl], st.dst[sl]
+        s, t = st._edges_at(sl, lo, hi)
         s_dev, t_dev = _to_device(s, dev), _to_device(t, dev)
         key_s, key_t = vertex_key(s_dev), vertex_key(t_dev)
         # query before update: the estimate covers earlier chunks only
@@ -323,6 +323,11 @@ class ParallelEdgeStream:
     # ---------------------------------------------------------- hub plan
     def _build_hub_plan(self, hub_threshold: int | None) -> None:
         st, S = self.stream, self.num_streams
+        if type(st)._edges_at is not EdgeStream._edges_at and st.order is not None:
+            raise ValueError(
+                "shard='hub' needs per-edge gathers; reordered out-of-core "
+                "streams serve edges by stream-order ranges only — use "
+                "ordering='natural' or an in-memory stream")
         if hub_threshold is None:  # a hub past the average degree
             hub_threshold = max(2, int(2.0 * st.n_edges / max(st.n_vertices, 1)))
         self.hub_threshold = int(hub_threshold)
@@ -393,10 +398,13 @@ class ParallelEdgeStream:
         else:
             pos = self.chunk_positions(chunk_id)
             start = int(pos[0]) if nv else 0
-            arr = pos if st.order is None else st.order[pos]
+            arr = pos if st.order is None else np.asarray(st.order)[pos]
         exs = [(e, arr) if isinstance(e, torch.Tensor) else np.asarray(e)[arr]
                for e in extras]
-        return st.src[arr], st.dst[arr], exs, start, nv
+        # a hub chunk's positions are not a range: the hook gathers them
+        # (hub plans are refused over reordered out-of-core streams)
+        s, d = st._edges_at(arr, start, start + nv)
+        return s, d, exs, start, nv
 
     def upload(self, staged: tuple) -> Chunk:
         """The device half of :meth:`chunk_for`: pad and copy to the
@@ -612,7 +620,6 @@ def run_parallel(
         r0 = 0
         while r0 < ps.n_rounds:
             sc = ctl.next()
-            pc.check_lane_start(base)
             local = _stack_lanes(pc, base, S)
             rows = rows_of(local)
             for r in range(r0, min(r0 + sc, ps.n_rounds)):
@@ -675,7 +682,6 @@ def run_parallel(
         with (ThreadPoolExecutor(max_workers=S) if cuda else _InlineExecutor()) as ex:
             while any(pos[s] < len(ps.lanes[s]) for s in range(S)):
                 sc = ctl.next()
-                pc.check_lane_start(base)
                 batches = [ps.lanes[s][pos[s]:pos[s] + sc] for s in range(S)]
                 futs = [ex.submit(lane_fold, s, batches[s], start_of(s, batches[s]),
                                   lane_injector) for s in range(S)]

@@ -116,24 +116,36 @@ class EdgeStream:
         """Stream order as a permutation of arrival indices (None = identity)."""
         return self._order
 
+    def _edges_at(self, sl, start: int, stop: int):
+        """The data-access hook: host int32 ``(src, dst)`` of stream
+        positions [start, stop).  ``sl`` is a ``slice`` of arrival positions
+        (natural order) or an int array of arrival indices (the others);
+        the out-of-core stream pages them from disk instead.  Everything
+        else in :meth:`chunk_at` is shared, so the engines agree bit for
+        bit."""
+        return self.src[sl], self.dst[sl]
+
     def chunk_at(self, i: int, *extras, pad: bool = True) -> Chunk:
-        """Build chunk ``i``.  ``extras`` are per-edge numpy arrays or
-        tensors, sliced in stream order alongside src/dst and padded with
-        zeros.  With ``pad=True`` every chunk of a multi-chunk stream has
-        exactly ``chunk_size`` entries; a single-chunk stream comes back
+        """Build chunk ``i``.  ``extras`` are per-edge tensors or array-likes
+        (numpy arrays, memmaps, a sharded stream's field views: anything
+        with ``.shape`` and ``__getitem__`` passes through unread), sliced
+        in stream order alongside src/dst and padded with zeros.  With
+        ``pad=True`` every chunk of a multi-chunk stream has exactly
+        ``chunk_size`` entries; a single-chunk stream comes back
         unpadded."""
         if not 0 <= i < self.n_chunks:
             raise IndexError(f"chunk {i} out of range [0, {self.n_chunks})")
-        for e in extras:
+        ex = [e if hasattr(e, "shape") else np.asarray(e) for e in extras]
+        for e in ex:
             if e.shape[0] != self.n_edges:
                 raise ValueError("extra array length != n_edges")
         n, cs = self.n_edges, self.chunk_size
         start = i * cs
         stop = min(start + cs, n)
         sl = (slice(start, stop) if self._order is None
-              else self._order[start:stop])
-        s, d = self.src[sl], self.dst[sl]
-        exc = [_take(e, sl, self.device) for e in extras]
+              else np.array(self._order[start:stop]))  # writable, if mmap-backed
+        s, d = self._edges_at(sl, start, stop)
+        exc = [_take(e, sl, self.device) for e in ex]
         padn = cs - s.shape[0] if pad and start > 0 else 0
         if padn > 0:
             s = np.concatenate([s, np.zeros(padn, np.int32)])
@@ -157,8 +169,9 @@ class EdgeStream:
         """Map per-edge results (last axis) from stream to arrival order."""
         if self._order is None:
             return values
-        inv = np.empty(self._order.size, np.int64)
-        inv[self._order] = np.arange(self._order.size)
+        order = np.asarray(self._order)  # an mmap-backed order reads in place
+        inv = np.empty(order.size, np.int64)
+        inv[order] = np.arange(order.size)
         return values.index_select(-1, torch.from_numpy(inv).to(values.device))
 
 
@@ -174,4 +187,7 @@ def _take(e, sl, device) -> torch.Tensor:
         if isinstance(sl, slice):
             return e[sl].to(device)
         return e.index_select(0, torch.from_numpy(sl).to(e.device)).to(device)
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(e)[sl])).to(device)
+    rows = np.ascontiguousarray(e[sl])
+    if not rows.flags.writeable:  # a read-only memmap's rows
+        rows = rows.copy()
+    return torch.from_numpy(rows).to(device)

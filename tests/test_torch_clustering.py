@@ -147,18 +147,22 @@ def _k1_case(name):
         elif name == "global-tail":
             kw["global_tail"] = True
     state = tuple(init_state(n, "cpu"))
-    if name == "mid-stream":  # a warm state: the first half folded first
+    if name in ("mid-stream", "past-V"):  # a warm state: the first half folded first
         half = src.size // 2
         cluster_chunk_oracle(state, torch.from_numpy(src[:half]),
                              torch.from_numpy(dst[:half]),
                              tcl.compute_degrees(torch.from_numpy(src),
                                                  torch.from_numpy(dst), n), **kw)
         src, dst = src[half:], dst[half:]
+    if name == "past-V":  # merged lanes' id counters: new ids reach V and pass it
+        state[5].fill_(n - 1)
+        state[6].fill_(n - 2)
+        state[2][n] = state[3][n] = KAPPA // 2  # slot V, read by every id past it
     return src, dst, n, state, kw, tile
 
 
 K1_CASES = ["hub", "all-new", "migrate-then-read", "self-loops-padding", "tile-1",
-            "ragged-tile", "kappa-max", "clugp", "global-tail", "mid-stream"]
+            "ragged-tile", "kappa-max", "clugp", "global-tail", "mid-stream", "past-V"]
 
 
 @pytest.mark.parametrize("slot_seed", [None, 5])
@@ -170,7 +174,7 @@ def test_cluster_staged_matches_oracle(case, slot_seed):
     from repro_torch.kernels.stream_scan import cluster_chunk_staged
 
     src, dst, n, state, kw, tile = _k1_case(case)
-    if case == "mid-stream":
+    if case in ("mid-stream", "past-V"):
         full = _k1_case("all-new")
         deg = tcl.compute_degrees(torch.from_numpy(full[0]), torch.from_numpy(full[1]), n)
     else:

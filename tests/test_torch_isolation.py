@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_attention.kernel", "repro_torch.launch.serve",
             "repro_torch.configs.llama3_8b", "repro_torch.models.recsys",
             "repro_torch.kernels.cin.kernel", "repro_torch.kernels.cin.ops",
-            "repro_torch.kernels.cin.ref", "repro_torch.configs.xdeepfm"} <= set(mods)
+            "repro_torch.kernels.cin.ref", "repro_torch.configs.xdeepfm",
+            "repro_torch.streaming.oocstream", "repro_torch.streaming.window",
+            "repro_torch.data.pipeline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -65,6 +67,9 @@ def _entry_points():
     from repro_torch.launch.serve import serve_lm, serve_recsys
     from repro_torch.models import lm, recsys
 
+    from repro_torch.data import EdgeChunkPipeline, TokenPipeline
+    from repro_torch.streaming import ShardedEdgeStream
+
     cfg = GCNConfig(n_layers=2, d_hidden=2, d_feat=2, n_classes=2)
     lm_cfg = get_arch("llama3-8b").smoke_config
     lm_params = {"embed": torch.ones(lm_cfg.vocab, lm_cfg.d_model)}
@@ -88,6 +93,9 @@ def _entry_points():
         "cin_layer_kernel": lambda: cin_layer_kernel(np.ones((2, 3, 4), np.float32),
                                                      np.ones((2, 3, 4), np.float32),
                                                      np.ones((9, 5), np.float32)),
+        "sharded_stream": lambda: ShardedEdgeStream("no-such-manifest.json"),
+        "edge_chunk_pipeline": lambda: EdgeChunkPipeline(src, dst, 3),
+        "token_pipeline": lambda: TokenPipeline(8, 1, 4),
     }
 
 
@@ -95,7 +103,8 @@ def _entry_points():
                                   "assign_edges_stream", "cli", "build_bundle",
                                   "gcn_init", "gcn_forward", "segment_aggregate",
                                   "init_params", "prefill", "serve_lm", "serve_recsys",
-                                  "xdeepfm_init", "cin_layer_kernel"])
+                                  "xdeepfm_init", "cin_layer_kernel", "sharded_stream",
+                                  "edge_chunk_pipeline", "token_pipeline"])
 def test_entry_points_need_a_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

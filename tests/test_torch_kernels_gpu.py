@@ -2,7 +2,8 @@
 versions (bitwise; K1, K2 and K3 also at the main path's 65,536-edge chunk,
 K2 with no room, room that runs out and the wrap guard, K3 on every rung,
 with equal bits on two launches), K6 and K7 against their plain versions within stated
-tolerances, and the GCN, the LM and xDeepFM on cuda against cpu.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
+tolerances, the GCN, the LM and xDeepFM on cuda against cpu, and streams paged
+from disk shards onto the card.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -1200,14 +1201,63 @@ def test_s5p_parallel_with_touch_up_cuda_equals_cpu(cuda, shard):
     assert [a.aux["touch_up"][k] for k in keys] == [b.aux["touch_up"][k] for k in keys]
 
 
-def test_merged_cluster_ids_past_the_tables_raise_on_the_card(cuda):
-    """Fixed-cadence clustering lanes that merge id counters past V + 1 run
-    on the CPU with the reference's clamp and drop, and raise on the card
-    (K1 keeps ids inside its tables)."""
+@pytest.mark.parametrize("xi", [1 << 20, 3])
+def test_merged_cluster_ids_past_the_tables_equal_cpu_on_the_card(cuda, xi):
+    """Fixed-cadence clustering lanes merge their id counters past V + 1
+    (ROADMAP Queue 3 j's input: next_t reaches 2,237 against V = 1,024): K1
+    reads slot V for the ids past it and drops their adds, as the plain fold
+    and the reference do, so the card's state equals the CPU's bit for bit."""
     from repro_torch.core.clustering import cluster_stream
 
     src, dst, n = _graph(scale=10, seed=4)
-    kw = dict(xi=1 << 20, kappa=1 << 20, chunk_size=256, num_streams=8, super_chunk=1)
-    cluster_stream(src, dst, n, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="Queue 3 j"):
-        cluster_stream(src, dst, n, device=cuda, **kw)
+    kw = dict(xi=xi, kappa=1 << 20, chunk_size=256, num_streams=8, super_chunk=1)
+    want = cluster_stream(src, dst, n, device="cpu", **kw)
+    got = cluster_stream(src, dst, n, device=cuda, **kw)
+    assert int(want.next_t) + int(want.next_h) > n + 1
+    for name, a, b in zip(want._fields, want, got):
+        assert torch.equal(a, b.cpu()), name
+
+# ---------------------------------------------------------------- out of core
+
+@pytest.mark.parametrize("ordering", ["natural", "shuffled", "dst-sorted", "windowed"])
+def test_sharded_stream_chunks_land_on_cuda(cuda, tmp_path, ordering):
+    """Chunks paged from disk shards land on the card with the in-memory
+    stream's bits, and scatter_back runs on the card."""
+    from repro_torch.streaming import EdgeStream, ShardedEdgeStream, write_shards
+
+    src, dst, n = _graph(scale=9, seed=2)
+    man = write_shards(tmp_path, src, dst, shard_edges=777, n_vertices=n)
+    tag = np.arange(src.size, dtype=np.int32)
+    ref = EdgeStream(src, dst, n, chunk_size=500, ordering=ordering, seed=3,
+                     window=64, device="cpu")
+    with ShardedEdgeStream(man, chunk_size=500, ordering=ordering, seed=3,
+                           window=64, device=cuda) as st:
+        for a, b in zip(ref.chunks(tag), st.chunks(tag)):
+            assert b.src.device.type == "cuda" and b.extras[0].device.type == "cuda"
+            assert torch.equal(a.src, b.src.cpu()) and torch.equal(a.dst, b.dst.cpu())
+            assert torch.equal(a.extras[0], b.extras[0].cpu())
+        vals = torch.arange(src.size, dtype=torch.int32)
+        assert torch.equal(ref.scatter_back(vals), st.scatter_back(vals.to(cuda)).cpu())
+
+
+def test_s5p_and_hdrf_from_disk_cuda_equal_cpu(cuda, tmp_path):
+    """S5P and HDRF (sequential and 4 hub lanes) from disk shards on the card
+    equal the same runs from disk and from memory on the CPU."""
+    from repro_torch.core.baselines import hdrf_partition
+    from repro_torch.core.s5p import S5PConfig, s5p_partition
+    from repro_torch.streaming import ShardedEdgeStream, write_shards
+
+    src, dst, n = _graph(scale=10, seed=1)
+    man = write_shards(tmp_path, src, dst, shard_edges=1000, n_vertices=n)
+    cfg = S5PConfig(k=8, chunk_size=1024)
+    want = s5p_partition(src, dst, n, cfg, device="cpu")
+    for dev in (cuda, "cpu"):
+        with ShardedEdgeStream(man, chunk_size=1024, device=dev) as st:
+            got = s5p_partition(src, dst, n, cfg, stream=st)
+        assert torch.equal(want.parts, got.parts.cpu())
+        assert np.array_equal(want.cluster_assignment, got.cluster_assignment)
+    for kw in ({}, dict(num_streams=4, shard="hub", super_chunk="auto")):
+        want = hdrf_partition(src, dst, n, 8, chunk_size=1024, device="cpu", **kw)
+        with ShardedEdgeStream(man, chunk_size=1024, device=cuda) as st:
+            got = hdrf_partition(None, None, n, 8, stream=st, **kw)
+        assert torch.equal(want, got.cpu())

@@ -562,7 +562,7 @@ def test_cli_parallel_flags_run_and_validate(capsys):
 def test_merged_cluster_ids_past_the_tables_equal_the_reference(xi):
     """Lanes merged every chunk sum their id counters past V + 1: the plain
     fold reads the last volume slot and drops the writes for those ids, as
-    the reference's gathers and scatters do (the card raises instead)."""
+    the reference's gathers and scatters do (K1 does the same on the card)."""
     from repro.core.clustering import cluster_stream as j_cluster_stream
     from repro.graphs.generators import rmat_graph
 
