@@ -59,6 +59,34 @@ Phases, each printing one JSON line:
               R-MAT scale 14 under the shuffled, dst-sorted and windowed
               orderings (each equal to the in-memory stream's parts on
               the card), each stream's ``budget.peak_bytes`` beside 8·E;
+5c. incremental — dynamic re-partitioning on the main path's graph and k,
+              each step with the launch counters set to 0 just before and
+              read just after: the warm-start bundle packed from phase
+              main's own S5P output (``pack_warm_bundle``), a 10 % insertion
+              (the first E/10 edges of the R-MAT of seed 1, appended) under
+              the default drift thresholds (``s5p_apply_delta``: seconds,
+              refined, game rounds, replay fraction, RF, balance, max load
+              under its cap, the games' audit; K1 and K2 once per 65,536-edge
+              delta chunk, K2 also once per chunk of a refinement's replay,
+              K4a/K4b, and K5 as the games report) beside a cold S5P run of
+              all the edges (seconds, RF); the rollback of exactly that batch
+              (``rolled_back``, every bundle leaf bitwise the base; with
+              refinement off when the delta refined, since a refinement
+              drops the journal); a decremental ``frac:0.05`` deletion of
+              the base (``_parse_delete``, seed 0: seconds, churn, refined,
+              RF); ``CarryStore`` save and load of the post-delta bundle
+              (bitwise, bytes on disk, seconds); HDRF's ``cold_start`` (its
+              parts equal phase compare's) then ``run_incremental`` with the
+              same delta and ``frac:0.05`` of the grown stream (K3 inserts
+              once per delta chunk, retracts once per deletion chunk; RF
+              beside phase compare's HDRF); ``S5PWindowChain`` over phase
+              main's edges, window 2^22, step 2^20, through its first
+              steady step (every step's seconds, RF, refined, rolled back,
+              compactions, slots freed; cut from 2^23 / 2^21 over the whole
+              stream for the time limit).  The
+              summed launches join the ``kernels`` rows
+              (``launches_incremental``), and the deletion's Θ retraction
+              gives phase ``kernels`` a K4a row with negative counts;
 6. serve    — the serving read side with GCN inference: the
               ``ogbn_products_like(seed=0)`` graph at scale 1.0 (2,449,029
               vertices), S5P at k = 32, ``build_bundle`` and
@@ -105,8 +133,10 @@ Phases, each printing one JSON line:
               edges, the edges of each mode of the plan and its latency
               bound.  G1 runs the grid row's chunk.  K4a runs the first,
               the middle and the last 2^18-key chunk of the main run's and
-              the serve phase's Θ streams (replayed), a hot-key chunk and
-              the deduplicated pair list, K4b the real pair count of both
+              the serve phase's Θ streams (replayed), a hot-key chunk, the
+              deduplicated pair list and, with counts of -1, phase
+              incremental's Θ retraction onto phase main's sketch, K4b the
+              real pair count of both
               runs, with the floors a launch can reach (an empty launch,
               the card's rate of atomic adds) and the whole ``cms_update``
               call's time;
@@ -175,7 +205,11 @@ Phases, each printing one JSON line:
               assignment; and ROADMAP Queue 3 j's input (8 clustering lanes
               merged every chunk on ``rmat_graph(10, edge_factor=8,
               seed=4)``, ξ = κ = 2^20, chunks of 256: ``next_t`` passes
-              V + 1), every leaf of the state equal on both.
+              V + 1), every leaf of the state equal on both; and the
+              incremental sequence on ``community_graph(600, 8, 6,
+              seed=3)`` (a delta, its rollback, a refined delta, a
+              deletion, four window steps): every bundle leaf and result
+              field equal on both.
 
 The kernel checks of phase 7 run after phases 8 and 9.
 
@@ -189,6 +223,7 @@ register report, the full results) go to ``chiprun_out/``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -900,7 +935,7 @@ def k4_bounds(n: int, depth: int, width: int, query: bool) -> tuple[float, str]:
     return bound_ms(16 * n + 8 * depth + 8 * depth * width, 11 * n * depth)
 
 
-def check_cms(main, serve) -> list[dict]:
+def check_cms(main, serve, incremental) -> list[dict]:
     """K4a on the Θ stream's own chunks (the first, the middle and the last
     2^18-key chunk of the main run's and of the serve phase's S5P, replayed
     by ``theta_capture``, each onto the table it found), on a hot-key chunk
@@ -1014,6 +1049,14 @@ def check_cms(main, serve) -> list[dict]:
     counts[:1000] = -1  # retractions wrap in Z/2^32
     rows.append(k4a_row(" (the deduplicated pair list, 2^18 keys)", dedup, counts,
                         torch.zeros_like(mid["table"]), seeds, {"stream": "dedup pairs"}))
+    # negative counts: phase incremental's frac:0.05 deletion retracts its
+    # Θ pairs (count -1 each) from the base sketch, which is phase main's
+    ra, rb = (torch.from_numpy(x).to("cuda") for x in incremental["retract_pairs"])
+    rkeys = pair_key(ra, rb)
+    rows.append(k4a_row(" (negative counts: the frac:0.05 deletion's Θ retraction)", rkeys,
+                        -torch.ones_like(rkeys), main["out"].aux["sketch"].table,
+                        main["out"].aux["sketch"].seeds,
+                        {"stream": "phase incremental: decremental Θ retraction"}))
     for run, (a, b), sketch in (("main", (pa, pb), main["out"].aux["sketch"]),
                                 ("serve", serve["pairs"], serve["sketch"])):
         label = "" if run == "main" else " (serve: the real pair count P)"
@@ -1447,6 +1490,292 @@ def phase_ooc(main) -> dict:
     return info
 
 
+def _incremental_game_audit(bundle, games) -> dict:
+    """The settle and refine games of one delta or deletion
+    (``pipeline.last_games``) against the float32 limits of
+    ``_game_audit``.  A masked game visits only the windows of
+    ``batch_size`` ids that hold a movable cluster, leaders' stages first:
+    every visited stage that holds a cluster whose exact degree (float64
+    over the bundle's pairs) reaches 2**24 must be one of the game's hub
+    batches, and Σ sizes at or past 2**23 needs the size guard, with an
+    ordered round wherever a guarded total reached 2**23."""
+    import numpy as np
+
+    from repro_torch.core import game as G
+
+    sizes = np.asarray(bundle["sizes"], np.float64)
+    C = sizes.size
+    w = np.asarray(bundle["pair_w"], np.float64)
+    deg = (np.bincount(bundle["pair_a"], w, minlength=C)
+           + np.bincount(bundle["pair_b"], w, minlength=C))[:C]
+    hub_rows = np.flatnonzero(deg >= G.W_LIMIT)
+    sum_sizes = float(sizes.sum())
+    out = []
+    for g in games:
+        bs, lead, move = g["batch_size"], g["leader_mask"], g["move_mask"]
+        spans = [(int(b) * bs, min(int(b) * bs + bs, C))
+                 for role in (lead & move, ~lead & move)
+                 for b in np.unique(np.flatnonzero(move) // bs) if role[b * bs:b * bs + bs].any()]
+        hub_spans = sum(int(np.searchsorted(hub_rows, lo) < np.searchsorted(hub_rows, hi))
+                        for lo, hi in spans)
+        played = g["rounds"] > 0
+        rep = {key: v for key, v in g.items() if key not in ("leader_mask", "move_mask")}
+        out.append({**rep, "movable": int(move.sum()), "stages": len(spans),
+                    "hub_stages_expected": int(hub_spans),
+                    "w_sums_ordered_or_below_2^24": bool(not played
+                                                         or g["hub_batches"] == hub_spans),
+                    "part_sizes_below_2^23_or_replayed": bool(
+                        not played or sum_sizes < G.SIZE_LIMIT or (
+                            g["size_guard"] and (g["max_part_size"] < G.SIZE_LIMIT
+                                                 or g["ordered_rounds"] > 0)))})
+    return {"max_cluster_degree": float(deg.max(initial=0.0)), "hub_rows": int(hub_rows.size),
+            "sum_sizes": sum_sizes, "games": out,
+            "ok": all(x["w_sums_ordered_or_below_2^24"]
+                      and x["part_sizes_below_2^23_or_replayed"] for x in out)}
+
+
+def _game_k5(games) -> int:
+    """K5 launches the games make: the cluster degrees twice, then one per
+    ordered sum (a game with no movable cluster returns before any)."""
+    return sum(2 + g["ordered_sums"] for g in games if g["rounds"] > 0)
+
+
+def phase_incremental(main, compare) -> dict:
+    """Dynamic re-partitioning at phase main's scale (``repro_torch.incremental``):
+    the base bundle packed from phase main's own S5P output, a 10 % insertion
+    (the first E/10 edges of R-MAT seed 1, appended) under the default drift
+    thresholds beside a cold S5P run of all the edges, the rollback of
+    exactly that batch (every leaf bitwise the base), a decremental
+    ``frac:0.05`` deletion of the base, ``CarryStore`` save and load of the
+    post-delta bundle, HDRF's ``cold_start`` then ``run_incremental`` (the
+    same delta and ``frac:0.05``), and ``S5PWindowChain`` over phase main's
+    edges until its first steady step.  Each step runs with the launch
+    counters set to 0 just before and read just after.  Cut for the
+    script's time limit: the window runs at 2^22 edges, step 2^20, and
+    stops after its first steady step (2^23 / 2^21 over the whole stream
+    took 89 s on an NVIDIA H100 80GB HBM3 at 700 W, its steady steps 19–28
+    s each: a churn-tripped refinement of every live cluster)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.metrics import replication_factor
+    from repro_torch.core.s5p import s5p_partition
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.incremental import (CarryStore, S5PWindowChain, cold_start,
+                                         pack_warm_bundle, run_incremental, s5p_apply_delta,
+                                         s5p_apply_deletion)
+    from repro_torch.incremental.pipeline import last_games, theta_delta_pairs
+    from repro_torch.launch.partition import _parse_delete
+
+    t_phase = time.perf_counter()
+    out, src, dst, n, cfg = main["out"], main["src"], main["dst"], main["n"], main["cfg"]
+    dev = out.parts.device
+    E, k = int(src.size), cfg.k
+    problems, totals = [], {}
+    info = {"phase": "incremental", "E": E, "k": k}
+
+    def drive(fn, path=True):
+        """``fn()`` timed, with its launches; ``path`` adds them to the
+        phase's totals (the comparison runs are not the incremental path)."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        if path:
+            for key, v in launches.items():
+                totals[key] = totals.get(key, 0) + v
+        return res, dt, launches
+
+    def same_bundle(a, b, skip=()):
+        keys = sorted(x for x in set(a) | set(b) if x not in skip)
+        for key in keys:
+            if key not in a or key not in b:
+                return key
+            x, y = np.asarray(a[key]), np.asarray(b[key])
+            if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y):
+                return key
+        return None
+
+    def emit_step(row):
+        emit({"phase": "incremental", **row})
+        info[row["step"]] = row
+
+    # ---- the base bundle: phase main's output, packed (no second cold run) ----
+    inc = out.aux["incremental"]
+    t0 = time.perf_counter()
+    base = pack_warm_bundle(
+        src, dst, n, cfg, state=inc["cluster_state"], res=inc["compact"],
+        degrees=inc["degrees"], sizes=inc["sizes"], pair_a=inc["pair_a"],
+        pair_b=inc["pair_b"], pair_w=inc["pair_w"], c2p=out.cluster_assignment,
+        parts=out.parts, load=inc["load"], xi=out.xi, kappa=out.kappa,
+        sketch=out.aux.get("sketch"))
+    bundle_bytes = int(sum(np.asarray(v).nbytes for v in base.values()))
+    emit_step({"step": "pack_base", "seconds": time.perf_counter() - t0,
+               "bundle_bytes": bundle_bytes, "bytes_per_edge": bundle_bytes / E,
+               "clusters": int(base["comb_is_head"].size), "rf_baseline": float(base["rf_baseline"])})
+
+    # ---- insertion: 10 % of the base, appended ----
+    m = E // 10
+    s1, d1, n1 = rmat_graph(int(round(math.log2(n))), edge_factor=16, a=0.57, b=0.19,
+                            c=0.19, seed=1)
+    full_src = np.concatenate([src, s1[:m]]).astype(np.int32)
+    full_dst = np.concatenate([dst, d1[:m]]).astype(np.int32)
+    E_full = int(full_src.size)
+    (b1, r1), dt, launches = drive(lambda: s5p_apply_delta(base, cfg, full_src, full_dst, E,
+                                                          device=dev))
+    games = last_games()
+    p1 = r1.parts
+    loads = np.bincount(p1[p1 >= 0], minlength=k)
+    cap = int(math.ceil(cfg.tau * E_full / k))
+    n_chunks = math.ceil(m / cfg.chunk_size)
+    audit = _incremental_game_audit(b1, games)
+    row = {"step": "delta", "edges": m, "seconds": dt, "refined": r1.refined,
+           "game_rounds": r1.game_rounds, "replay_fraction": r1.replay_fraction,
+           "edges_replayed": r1.edges_replayed, "n_new_clusters": r1.n_new_clusters,
+           "rf": r1.rf, "balance": r1.balance, "rf_drift": r1.rf_drift,
+           "max_load": int(loads.max()), "max_load_cap": cap, "launches": launches,
+           "delta_chunks": n_chunks, "game_audit": audit}
+    emit_step(row)
+    if int(loads.max()) > cap:
+        problems.append(f"delta: max load {int(loads.max())} > cap {cap}")
+    # K1 once a delta chunk; K2 once a delta chunk plus the refinement's replay
+    replay_chunks = math.ceil((r1.edges_replayed - 4 * m) / cfg.chunk_size)
+    if launches["cluster_scan"] != n_chunks or launches["assign_scan"] != n_chunks + replay_chunks:
+        problems.append(f"delta: K1/K2 launched {launches}, not {n_chunks} / "
+                        f"{n_chunks} + {replay_chunks} (replay)")
+    if launches["cms_update"] < 1 or launches["cms_query"] < 1:
+        problems.append(f"delta: K4a/K4b not launched: {launches}")
+    if launches["segment_agg"] != _game_k5(games) or not audit["ok"]:
+        problems.append(f"delta: the games' K5 launches {launches['segment_agg']} != "
+                        f"{_game_k5(games)} or their audit fails: {audit}")
+
+    # ---- a cold S5P run of all the edges, beside it ----
+    cold, dt, cold_launches = drive(lambda: s5p_partition(full_src, full_dst, n, cfg,
+                                                          device=dev), path=False)
+    s_t = torch.from_numpy(full_src).to(dev)
+    d_t = torch.from_numpy(full_dst).to(dev)
+    rf_cold = replication_factor(s_t, d_t, cold.parts, n_vertices=n, k=k)
+    del s_t, d_t, cold
+    emit_step({"step": "cold_all", "edges": E_full, "seconds": dt, "rf": rf_cold,
+               "delta_seconds_over_cold": row["seconds"] / dt, "delta_rf_over_cold": r1.rf / rf_cold,
+               "launches": cold_launches})
+
+    # ---- rollback of exactly the inserted batch ----
+    rb_from, rb_note = b1, "the delta above"
+    if r1.refined:  # a refinement drops the journal: insert again with it off
+        inf = float("inf")
+        cfg_nr = dataclasses.replace(cfg, drift_rf_threshold=inf,
+                                     drift_balance_threshold=inf, drift_churn_threshold=inf)
+        (rb_from, _), dt_nr, _ = drive(lambda: s5p_apply_delta(base, cfg_nr, full_src,
+                                                                full_dst, E, device=dev),
+                                       path=False)
+        rb_note = f"the delta again with refinement off ({dt_nr:.3f} s)"
+    (b2, r2), dt, launches = drive(lambda: s5p_apply_deletion(
+        rb_from, cfg, full_src, full_dst, np.arange(E, E_full), device=dev))
+    skip = ("journal_valid", "journal_pos")
+    diff = same_bundle(base, b2, skip)
+    emit_step({"step": "rollback", "edges": m, "seconds": dt, "rolled_back": r2.rolled_back,
+               "bitwise_equal_to_base": diff is None, "first_diff": diff, "of": rb_note,
+               "launches": launches})
+    if not r2.rolled_back or diff is not None:
+        problems.append(f"rollback: rolled_back {r2.rolled_back}, first differing leaf {diff}")
+    del b2, rb_from
+
+    # ---- decremental: frac:0.05 of the base ----
+    idx = _parse_delete("frac:0.05", E, 0)
+    (b3, r3), dt, launches = drive(lambda: s5p_apply_deletion(base, cfg, src, dst, idx,
+                                                              device=dev))
+    games3 = last_games()
+    slot = np.searchsorted(base["arrival"], idx)
+    ret_a, ret_b = theta_delta_pairs(base["edge_cu"][slot], base["edge_cv"][slot],
+                                     base["edge_alt_u"][slot], base["edge_alt_v"][slot])
+    info["retract_pairs"] = (ret_a, ret_b)
+    emit_step({"step": "deletion", "spec": "frac:0.05", "edges": int(idx.size), "seconds": dt,
+               "churn": r3.churn, "refined": r3.refined, "game_rounds": r3.game_rounds,
+               "rf": r3.rf, "balance": r3.balance, "theta_pairs_retracted": int(ret_a.size),
+               "launches": launches, "game_audit": _incremental_game_audit(b3, games3)})
+    if launches["cms_update"] < 1 or r3.n_retracted != idx.size:
+        problems.append(f"deletion: K4a not launched or wrong count: {launches}")
+    del b3
+
+    # ---- CarryStore: save and load the post-delta bundle ----
+    store_dir = os.path.join(ROOT, "build", "chip_smoke_carry")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = CarryStore(store_dir, keep=1)
+    t0 = time.perf_counter()
+    path = store.save(b1, consumer="s5p", config={"k": k}, stream_pos=E_full)
+    save_s = time.perf_counter() - t0
+    disk = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    t0 = time.perf_counter()
+    loaded, _ = store.load(consumer="s5p", config={"k": k})
+    load_s = time.perf_counter() - t0
+    diff = same_bundle(b1, loaded)
+    shutil.rmtree(store_dir, ignore_errors=True)
+    emit_step({"step": "store", "save_s": save_s, "load_s": load_s, "bytes_on_disk": disk,
+               "bytes_per_edge": disk / E_full, "bitwise": diff is None, "first_diff": diff})
+    if diff is not None:
+        problems.append(f"store: the loaded bundle differs at {diff}")
+    del loaded, b1
+
+    # ---- HDRF: cold start, then the same delta and frac:0.05 ----
+    hdrf_dir = os.path.join(ROOT, "build", "chip_smoke_hdrf")
+    shutil.rmtree(hdrf_dir, ignore_errors=True)
+    (hparts, _), dt_cold, l_cold = drive(lambda: cold_start(hdrf_dir, "hdrf", src, dst, n, k,
+                                                            device=dev), path=False)
+    same_as_compare = bool(np.array_equal(hparts, compare["parts"]["hdrf"].cpu().numpy()))
+    hidx = _parse_delete("frac:0.05", E_full, 0)
+    hres, dt, launches = drive(lambda: run_incremental(hdrf_dir, "hdrf", full_src, full_dst,
+                                                       n, k, delete=hidx, device=dev))
+    shutil.rmtree(hdrf_dir, ignore_errors=True)
+    emit_step({"step": "hdrf", "cold_start_s": dt_cold, "cold_launches": l_cold,
+               "cold_parts_equal_phase_compare": same_as_compare, "seconds": dt,
+               "delta": hres.n_delta_edges, "deleted": hres.n_retracted, "rf": hres.rf,
+               "rf_phase_compare": compare["rows"]["hdrf"]["rf"],
+               "k3_insert_launches": launches["scoring_scan"],
+               "k3_retract_launches": launches["scoring_retract"], "launches": launches})
+    if (launches["scoring_scan"] != n_chunks
+            or launches["scoring_retract"] != math.ceil(hidx.size / (1 << 16))
+            or not same_as_compare):
+        problems.append(f"hdrf: K3 launched {launches} (want {n_chunks} inserts, "
+                        f"{math.ceil(hidx.size / (1 << 16))} retracts), cold parts equal "
+                        f"phase compare's: {same_as_compare}")
+
+    # ---- the sliding window over phase main's edges ----
+    W, B = 1 << 22, 1 << 20
+    chain = S5PWindowChain(src, dst, n, cfg, W, step_edges=B, device=dev)
+    steps = []
+    while not any(st["n_retracted"] for st in steps):  # through the first steady step
+        rec, dt, launches = drive(chain.step)
+        if rec is None:
+            break
+        st = {"window_step": rec.step, "lo": rec.lo, "hi": rec.hi, "seconds": dt,
+              "filling": rec.filling, "rf": rec.rf, "balance": rec.balance,
+              "refined": rec.refined, "rolled_back": rec.rolled_back,
+              "n_inserted": rec.n_inserted, "n_retracted": rec.n_retracted,
+              "churn": rec.churn, "n_compacted": rec.n_compacted,
+              "n_slots_freed": rec.n_slots_freed, "launches": launches}
+        emit({"phase": "incremental", "step": "window", **st})
+        steps.append(st)
+    info["window"] = {"window_edges": W, "step_edges": B, "n_steps": chain.n_steps,
+                      "steps": steps}
+    live = chain.live_partition()
+    if live is None or live[0].size != steps[-1]["hi"] - steps[-1]["lo"]:
+        problems.append("window: the live partition does not hold the last window")
+    del chain
+    info["launches"] = totals
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "incremental", "step": "done", "phase_s": info["phase_s"],
+          "launches": totals})
+    if problems:
+        raise SystemExit("chip_smoke incremental phase failed: " + "; ".join(problems))
+    return info
+
+
 def _compress(schedule) -> str:
     from repro_torch.streaming.parallel import _compress_schedule
 
@@ -1728,7 +2057,12 @@ def kernel_plan() -> dict:
     return info
 
 
-def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
+_COUNTERS = {"K1": "cluster_scan", "K2": "assign_scan", "K3": "scoring_scan",
+             "G1": "grid_scan", "K4a": "cms_update", "K4b": "cms_query", "K5": "segment_agg",
+             "K6": "flash_attention", "K7": "cin"}
+
+
+def phase_kernels(main, compare, serve, lm, recsys, build, incremental) -> list[dict]:
     from repro_torch.kernels.stream_scan.latency import measure_round_trips
 
     rt = measure_round_trips()
@@ -1736,7 +2070,7 @@ def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
     kernel_plan()
     k1 = check_k1(main, rt)
     k2 = check_k2(main, rt)
-    cms = check_cms(main, serve)
+    cms = check_cms(main, serve, incremental)
     k3_g1, k3_extra = check_k3_g1(main, compare, rt)
     k5 = check_k5(serve)
     k6 = check_k6(lm, build)
@@ -1744,10 +2078,16 @@ def phase_kernels(main, compare, serve, lm, recsys, build) -> list[dict]:
     rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k6, *k7]
     _check_rows(rows)
     main_k2 = k2[1]  # the main path's middle chunk
-    main_k4 = [r for r in cms if r["name"] in ("K4a cms_update", "K4b cms_query")]
+    main_k4 = [r for r in cms if r["name"] in ("K4a cms_update", "K4b cms_query")
+               or "negative counts" in r["name"]]
     summary = [k1[0], main_k2, *main_k4, *k3_g1, *k5, k6[0], k7[1]]
+    totals = incremental["launches"]
     for r in summary:  # a latency bound for the serial scans, none for the rest
         r.setdefault("latency_bound_ms", None)
+        # the launches of phase incremental's path (K3 inserts and retracts)
+        r["launches_incremental"] = totals.get(_COUNTERS.get(r["name"].split()[0]), 0)
+        if r["name"].startswith("K3"):
+            r["launches_incremental_retract"] = totals.get("scoring_retract", 0)
     return summary, rows
 
 
@@ -2085,11 +2425,16 @@ def phase_parity() -> dict:
     same = all(v == 0 for v in differing.values())
     delta = _delta_above_2_24()
     merged = _merged_ids_past_v()
+    incremental = _incremental_parity()
     info = {"phase": "parity", "graph": "community_graph(2000, 32, 8, seed=5)",
             "k": 8, "E": int(src.shape[0]), "parts_identical": same,
             "differing_edges": differing, "cuda_cpu_s": seconds, "touch_up": touch_up,
-            "delta_above_2^24": delta, "merged_ids_past_V": merged}
+            "delta_above_2^24": delta, "merged_ids_past_V": merged,
+            "incremental": incremental}
     emit(info)
+    if not incremental["same"]:
+        raise SystemExit(f"chip_smoke: the incremental sequence differs, cuda vs cpu: "
+                         f"{incremental}")
     if not merged["same"] or merged["next_t"] <= merged["V"] + 1:
         raise SystemExit(f"chip_smoke: Alg. 1 lanes merged past V + 1 differ, cuda vs cpu: "
                          f"{merged}")
@@ -2098,6 +2443,65 @@ def phase_parity() -> dict:
     if not delta["same"]:
         raise SystemExit(f"chip_smoke: the game's δ above 2**24 differs, cuda vs cpu: {delta}")
     return info
+
+
+def _incremental_sequence(dev):
+    """On ``community_graph(600, 8, 6, seed=3)``, k = 8, chunks of 256: a
+    cold bundle of 90 % of the edges, the last 10 % inserted with
+    refinement off and rolled back, then inserted under a drift threshold
+    of 0 (refined), a decremental deletion of 10 % (seed 1), and four
+    steps of an ``S5PWindowChain`` (window 512, step 256: a fill step, the
+    cold start, two steady steps).  Returns the bundles and the results."""
+    import numpy as np
+
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.graphs import community_graph
+    from repro_torch.incremental import (S5PWindowChain, s5p_apply_delta, s5p_apply_deletion,
+                                         s5p_cold_bundle)
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    E = src.size
+    E0 = int(E * 0.9)
+    inf = float("inf")
+    cfg = S5PConfig(k=8, chunk_size=256, drift_rf_threshold=inf,
+                    drift_balance_threshold=inf, drift_churn_threshold=inf)
+    _, b0 = s5p_cold_bundle(src[:E0], dst[:E0], n, cfg, device=dev)
+    b1, r1 = s5p_apply_delta(b0, cfg, src, dst, E0, device=dev)
+    b2, r2 = s5p_apply_deletion(b1, cfg, src, dst, np.arange(E0, E), device=dev)
+    cfg_r = S5PConfig(k=8, chunk_size=256, drift_rf_threshold=0.0)
+    b3, r3 = s5p_apply_delta(b0, cfg_r, src, dst, E0, device=dev)
+    idx = np.sort(np.random.default_rng(1).choice(E, E // 10, replace=False))
+    b4, r4 = s5p_apply_deletion(b3, cfg_r, src, dst, idx, device=dev)
+    chain = S5PWindowChain(src, dst, n, cfg_r, 512, step_edges=256, device=dev)
+    steps = [chain.step() for _ in range(4)]
+    return [b0, b1, b2, b3, b4, chain.bundle], [r1, r2, r3, r4, *steps]
+
+
+def _incremental_parity() -> dict:
+    """``_incremental_sequence`` on cuda and on cpu: every bundle leaf and
+    every result field equal."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    gb, gr = _incremental_sequence("cuda")
+    t1 = time.perf_counter()
+    cb, cr = _incremental_sequence("cpu")
+    diffs = []
+    for i, (g, c) in enumerate(zip(gb, cb)):
+        diffs += [f"bundle {i} {key}" for key in sorted(set(g) | set(c))
+                  if key not in g or key not in c
+                  or np.asarray(g[key]).dtype != np.asarray(c[key]).dtype
+                  or not np.array_equal(g[key], c[key])]
+    for i, (g, c) in enumerate(zip(gr, cr)):
+        diffs += [f"result {i} {f}" for f in c._fields
+                  if not (np.array_equal(getattr(g, f), getattr(c, f))
+                          if isinstance(getattr(c, f), np.ndarray)
+                          else getattr(g, f) == getattr(c, f))]
+    return {"graph": "community_graph(600, 8, 6, seed=3)", "same": not diffs,
+            "differing": diffs[:20], "rolled_back": gr[1].rolled_back,
+            "refined": [gr[2].refined, gr[3].refined],
+            "window_steps": [r.step for r in gr[4:]],
+            "cuda_cpu_s": [t1 - t0, time.perf_counter() - t1]}
 
 
 def _merged_ids_past_v() -> dict:
@@ -2797,12 +3201,16 @@ def main(argv=None) -> int:
     ooc = phase_ooc(main_run)
     ooc["phase_s"] = time.perf_counter() - t0
     emit({"phase": "ooc", "step": "done", "phase_s": ooc["phase_s"]})
+    incremental = phase_incremental(main_run, compare)
     serve = phase_serve(args.products_scale)
     lm = phase_lm()
     recsys = phase_recsys()
-    summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build)
+    summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build,
+                                      incremental)
     results.update(main=main_run["info"], compare=compare["rows"],
                    pagerank=compare["pagerank"], parallel=parallel, ooc=ooc,
+                   incremental={key: v for key, v in incremental.items()
+                                if key != "retract_pairs"},
                    serve=serve["info"])
     del serve
     results["parity"] = phase_parity()

@@ -11,9 +11,10 @@ The state is the 10-leaf :class:`ClusterState` of ``repro.core.clustering``
 (int32 tensors; the volume arrays have a trailing sink slot).  On CUDA the
 fold runs in the K1 kernel (``kernels/stream_scan``); on the CPU in
 :func:`cluster_chunk`, a sequential transcription of the kernel's
-statement order.  Both update the state in place.  Only the insert path is
-ported; ``cluster_retract_chunk`` waits for dynamic partitioning (ROADMAP
-Queue 1 item 3).  ``cluster_stream`` ingests S lanes at once through
+statement order.  Both update the state in place.  Deleted edges retract
+through :func:`cluster_retract_chunk`, order-independent integer sums in
+plain torch (as the reference computes them outside any Pallas kernel).
+``cluster_stream`` ingests S lanes at once through
 ``run_parallel`` (``num_streams > 1``), merging the lanes' states by
 :attr:`ClusterCarry.merge_ops`.
 """
@@ -36,6 +37,7 @@ __all__ = [
     "DegreeCarry",
     "init_state",
     "cluster_chunk",
+    "cluster_retract_chunk",
     "cluster_stream",
     "compute_degrees",
     "compute_degrees_stream",
@@ -224,9 +226,74 @@ def cluster_chunk(state: ClusterState, src, dst, degrees, *, xi: int,
     return state
 
 
+def cluster_retract_chunk(state: ClusterState, src, dst, n_valid, degrees=None, *,
+                          xi: int | None = None, is_head=None) -> ClusterState:
+    """Retract one chunk of deleted edges from the clustering state (the
+    reference's ``cluster_retract_chunk``): a new state, the input's
+    tensors untouched.
+
+    Membership counters and local degrees subtract exactly; a tail edge
+    takes one unit of volume per endpoint from the vertex's *current* tail
+    cluster; a head vertex whose counter reaches 0 hands its allocation
+    contribution back to its head cluster and becomes unassigned, a tail
+    vertex likewise (its volume already went per incidence).  ``is_head``
+    is the per-edge head flag recorded at insertion, else the frozen-ξ
+    classification against ``degrees``.  Every sum is an int32
+    ``index_add_``, exact in any order; an update whose cluster id lies
+    past the volume arrays is dropped, as the reference's scatters drop it.
+    """
+    if is_head is None:
+        if degrees is None or xi is None:
+            raise ValueError("need either is_head flags or (degrees, xi)")
+        is_head = (degrees[src.long()] > xi) & (degrees[dst.long()] > xi)
+    dev = state.ld.device
+    V = state.ld.shape[0]
+    n_vol = state.vol_h.shape[0]
+    sink = n_vol - 1
+    src = src.to(dev)
+    dst = dst.to(dev)
+    s, d = src.long(), dst.long()
+    real = torch.arange(src.shape[0], device=dev) < int(n_valid)
+    valid = real & (src != dst)
+    is_head = is_head.to(dev, torch.bool)
+    h = (valid & is_head).to(torch.int32)
+    t = (valid & ~is_head).to(torch.int32)
+
+    def seg(w, idx):
+        return torch.zeros(V, dtype=torch.int32, device=dev).index_add_(0, idx, w)
+
+    cnt_h = state.cnt_h - seg(h, s) - seg(h, d)
+    cnt_t = state.cnt_t - seg(t, s) - seg(t, d)
+    ld = state.ld - seg(t, s) - seg(t, d)
+
+    def scatter_add(vol, idx, on, w):
+        """``vol.at[where(on, idx, sink)].add(where(on, w, 0))``, dropping
+        ids past the array."""
+        on = on & (idx < n_vol)
+        at = torch.where(on, idx, torch.full_like(idx, sink)).long()
+        return vol.index_add(0, at, torch.where(on, w, torch.zeros_like(w)))
+
+    vol_t = state.vol_t
+    for vtx in (s, d):
+        c = state.v2c_t[vtx]
+        vol_t = scatter_add(vol_t, c, (t > 0) & (c >= 0), torch.full_like(c, -1))
+    orphan = (cnt_h <= 0) & (state.cnt_h > 0) & (state.v2c_h >= 0)
+    vol_h = scatter_add(state.vol_h, state.v2c_h, orphan, -state.alloc_h)
+    zero = torch.zeros_like(state.alloc_h)
+    alloc_h = torch.where(orphan, zero, state.alloc_h)
+    v2c_h = torch.where(orphan, zero - 1, state.v2c_h)
+    orphan_t = (cnt_t <= 0) & (state.cnt_t > 0) & (state.v2c_t >= 0)
+    v2c_t = torch.where(orphan_t, zero - 1, state.v2c_t)
+    return ClusterState(
+        v2c_h=v2c_h, v2c_t=v2c_t, vol_h=vol_h, vol_t=vol_t, ld=ld,
+        next_h=state.next_h.clone(), next_t=state.next_t.clone(),
+        cnt_h=cnt_h, cnt_t=cnt_t, alloc_h=alloc_h)
+
+
 class ClusterCarry(PartitionerCarry):
     """Algorithm 1 as a carry (state-only).  Each chunk goes through
-    ``cluster_scan``: K1 on CUDA, the plain fold on the CPU.
+    ``cluster_scan``: K1 on CUDA, the plain fold on the CPU; a retraction
+    through :func:`cluster_retract_chunk` (approximate: see there).
 
     Merge ops as the reference declares them: volumes, local degrees and
     id counters SUM their lanes' deltas; the membership counters are
@@ -235,6 +302,7 @@ class ClusterCarry(PartitionerCarry):
     keeps the lowest lane's (real) id instead of a telescoped sum."""
 
     emits_parts = False
+    supports_retract = True
     retract_exact = False  # migrations are history-dependent
     # v2c_h, v2c_t, vol_h, vol_t, ld, next_h, next_t, cnt_h, cnt_t, alloc_h
     merge_ops = (SUM, SUM, SUM, SUM, SUM, SUM, SUM, COUNTED, COUNTED, SUM)
@@ -256,6 +324,10 @@ class ClusterCarry(PartitionerCarry):
                                     xi=self.xi, kappa=self.kappa,
                                     global_tail=self.global_tail)
         return ClusterState(*leaves), None
+
+    def retract_chunk(self, carry, src, dst, n_valid, parts, *extras):
+        return cluster_retract_chunk(carry, src, dst, n_valid, self.degrees,
+                                     xi=self.xi)
 
     def occupancy_contest(self, before, after) -> float:
         """Reassignment churn between merge bases: the fraction of assigned

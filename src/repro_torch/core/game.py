@@ -11,7 +11,8 @@ cluster i on partition p (paper Eq. 6):
 
 Each improving move is accepted with probability ``accept_prob``; the
 acceptance draws are ``jax.random.uniform`` bit for bit
-(:mod:`repro_torch.random`), so assignments match the reference.
+(:mod:`repro_torch.random`, in either threefry mode), so assignments
+match the reference.
 
 Only the rows of the batch can move, so each batch computes ``W`` for its
 own rows from a cluster-sorted adjacency (CSR) instead of for all C rows;
@@ -335,8 +336,8 @@ def _acceptance(key0, rounds, leader, batch, cid, accept_prob):
     kk0 = torch.where(leader, torch.tensor(k1[0], device=dev), torch.tensor(k2[0], device=dev))
     kk1 = torch.where(leader, torch.tensor(k1[1], device=dev), torch.tensor(k2[1], device=dev))
     b0, b1 = _random.fold_in((kk0, kk1), batch)
-    y0, y1 = _random.threefry2x32(b0, b1, 0, cid)
-    return _random.bits_to_uniform(y0 ^ y1) < accept_prob
+    bits = _random.bits_at(b0, b1, cid.shape[0], cid)
+    return _random.bits_to_uniform(bits) < accept_prob
 
 
 def run_game(inputs: GameInputs, n_clusters: int, *, batch_size: int = 256,

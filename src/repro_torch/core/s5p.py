@@ -20,7 +20,9 @@ touch-up (``touch_up``, :func:`_touch_up`) plays a masked game of at most
 ``refine_rounds`` rounds over the clusters that two or more lanes wrote
 and re-places the edges of the clusters that moved.  The stream may be
 an out-of-core ``ShardedEdgeStream`` (edge shards paged from disk).  The
-drift knobs (ROADMAP Queue 1 item 3) and the hybrid budget (item 6) raise.
+drift knobs serve the warm-start bundle of :mod:`repro_torch.incremental`,
+which packs ``aux["incremental"]``; the hybrid budget (ROADMAP Queue 1
+item 6) raises.
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ class S5PConfig:
     # after a parallel run: a masked game of at most refine_rounds rounds
     # over the clusters two or more lanes wrote, then their edges re-placed
     touch_up: bool = True
-    # the drift knobs (each must keep its default: see __post_init__);
-    # refine_rounds, between them, is also the touch-up's round budget
+    # incremental re-partitioning (repro_torch.incremental): the drift
+    # monitor's thresholds, the refinement game's round budget (also the
+    # touch-up's) and the ξ/κ refresh signal's threshold
     drift_rf_threshold: float = 0.05
     drift_balance_threshold: float = 0.10
     refine_rounds: int = 16
@@ -79,12 +82,6 @@ class S5PConfig:
     host_budget: int | None = None
 
     def __post_init__(self):
-        if (self.drift_rf_threshold, self.drift_balance_threshold,
-                self.drift_churn_threshold, self.xi_refresh_threshold) != (
-                    0.05, 0.10, 0.25, 0.5):
-            raise NotImplementedError(
-                "incremental re-partitioning and its drift knobs wait for "
-                "dynamic partitioning, ROADMAP Queue 1 item 3")
         if self.host_budget is not None:
             raise NotImplementedError(
                 "the memory-budget hybrid partitioner (host_budget) waits "

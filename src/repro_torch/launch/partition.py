@@ -26,16 +26,35 @@ that take them (grid, greedy, hdrf, s5p, s5p-exact), dealt by
 A ``file:`` graph pages every row that takes a stream from its shards
 (the others run on its arrival arrays, marked ``[in-memory, natural]``;
 the metrics read those arrays too).  Runs on ``cuda`` unless ``--device``
-names another device.  The incremental, hybrid (``--host-budget``) and
-elastic flags wait for later slices.
+names another device.
+
+Incremental re-partitioning (``repro_torch.incremental``; the carry
+stores are the reference's format, so either CLI resumes the other's):
+
+  python -m repro_torch.launch.partition --graph rmat:14 --k 32 --partitioner s5p \
+      --save-carry /data/carry
+  python -m repro_torch.launch.partition --graph rmat:14 --k 32 --partitioner s5p \
+      --resume-carry /data/carry --delta rmat:10 --delete frac:0.05
+  python -m repro_torch.launch.partition --graph rmat:14 --k 32 --window-edges 65536 \
+      --window-step 16384
+
+``--save-carry DIR`` persists a cold run's warm-start bundle (greedy, hdrf,
+grid, s5p); ``--resume-carry DIR`` replays everything past the bundle's
+stream position (a ``file:`` graph grown by ``--write-shards --append``,
+plus any ``--delta`` batch) and applies ``--delete`` (``first:X | last:X
+| frac:F``); ``--window-edges`` partitions the last W edges step by step
+(s5p).  The elastic ``--resize-k`` (ROADMAP Queue 1 item 4) raises; the
+hybrid ``--host-budget`` waits for item 6.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import inspect
 import time
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -92,14 +111,170 @@ def write_shards_cli(graph: str, out_dir: str, shard_edges: int, seed: int = 0,
 SHARD_MODES = ("range", "rr", "round-robin", "hub")
 
 
+def _parse_delete(spec: str, n_edges: int, seed: int) -> np.ndarray:
+    """``--delete`` spec → arrival indices (the reference's parser).
+
+    ``first:X`` / ``last:X``: the oldest / most recent X edges (a count,
+    or a fraction when X < 1); ``frac:F``: a seeded random fraction.
+    """
+    kind, _, arg = spec.partition(":")
+    try:
+        x = float(arg)
+    except ValueError:
+        raise ValueError(f"--delete {spec!r}: expected a number after ':'")
+    if kind in ("first", "last"):
+        count = int(round(x * n_edges)) if 0 < x < 1 else int(x)
+        count = max(0, min(count, n_edges))
+        return (np.arange(count, dtype=np.int64) if kind == "first"
+                else np.arange(n_edges - count, n_edges, dtype=np.int64))
+    if kind == "frac":
+        if not 0 <= x <= 1:
+            raise ValueError("--delete frac: needs a fraction in [0, 1]")
+        rng = np.random.default_rng(seed + 0x5EED)
+        count = int(round(x * n_edges))
+        return np.sort(rng.choice(n_edges, size=count, replace=False)
+                       ).astype(np.int64)
+    raise ValueError(
+        f"unknown --delete spec {spec!r}; one of first:X | last:X | frac:F")
+
+
+def _s5p_cfg(k, seed, chunk_size, ordering, num_streams, super_chunk,
+             drift_threshold, refine_rounds, xi_refresh_threshold,
+             shard="range"):
+    from ..core import S5PConfig
+
+    cfg = S5PConfig(k=k, seed=seed, chunk_size=chunk_size, ordering=ordering,
+                    num_streams=num_streams, super_chunk=super_chunk,
+                    shard=shard)
+    overrides = {}
+    if drift_threshold is not None:
+        overrides["drift_rf_threshold"] = drift_threshold
+    if refine_rounds is not None:
+        overrides["refine_rounds"] = refine_rounds
+    if xi_refresh_threshold is not None:
+        overrides["xi_refresh_threshold"] = xi_refresh_threshold
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def _run_window_cli(src, dst, n, k, partitioner, seed, window_edges,
+                    window_step, *, stream, chunk_size, ordering,
+                    drift_threshold, refine_rounds, xi_refresh_threshold, dev):
+    """``--window-edges``: continuous sliding-window partitioning."""
+    from ..incremental import s5p_sliding_window
+
+    if partitioner != "s5p":
+        raise ValueError("--window-edges drives the s5p pipeline; use "
+                         "--partitioner s5p (scan partitioners delete via "
+                         "--resume-carry --delete)")
+    if ordering != "natural":
+        raise ValueError("sliding windows are defined over arrival order; "
+                         "drop --ordering")
+    cfg = _s5p_cfg(k, seed, chunk_size, ordering, 1, 8, drift_threshold,
+                   refine_rounds, xi_refresh_threshold)
+    t0 = time.perf_counter()
+    history, _ = s5p_sliding_window(src, dst, n, cfg, window_edges,
+                                    step_edges=window_step, stream=stream,
+                                    device=dev)
+    dt = time.perf_counter() - t0
+    for st_ in history:
+        flags = "".join((
+            "F" if st_.filling else "-",
+            "R" if st_.refined else "-",
+            "B" if st_.rolled_back else "-",
+            "C" if st_.n_compacted else "-",
+            "X" if st_.needs_cold_restart else "-",
+        ))
+        print(f"step {st_.step:4d} window=[{st_.lo},{st_.hi}) "
+              f"RF={st_.rf:7.3f} balance={st_.balance:5.2f} "
+              f"+{st_.n_inserted}/-{st_.n_retracted} churn={st_.churn:.2f} "
+              f"xi_drift={st_.xi_drift:.2f} [{flags}]")
+    print(f"[window] {len(history)} steps, {dt:.1f}s total "
+          f"({dt / max(len(history), 1):.2f}s/step)")
+    return history
+
+
+def _run_incremental_cli(src, dst, n, k, partitioner, seed, compare, *,
+                         stream, chunk_size, ordering, num_streams,
+                         super_chunk, shard, save_carry, resume_carry, delta,
+                         delete, drift_threshold, refine_rounds,
+                         xi_refresh_threshold, dev):
+    """``--save-carry`` / ``--resume-carry`` / ``--delta`` / ``--delete``."""
+    from ..incremental import cold_start, run_incremental
+
+    if compare:
+        raise ValueError("carry flows need a single --partitioner, "
+                         "not --compare")
+    if delta and not resume_carry:
+        raise ValueError("--delta needs --resume-carry (an insertion batch "
+                         "is replayed against a saved carry)")
+    if delete and not resume_carry:
+        raise ValueError("--delete needs --resume-carry (deletions retract "
+                         "against a saved carry)")
+    if ordering != "natural":
+        raise ValueError(
+            "incremental carries assume natural (insertion-order) streams; "
+            f"a {ordering!r} reordering permutes the whole grown stream and "
+            "has no stable prefix to resume from")
+    if delta:
+        dsrc, ddst, dn = load_graph(delta, seed + 1)
+        src = np.concatenate([np.asarray(src, np.int32),
+                              np.asarray(dsrc, np.int32)])
+        dst = np.concatenate([np.asarray(dst, np.int32),
+                              np.asarray(ddst, np.int32)])
+        n = max(n, dn)
+    cfg = _s5p_cfg(k, seed, chunk_size, ordering, num_streams, super_chunk,
+                   drift_threshold, refine_rounds, xi_refresh_threshold,
+                   shard)
+    if resume_carry:
+        delete_idx = _parse_delete(delete, len(src), seed) if delete else None
+        t0 = time.perf_counter()
+        res = run_incremental(
+            resume_carry, partitioner, src, dst, n, k, seed=seed,
+            chunk_size=chunk_size, s5p_config=cfg, delete=delete_idx,
+            num_streams=num_streams, super_chunk=super_chunk, save=True,
+            save_dir=save_carry, device=dev)
+        dt = time.perf_counter() - t0
+        cold_note = " NEEDS-COLD-RESTART" if res.needs_cold_restart else ""
+        print(f"{partitioner:10s} RF={res.rf:7.3f} balance={res.balance:5.2f} "
+              f"delta={res.n_delta_edges} deleted={res.n_retracted} "
+              f"replay={res.replay_fraction:.1%} "
+              f"drift={res.rf_drift:+.3f} churn={res.churn:.2f} "
+              f"refined={res.refined} rolled_back={res.rolled_back} "
+              f"rounds={res.game_rounds}  {dt:6.1f}s{cold_note}")
+        return res
+    t0 = time.perf_counter()
+    parts, path = cold_start(save_carry, partitioner, src, dst, n, k,
+                             seed=seed, chunk_size=chunk_size,
+                             s5p_config=cfg, stream=stream,
+                             num_streams=num_streams,
+                             super_chunk=super_chunk, device=dev)
+    dt = time.perf_counter() - t0
+    s = torch.from_numpy(np.asarray(src, np.int32)).to(dev)
+    d = torch.from_numpy(np.asarray(dst, np.int32)).to(dev)
+    p = torch.from_numpy(parts).to(dev)
+    rf = replication_factor(s, d, p, n_vertices=n, k=k)
+    bal = load_balance(p, k=k)
+    print(f"{partitioner:10s} RF={rf:7.3f} balance={bal:5.2f} "
+          f"carry→{path}  {dt:6.1f}s")
+    return [(partitioner, rf, bal, None, dt)]
+
+
 def run(graph: str, k: int, partitioner: str = "s5p", *, seed: int = 0,
         compare: bool = False, chunk_size: int = 1 << 16,
         ordering: str = "natural", window: int = 4096, num_streams: int = 1,
         super_chunk: int | str = 8, shard: str = "range",
-        device=None) -> list[tuple]:
+        save_carry: str | None = None, resume_carry: str | None = None,
+        delta: str | None = None, delete: str | None = None,
+        drift_threshold: float | None = None,
+        refine_rounds: int | None = None,
+        xi_refresh_threshold: float | None = None,
+        window_edges: int | None = None, window_step: int | None = None,
+        resize_k: int | None = None, device=None):
     """Partition ``graph`` with one partitioner (or all, ``compare``) and
     print one row each.  Returns ``[(name, rf, balance, gas_comm_bytes,
-    seconds), ...]``, the reference's rows."""
+    seconds), ...]``, the reference's rows; the carry flows return the
+    reference's results instead (a cold start's row, an
+    ``IncrementalResult``, or the window's ``WindowStep`` history)."""
     for pname, v in (("k", k), ("chunk_size", chunk_size), ("window", window),
                      ("num_streams", num_streams)):
         if v < 1:
@@ -113,6 +288,14 @@ def run(graph: str, k: int, partitioner: str = "s5p", *, seed: int = 0,
     if shard not in SHARD_MODES:
         raise ValueError(f"shard must be one of range | rr | round-robin | "
                          f"hub, got {shard!r}")
+    if resize_k is not None:
+        if compare or window_edges is not None or resume_carry or delta or delete:
+            raise ValueError("--resize-k runs a single cold partition "
+                             "followed by an elastic reshard; drop "
+                             "--compare/--window-edges/carry flags")
+        raise NotImplementedError(
+            "--resize-k (elastic.reshard_bundle) waits for elastic "
+            "resharding, ROADMAP Queue 1 item 4")
     dev = resolve_device(device)
     on_disk = graph.startswith("file:")
     if on_disk:
@@ -139,6 +322,39 @@ def run(graph: str, k: int, partitioner: str = "s5p", *, seed: int = 0,
                 f"super_chunk must be <= the {rounds} chunks each of the "
                 f"{num_streams} sub-streams ingests (else it degenerates "
                 f"to a single merge), got {super_chunk}")
+    carry_flow = save_carry or resume_carry or delta or delete
+    if window_edges is not None:
+        if compare:
+            raise ValueError("--window-edges runs a single partitioner, "
+                             "not --compare")
+        if num_streams > 1:
+            raise ValueError("--window-edges is sequential (the per-step "
+                             "delta/retract batches are not sharded); drop "
+                             "--num-streams")
+        for flag, val in (("--save-carry", save_carry),
+                          ("--resume-carry", resume_carry),
+                          ("--delta", delta), ("--delete", delete)):
+            if val:
+                raise ValueError(
+                    f"{flag} does not combine with --window-edges (the "
+                    "window loop manages its own bundle in memory)")
+    if window_edges is not None or carry_flow:
+        kw = dict(chunk_size=chunk_size, ordering=ordering,
+                  drift_threshold=drift_threshold, refine_rounds=refine_rounds,
+                  xi_refresh_threshold=xi_refresh_threshold, dev=dev,
+                  stream=stream if on_disk else None)
+        try:
+            if window_edges is not None:
+                return _run_window_cli(src, dst, n, k, partitioner, seed,
+                                       window_edges, window_step, **kw)
+            return _run_incremental_cli(
+                src, dst, n, k, partitioner, seed, compare,
+                num_streams=num_streams, super_chunk=super_chunk, shard=shard,
+                save_carry=save_carry, resume_carry=resume_carry,
+                delta=delta, delete=delete, **kw)
+        finally:
+            if on_disk:
+                stream.close()
     s = torch.from_numpy(src).to(dev)
     d = torch.from_numpy(dst).to(dev)
     # one replayable stream, in the requested order, for every row that
@@ -230,6 +446,39 @@ def main(argv=None):
                     help="edges a shard, for --write-shards")
     ap.add_argument("--append", action="store_true",
                     help="with --write-shards: grow the shard directory in place")
+    ap.add_argument("--save-carry", default=None, metavar="DIR",
+                    help="persist the partitioner's warm-start carry bundle "
+                         "to DIR (greedy/hdrf/grid/s5p)")
+    ap.add_argument("--resume-carry", default=None, metavar="DIR",
+                    help="warm-start from the carry in DIR; the delta is "
+                         "everything past its recorded stream position "
+                         "(grow file: graphs via --write-shards --append) "
+                         "plus any --delta batch")
+    ap.add_argument("--delta", default=None, metavar="SPEC",
+                    help="insertion batch (same specs as --graph) appended "
+                         "to the stream before resuming")
+    ap.add_argument("--delete", default=None, metavar="SPEC",
+                    help="deletion batch against a resumed carry: first:X | "
+                         "last:X (count, or fraction when X < 1) | frac:F "
+                         "(seeded random fraction)")
+    ap.add_argument("--window-edges", type=_positive_int, default=None,
+                    help="sliding-window mode: continuously partition the "
+                         "last W edges of the stream (s5p)")
+    ap.add_argument("--window-step", type=_positive_int, default=None,
+                    help="edges admitted per sliding-window step "
+                         "(default: min(chunk-size, window-edges))")
+    ap.add_argument("--drift-threshold", type=float, default=None,
+                    help="relative RF drift that triggers game refinement "
+                         "on resume (s5p; default from S5PConfig)")
+    ap.add_argument("--refine-rounds", type=int, default=None,
+                    help="refinement budget in Stackelberg rounds "
+                         "(s5p; 0 disables)")
+    ap.add_argument("--xi-refresh-threshold", type=float, default=None,
+                    help="relative ξ/κ drift past which a warm chain "
+                         "reports needs_cold_restart (s5p; default from "
+                         "S5PConfig)")
+    ap.add_argument("--resize-k", type=_positive_int, default=None,
+                    help="elastic resize (waits for ROADMAP Queue 1 item 4)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain versions)")
     a = ap.parse_args(argv)
@@ -242,7 +491,12 @@ def main(argv=None):
     run(a.graph, a.k, a.partitioner, seed=a.seed, compare=a.compare,
         chunk_size=a.chunk_size, ordering=a.ordering, window=a.window,
         num_streams=a.num_streams, super_chunk=a.super_chunk,
-        shard=a.shard_mode, device=a.device)
+        shard=a.shard_mode, save_carry=a.save_carry,
+        resume_carry=a.resume_carry, delta=a.delta, delete=a.delete,
+        drift_threshold=a.drift_threshold, refine_rounds=a.refine_rounds,
+        xi_refresh_threshold=a.xi_refresh_threshold,
+        window_edges=a.window_edges, window_step=a.window_step,
+        resize_k=a.resize_k, device=a.device)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,16 @@ lo(i)))`` of the flat index ``i`` — so any slice of a draw can be computed
 on its own: :func:`random_bits` takes a flat-index range ``[start, stop)``
 and :func:`truncated_normal` can fill a preallocated output slice by slice,
 bitwise equal to the whole draw (a draw of 10^9 elements would otherwise
-keep several int64 arrays of that size alive at once).  The other mode is
-not ported.  ``normal`` and
+keep several int64 arrays of that size alive at once).
+
+The other mode (``jax_threefry_partitionable=False``) runs inside
+``with threefry_partitionable(False):``, a scoped switch (the port has no
+global config to read).  There a draw of
+``n`` elements hashes the counter pairs ``(i, i + m)`` for ``i < m =
+⌈n/2⌉`` (the last one ``(m − 1, 0)`` when ``n`` is odd) and lays the first
+words of the pairs before the second words; ``split(key, num)`` is the draw
+of ``2·num`` elements read as ``num`` consecutive pairs.  :func:`fold_in`
+and :func:`PRNGKey` are the same in both modes.  ``normal`` and
 ``truncated_normal`` draw JAX's uniform bits exactly but use PyTorch's
 erfinv (a few ulp from XLA's).
 
@@ -23,6 +31,7 @@ tensors for a batch of keys.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -31,12 +40,31 @@ import torch
 from ._fp32 import fma_f32
 
 __all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
-           "bits_to_uniform", "uniform", "randint", "mul32", "normal",
-           "truncated_normal", "SLICE_ELEMS"]
+           "bits_at", "bits_to_uniform", "uniform", "randint", "mul32", "normal",
+           "truncated_normal", "threefry_partitionable", "partitionable",
+           "SLICE_ELEMS"]
 
 M32 = 0xFFFFFFFF
 SLICE_ELEMS = 1 << 26  # elements per slice of a draw filled into ``out``
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARTITIONABLE = [True]  # the mode of every draw; see threefry_partitionable
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool):
+    """Draw in JAX's ``jax_threefry_partitionable=flag`` mode inside the
+    ``with`` block (``True``, JAX 0.9's default, outside any block)."""
+    prev = _PARTITIONABLE[0]
+    _PARTITIONABLE[0] = bool(flag)
+    try:
+        yield
+    finally:
+        _PARTITIONABLE[0] = prev
+
+
+def partitionable() -> bool:
+    """The mode draws are made in (see :func:`threefry_partitionable`)."""
+    return _PARTITIONABLE[0]
 
 
 def mul32(a, b: int):
@@ -81,8 +109,35 @@ def fold_in(key, data):
 
 
 def split(key, num: int = 2) -> list[tuple[int, int]]:
-    """``jax.random.split`` (fold-like: key ``j`` hashes counter ``j``)."""
-    return [threefry2x32(key[0], key[1], 0, j) for j in range(num)]
+    """``jax.random.split``: key ``j`` hashes counter ``j`` (partitionable
+    mode), or is words ``2j`` and ``2j + 1`` of a ``2·num``-element draw."""
+    if partitionable():
+        return [threefry2x32(key[0], key[1], 0, j) for j in range(num)]
+    words = [bits_at(key[0], key[1], 2 * num, i) for i in range(2 * num)]
+    return [(words[2 * j], words[2 * j + 1]) for j in range(num)]
+
+
+def bits_at(k0, k1, n: int, idx):
+    """Element ``idx`` of a draw of ``n`` 32-bit words under key ``(k0,
+    k1)``, in the current mode; ``idx`` (and the key words) may be Python
+    ints or int64 tensors."""
+    if partitionable():
+        y0, y1 = threefry2x32(k0, k1, 0, idx)
+        return y0 ^ y1
+    if n > 2**32 - 1:  # the reference splits such draws into blocks
+        raise NotImplementedError("draws of 2**32 - 1 elements or more")
+    m = (n + 1) // 2
+    if isinstance(idx, int):
+        lo = idx < m
+        x0, x1 = (idx, idx + m if idx + m < n else 0) if lo else (idx - m, idx)
+        y0, y1 = threefry2x32(k0, k1, x0, x1)
+        return y0 if lo else y1
+    lo = idx < m
+    x0 = torch.where(lo, idx, idx - m)
+    x1 = torch.where(lo, idx + m, idx)
+    x1 = torch.where(x1 < n, x1, torch.zeros_like(x1))
+    y0, y1 = threefry2x32(k0, k1, x0, x1)
+    return torch.where(lo, y0, y1)
 
 
 def _counters(start: int, stop: int, device):
@@ -100,14 +155,12 @@ def random_bits(key, shape, device="cpu", start: int = 0,
     alone, so the slice is bitwise the whole draw's ``reshape(-1)[start:stop]``.
     """
     n = math.prod(shape)
-    if start == 0 and stop is None:
-        y0, y1 = threefry2x32(key[0], key[1], 0, _counters(0, n, device))
-        return (y0 ^ y1).reshape(shape)
+    whole = start == 0 and stop is None
     stop = n if stop is None else stop
     if not 0 <= start <= stop <= n:
         raise ValueError(f"range [{start}, {stop}) outside a draw of {n} elements")
-    y0, y1 = threefry2x32(key[0], key[1], 0, _counters(start, stop, device))
-    return y0 ^ y1
+    bits = bits_at(key[0], key[1], n, _counters(start, stop, device))
+    return bits.reshape(shape) if whole else bits
 
 
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:

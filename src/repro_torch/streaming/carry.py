@@ -14,9 +14,13 @@ finalize`` quintuple over an O(|V| + k) carry:
 
 Merge semantics are declared per leaf in :attr:`PartitionerCarry.merge_ops`,
 in the order :func:`tree_flatten` visits the carry: tuples and NamedTuples
-(``ClusterState``, ``CMSketch``) are walked depth first, anything else is a
-leaf (a tensor, or a Python scalar such as the grid's ``n_cols``, which is
-always ``REPLICATED``).  The ops are those of ``repro.streaming.carry``:
+(``ClusterState``, ``CMSketch``), lists and dicts (keys sorted) are walked
+depth first, ``None`` holds no leaf, anything else is a leaf (a tensor, an
+array, or a Python scalar such as the grid's ``n_cols``, which is always
+``REPLICATED``) — the order of ``jax.tree_util``.
+:func:`tree_flatten_with_paths` names each leaf by the reference's
+checkpoint path (``carry/scan/0``, ``carry/.v2c_h``), the key a checkpoint
+file stores it under.  The ops are those of ``repro.streaming.carry``:
 
 - ``SUM`` — additive statistics (loads, volumes, degrees, CMS tables, id
   counters).  Carries that diverged from a common ``base`` merge as
@@ -57,6 +61,7 @@ __all__ = [
     "FnCarry",
     "RetractCarry",
     "tree_flatten",
+    "tree_flatten_with_paths",
     "tree_leaves",
     "tree_unflatten",
 ]
@@ -78,22 +83,45 @@ CARRY_REPR = 2
 _LEAF = object()
 
 
-def _walk(x, leaves: list):
+def _walk(x, leaves: list, paths: list | None = None, prefix: str = ""):
     if x is None:
         return None
-    if isinstance(x, tuple):
-        return (type(x), [_walk(c, leaves) for c in x])
+    if isinstance(x, dict):
+        keys = sorted(x)
+        return (dict, keys, [_walk(x[k], leaves, paths, _join(prefix, k)) for k in keys])
+    if isinstance(x, (tuple, list)):
+        named = getattr(x, "_fields", None)
+        return (type(x), None, [
+            _walk(c, leaves, paths, _join(prefix, f".{named[i]}" if named else i))
+            for i, c in enumerate(x)])
     leaves.append(x)
+    if paths is not None:
+        paths.append(prefix)
     return _LEAF
 
 
+def _join(prefix: str, key) -> str:
+    return f"{prefix}/{key}" if prefix else str(key)
+
+
 def tree_flatten(tree) -> tuple[list, Any]:
-    """``(leaves, spec)``: tuples and NamedTuples walked depth first, every
-    other object a leaf; ``None`` holds no leaf (as in ``jax.tree_util``).
-    Plain recursion, no closures: a self-referencing closure would keep the
-    leaves (the lanes' tensors) alive until the cyclic collector runs."""
+    """``(leaves, spec)``: tuples, NamedTuples, lists and dicts (sorted
+    keys) walked depth first, every other object a leaf; ``None`` holds no
+    leaf (as in ``jax.tree_util``).  Plain recursion, no closures: a
+    self-referencing closure would keep the leaves (the lanes' tensors)
+    alive until the cyclic collector runs."""
     leaves: list = []
     return leaves, _walk(tree, leaves)
+
+
+def tree_flatten_with_paths(tree) -> list[tuple[str, Any]]:
+    """``[(path, leaf)]`` in :func:`tree_flatten` order, each path the
+    reference checkpoint's key: dict keys, sequence indices and
+    ``.field`` for a NamedTuple field, joined by ``/``."""
+    leaves: list = []
+    paths: list = []
+    _walk(tree, leaves, paths)
+    return list(zip(paths, leaves))
 
 
 def _build(spec, it):
@@ -101,9 +129,11 @@ def _build(spec, it):
         return None
     if spec is _LEAF:
         return next(it)
-    typ, kids = spec
+    typ, keys, kids = spec
     vals = [_build(k, it) for k in kids]
-    return typ(vals) if typ is tuple else typ(*vals)
+    if typ is dict:
+        return dict(zip(keys, vals))
+    return typ(vals) if typ in (tuple, list) else typ(*vals)
 
 
 def tree_unflatten(spec, leaves: Iterable):

@@ -38,10 +38,11 @@ last drive did (schedule, per-lane chunks, edges and seconds).
 
 ``num_streams=1`` (or a one-chunk stream) runs the sequential driver and
 is bit-identical to it in every shard mode.  ``shard_map`` waits for
-multi-device S5P (ROADMAP Queue 1 item 7), ``straggler`` handoff for the
-runtime (item 4) and ``carry_store`` checkpoints for dynamic partitioning
-(item 3); each raises.  ``on_lane_failure="replay"`` re-folds a failed
-lane's super-chunk from the in-memory merge base.
+multi-device S5P (ROADMAP Queue 1 item 7) and ``straggler`` handoff for
+the runtime (item 4); each raises.  ``on_lane_failure="replay"`` re-folds
+a failed lane's super-chunk from the merge base: the in-memory one, or
+with a ``carry_store`` (:class:`~repro_torch.incremental.CarryStore`) the
+one checkpointed at every merge, restored from disk.
 """
 
 from __future__ import annotations
@@ -547,6 +548,8 @@ def run_parallel(
     lane_injector=None,
     straggler=None,
     carry_store=None,
+    carry_consumer: str | None = None,
+    carry_config=None,
 ):
     """Drive ``pc`` over ``stream`` with S-way parallel ingest.
 
@@ -560,7 +563,11 @@ def run_parallel(
     re-folds a lane whose super-chunk raised, from the merge base, which
     is bit-identical to the drive without the failure; ``lane_injector``
     is a duck-typed ``check(lane, chunk_id)`` called before each chunk
-    (threads backend).
+    (threads backend).  With a ``carry_store`` (threads backend) every
+    merge base, the start carry included, is checkpointed under
+    ``carry_consumer`` (default ``parallel:<carry class>``) and
+    ``carry_config`` (plus the cadence and the shard mode), keyed by the
+    edges merged so far, and a replay restores its base from disk.
     """
     if num_streams < 1:
         raise ValueError("num_streams must be >= 1")
@@ -586,10 +593,6 @@ def run_parallel(
         raise NotImplementedError(
             "straggler handoff waits for elastic resharding and the runtime, "
             "ROADMAP Queue 1 item 4")
-    if carry_store is not None:
-        raise NotImplementedError(
-            "carry_store checkpoints wait for dynamic partitioning "
-            "(incremental/ and checkpoint/), ROADMAP Queue 1 item 3")
     if num_streams == 1 or stream.n_chunks <= 1:
         t0 = time.perf_counter()
         out = run_carry(stream, pc, *extras, carry=carry)
@@ -605,9 +608,10 @@ def run_parallel(
                             hub_threshold=hub_threshold)
     S = ps.num_streams
     backend = backend or "threads"
-    if (lane_injector is not None or on_lane_failure != "raise") and backend != "threads":
-        raise ValueError("lane fault handling runs on the threads backend; "
-                         f"got backend={backend!r}")
+    if (lane_injector is not None or carry_store is not None
+            or on_lane_failure != "raise") and backend != "threads":
+        raise ValueError("lane fault handling and carry checkpoints run on the "
+                         f"threads backend; got backend={backend!r}")
     base = pc.init() if carry is None else carry
     parts_by_chunk: dict[int, torch.Tensor] = {}
     ctl = _CadenceController(pc, super_chunk)
@@ -678,6 +682,31 @@ def run_parallel(
                 lane_streams[s].wait_stream(main)
             return c
 
+        edges_done = 0  # edges committed through merges (the checkpoint key)
+        consumer = (carry_consumer if carry_consumer is not None
+                    else f"parallel:{type(pc).__name__}")
+        store_cfg = dict(carry_config or {})
+        store_cfg.setdefault("super_chunk", str(super_chunk))
+        store_cfg.setdefault("shard", shard)
+
+        def save_base():
+            if carry_store is not None:
+                carry_store.save(base, consumer=consumer, config=store_cfg,
+                                 stream_pos=edges_done)
+
+        def replay_start(s, batch):
+            """The failed lane's start: the last commit point, from disk
+            when checkpointed (fresh tensors: no copy needed)."""
+            if carry_store is None or not batch:
+                return start_of(s, batch)
+            restored, _ = carry_store.load(like=base, consumer=consumer,
+                                           config=store_cfg,
+                                           max_stream_pos=edges_done)
+            if cuda:
+                lane_streams[s].wait_stream(main)
+            return restored
+
+        save_base()  # a lane can die before the first merge commits
         pos = [0] * S
         with (ThreadPoolExecutor(max_workers=S) if cuda else _InlineExecutor()) as ex:
             while any(pos[s] < len(ps.lanes[s]) for s in range(S)):
@@ -701,7 +730,7 @@ def run_parallel(
                     # the merge base is the last commit point: re-fold the
                     # lane's chunks from it, bit-identical to no failure
                     locals_[s], times[s] = ex.submit(
-                        lane_fold, s, batches[s], start_of(s, batches[s]),
+                        lane_fold, s, batches[s], replay_start(s, batches[s]),
                         None).result()
                 if cuda:
                     for ls in lane_streams:
@@ -710,11 +739,13 @@ def run_parallel(
                 base = pc.merge(locals_, base=prev)
                 locals_ = futs = None  # the lanes' copies go before the next ones
                 ctl.observe(prev, base)
+                edges_done += sum(ps.chunk_n_valid(cid) for b in batches for cid in b)
                 for s in range(S):
                     pos[s] += len(batches[s])
                     lane_chunks[s] += len(batches[s])
                     lane_edges[s] += sum(ps.chunk_n_valid(c) for c in batches[s])
                     lane_wall[s] += times[s]
+                save_base()
         if cuda:
             for p in parts_by_chunk.values():
                 p.record_stream(main)

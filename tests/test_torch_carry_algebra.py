@@ -286,7 +286,16 @@ def test_fn_and_retract_adapters():
     back, parts = rc.step_chunk(deg.clone(), torch.tensor([0, 1]), torch.tensor([2, 3]), 2)
     assert parts is None and int(back.abs().sum()) == 0
     with pytest.raises(NotImplementedError, match="edge deletion"):
-        RetractCarry(ClusterCarry(torch.ones(3, dtype=torch.int32), 3, xi=1, kappa=5))
+        RetractCarry(fc)
+    # Alg. 1 retracts since dynamic partitioning (cluster_retract_chunk)
+    from repro_torch.core.clustering import cluster_retract_chunk
+
+    cc = ClusterCarry(torch.full((4,), 2, dtype=torch.int32), 4, xi=1, kappa=5)
+    s, d = torch.tensor([0, 1]), torch.tensor([2, 3])
+    st, _ = cc.step_chunk(cc.init(), s, d, 2)
+    back, _ = RetractCarry(cc, with_parts=False).step_chunk(st, s, d, 2)
+    want = cluster_retract_chunk(st, s, d, 2, cc.degrees, xi=1)
+    assert all(torch.equal(a, b) for a, b in zip(back, want))
 
 
 def test_tree_flatten_order():

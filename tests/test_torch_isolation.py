@@ -31,7 +31,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.cin.kernel", "repro_torch.kernels.cin.ops",
             "repro_torch.kernels.cin.ref", "repro_torch.configs.xdeepfm",
             "repro_torch.streaming.oocstream", "repro_torch.streaming.window",
-            "repro_torch.data.pipeline"} <= set(mods)
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.checkpoint.reshard", "repro_torch.incremental.store",
+            "repro_torch.incremental.delta", "repro_torch.incremental.drift",
+            "repro_torch.incremental.pipeline", "repro_torch.incremental.driver"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -70,6 +73,8 @@ def _entry_points():
     from repro_torch.data import EdgeChunkPipeline, TokenPipeline
     from repro_torch.streaming import ShardedEdgeStream
 
+    from repro_torch import incremental as inc
+
     cfg = GCNConfig(n_layers=2, d_hidden=2, d_feat=2, n_classes=2)
     lm_cfg = get_arch("llama3-8b").smoke_config
     lm_params = {"embed": torch.ones(lm_cfg.vocab, lm_cfg.d_model)}
@@ -96,6 +101,13 @@ def _entry_points():
         "sharded_stream": lambda: ShardedEdgeStream("no-such-manifest.json"),
         "edge_chunk_pipeline": lambda: EdgeChunkPipeline(src, dst, 3),
         "token_pipeline": lambda: TokenPipeline(8, 1, 4),
+        "cold_start": lambda: inc.cold_start("no-such-store", "greedy", src, dst, 3, 2),
+        "run_incremental": lambda: inc.run_incremental("no-such-store", "s5p", src, dst, 3, 2),
+        "s5p_cold_bundle": lambda: inc.s5p_cold_bundle(src, dst, 3, S5PConfig(k=2)),
+        "s5p_apply_delta": lambda: inc.s5p_apply_delta({}, S5PConfig(k=2), src, dst, 0),
+        "s5p_apply_deletion": lambda: inc.s5p_apply_deletion({}, S5PConfig(k=2), src, dst, []),
+        "compact_bundle": lambda: inc.compact_bundle({}, S5PConfig(k=2)),
+        "window_chain": lambda: inc.S5PWindowChain(src, dst, 3, S5PConfig(k=2), 2),
     }
 
 
@@ -104,7 +116,9 @@ def _entry_points():
                                   "gcn_init", "gcn_forward", "segment_aggregate",
                                   "init_params", "prefill", "serve_lm", "serve_recsys",
                                   "xdeepfm_init", "cin_layer_kernel", "sharded_stream",
-                                  "edge_chunk_pipeline", "token_pipeline"])
+                                  "edge_chunk_pipeline", "token_pipeline", "cold_start",
+                                  "run_incremental", "s5p_cold_bundle", "s5p_apply_delta",
+                                  "s5p_apply_deletion", "compact_bundle", "window_chain"])
 def test_entry_points_need_a_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

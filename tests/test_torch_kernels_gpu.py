@@ -1,9 +1,12 @@
 """K1, K2, K3, G1, K4a, K4b and K5 on the card against their plain PyTorch
 versions (bitwise; K1, K2 and K3 also at the main path's 65,536-edge chunk,
 K2 with no room, room that runs out and the wrap guard, K3 on every rung,
-with equal bits on two launches), K6 and K7 against their plain versions within stated
-tolerances, the GCN, the LM and xDeepFM on cuda against cpu, and streams paged
-from disk shards onto the card.  Needs a CUDA device and ``nvcc``; run on a machine with a card:
+with equal bits on two launches; K4a with negative counts), K6 and K7 against
+their plain versions within stated tolerances, the GCN, the LM and xDeepFM on
+cuda against cpu, streams paged from disk shards onto the card, and incremental
+re-partitioning (``cluster_retract_chunk``; a delta, its rollback, a deletion
+and window steps; a bundle saved from the card) on cuda against cpu.  Needs a
+CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
@@ -1261,3 +1264,125 @@ def test_s5p_and_hdrf_from_disk_cuda_equal_cpu(cuda, tmp_path):
         with ShardedEdgeStream(man, chunk_size=1024, device=cuda) as st:
             got = hdrf_partition(None, None, n, 8, stream=st, **kw)
         assert torch.equal(want, got.cpu())
+
+
+# ------------------------------------------------ incremental re-partitioning
+
+def test_k4a_negative_counts_and_retract_on_the_card(cuda):
+    """K4a with negative counts (a Θ retraction) bitwise against its plain
+    version; ``cms_retract ∘ cms_update`` is the identity on the card."""
+    from repro_torch.core.cms import cms_retract, cms_update, make_sketch, pair_key
+    from repro_torch.kernels.cms_sketch import add_ref, cms_add, launch_counts
+
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(0, 3000, 1 << 17).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 3000, 1 << 17).astype(np.int32))
+    keys = pair_key(a, b)
+    start = torch.from_numpy(rng.integers(-2**31, 2**31, (5, 4_096)).astype(np.int32))
+    seeds = make_sketch(4_096, 5, seed=7, device="cpu").seeds
+    neg = -torch.ones_like(keys)
+    before = launch_counts()["cms_update"]
+    got = cms_add(start.to(cuda), keys.to(cuda), seeds.to(cuda), neg.to(cuda))
+    assert torch.equal(got.cpu(), add_ref(start, keys, seeds, neg))
+    sketch = make_sketch(4_096, 5, seed=7, device=cuda)._replace(table=start.to(cuda))
+    kc = keys.to(cuda)
+    back = cms_retract(cms_update(sketch, kc), kc)
+    torch.cuda.synchronize()
+    assert torch.equal(back.table.cpu(), start)
+    assert launch_counts()["cms_update"] == before + 3
+
+
+@pytest.mark.parametrize("flags", ["recorded", "frozen_xi"])
+def test_cluster_retract_chunk_cuda_equals_cpu(cuda, flags):
+    from repro_torch.core.clustering import (ClusterState, cluster_retract_chunk,
+                                             cluster_stream, compute_degrees)
+
+    src, dst, n = _graph(seed=2)
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    deg = compute_degrees(s, d, n)
+    xi = int(2 * src.size / n)
+    state = cluster_stream(src, dst, n, xi=xi, kappa=int(src.size / 4), chunk_size=4096,
+                           device="cpu")
+    idx = torch.from_numpy(np.sort(np.random.default_rng(0).choice(src.size, src.size // 4,
+                                                                   replace=False)))
+    head = (deg[s[idx]] > xi) & (deg[d[idx]] > xi)
+    kw = dict(is_head=head) if flags == "recorded" else dict(degrees=deg, xi=xi)
+    want = cluster_retract_chunk(state, s[idx], d[idx], idx.numel() - 3, **kw)
+    kc = {key: v.to(cuda) if isinstance(v, torch.Tensor) else v for key, v in kw.items()}
+    got = cluster_retract_chunk(ClusterState(*[t.to(cuda) for t in state]), s[idx].to(cuda),
+                                d[idx].to(cuda), idx.numel() - 3, **kc)
+    for name, a, b in zip(ClusterState._fields, got, want):
+        assert torch.equal(a.cpu(), b), name
+
+
+def _incremental_sequence(dev):
+    """Cold bundle → 10 % delta → its rollback → a 10 % decremental deletion
+    → three window steps, on ``community_graph(600, 8, 6, seed=3)``."""
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.graphs import community_graph
+    from repro_torch.incremental import (S5PWindowChain, s5p_apply_delta,
+                                         s5p_apply_deletion, s5p_cold_bundle)
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    E = src.size
+    E0 = int(E * 0.9)
+    inf = float("inf")
+    cfg = S5PConfig(k=8, chunk_size=256, drift_rf_threshold=inf,
+                    drift_balance_threshold=inf, drift_churn_threshold=inf)
+    _, b0 = s5p_cold_bundle(src[:E0], dst[:E0], n, cfg, device=dev)
+    b1, r1 = s5p_apply_delta(b0, cfg, src, dst, E0, device=dev)
+    b2, r2 = s5p_apply_deletion(b1, cfg, src, dst, np.arange(E0, E), device=dev)
+    cfg_r = S5PConfig(k=8, chunk_size=256, drift_rf_threshold=0.0)
+    b3, r3 = s5p_apply_delta(b0, cfg_r, src, dst, E0, device=dev)
+    idx = np.sort(np.random.default_rng(1).choice(E, E // 10, replace=False))
+    b4, r4 = s5p_apply_deletion(b3, cfg_r, src, dst, idx, device=dev)
+    chain = S5PWindowChain(src, dst, n, cfg_r, 512, step_edges=256, device=dev)
+    steps = [chain.step() for _ in range(4)]
+    return [b0, b1, b2, b3, b4, chain.bundle], [r1, r2, r3, r4, *steps]
+
+
+def test_incremental_sequence_cuda_equals_cpu(cuda):
+    """Delta, rollback, deletion and window steps on the card give the CPU's
+    bundles and results bit for bit (K1, K2, K4a/b, K5 on the card)."""
+    from repro_torch.kernels.stream_scan import launch_counts
+
+    before = launch_counts()
+    gb, gr = _incremental_sequence(cuda)
+    after = launch_counts()
+    cb, cr = _incremental_sequence("cpu")
+    assert gr[1].rolled_back and gr[2].refined
+    assert after["cluster_scan"] > before["cluster_scan"]
+    assert after["assign_scan"] > before["assign_scan"]
+    for i, (g, c) in enumerate(zip(gb, cb)):
+        assert sorted(g) == sorted(c), i
+        for key in c:
+            a, b = np.asarray(g[key]), np.asarray(c[key])
+            assert a.dtype == b.dtype and np.array_equal(a, b), (i, key)
+    for i, (g, c) in enumerate(zip(gr, cr)):
+        for f in c._fields:
+            x, y = getattr(g, f), getattr(c, f)
+            assert (np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y), (i, f)
+
+
+def test_bundle_saved_from_the_card_loads_on_the_cpu(cuda, tmp_path):
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.graphs import community_graph
+    from repro_torch.incremental import (CarryStore, cold_start, run_incremental)
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    E0 = int(src.size * 0.8)
+    cfg = S5PConfig(k=8, chunk_size=256)
+    cold_start(tmp_path / "card", "s5p", src[:E0], dst[:E0], n, 8, s5p_config=cfg,
+               device=cuda)
+    cold_start(tmp_path / "cpu", "s5p", src[:E0], dst[:E0], n, 8, s5p_config=cfg,
+               device="cpu")
+    card, _ = CarryStore(tmp_path / "card").load(consumer="s5p")
+    host, _ = CarryStore(tmp_path / "cpu").load(consumer="s5p")
+    assert sorted(card) == sorted(host)
+    for key in host:
+        assert np.array_equal(card[key], host[key]) and card[key].dtype == host[key].dtype
+    res_cpu = run_incremental(tmp_path / "card", "s5p", src, dst, n, 8, s5p_config=cfg,
+                              save=False, device="cpu")
+    res_card = run_incremental(tmp_path / "cpu", "s5p", src, dst, n, 8, s5p_config=cfg,
+                               save=False, device=cuda)
+    assert np.array_equal(res_cpu.parts, res_card.parts) and res_cpu.rf == res_card.rf

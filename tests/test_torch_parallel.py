@@ -335,7 +335,7 @@ def test_cadence_logged_once_per_run(caplog):
     assert sum("cadence" in r.message for r in caplog.records) == 1
 
 
-def test_knobs_validate_and_unported_paths_raise():
+def test_knobs_validate_and_unported_paths_raise(tmp_path):
     src, dst, n, _ = random_graph(1)
     stream = EdgeStream(src, dst, n, chunk_size=7, device="cpu")
     pc = tcl.DegreeCarry(n, device="cpu")
@@ -350,11 +350,21 @@ def test_knobs_validate_and_unported_paths_raise():
              ValueError, "threads"),
             (dict(num_streams=2, backend="shard_map"), NotImplementedError, "item 7"),
             (dict(num_streams=2, straggler=object()), NotImplementedError, "item 4"),
-            (dict(num_streams=2, carry_store=object()), NotImplementedError, "item 3")]:
+            (dict(num_streams=2, backend="vmap", carry_store=object()),
+             ValueError, "threads")]:
         with pytest.raises(err, match=match):
             run_parallel(stream, pc, **kw)
     with pytest.raises(ValueError, match="num_streams"):
         ParallelEdgeStream(stream, 0)
+    # carry_store checkpoints every merge base; a replay restores from disk
+    from repro_torch.incremental import CarryStore
+
+    store = CarryStore(tmp_path / "bases", keep=0)
+    _, want = run_parallel(stream, pc, num_streams=2, super_chunk=2)
+    _, got = run_parallel(stream, pc, num_streams=2, super_chunk=2,
+                          carry_store=store, on_lane_failure="replay")
+    assert torch.equal(got, want)
+    assert store.steps() and store.steps()[-1] == int((src.size))
 
 
 # -------------------------------------------------------- the masked game

@@ -78,16 +78,16 @@ def test_community_fixture_k8(community_bench_graph, use_cms):
 
 
 def test_unported_options_raise():
-    for kw, item in [({"drift_rf_threshold": 0.1}, "Queue 1 item 3"),
-                     ({"drift_churn_threshold": 0.5}, "Queue 1 item 3"),
-                     ({"xi_refresh_threshold": 0.1}, "Queue 1 item 3"),
-                     ({"host_budget": 1 << 20}, "Queue 1 item 6")]:
-        with pytest.raises(NotImplementedError, match=item):
-            S5PConfig(k=4, **kw)
-    # the parallel-ingest options and the touch-up are ported
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        S5PConfig(k=4, host_budget=1 << 20)
+    # the parallel-ingest options, the touch-up and the drift knobs of
+    # incremental re-partitioning are ported
     for kw in ({"num_streams": 2}, {"shard": "hub"}, {"super_chunk": 4},
-               {"super_chunk": "auto"}, {"touch_up": False}, {"refine_rounds": 3}):
-        S5PConfig(k=4, **kw)
+               {"super_chunk": "auto"}, {"touch_up": False}, {"refine_rounds": 3},
+               {"drift_rf_threshold": 0.1}, {"drift_balance_threshold": 0.2},
+               {"drift_churn_threshold": 0.5}, {"xi_refresh_threshold": 0.1}):
+        cfg = S5PConfig(k=4, **kw)
+        assert all(getattr(cfg, key) == v for key, v in kw.items())
 
 
 def test_no_valid_edges():
