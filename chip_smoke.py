@@ -87,6 +87,25 @@ Phases, each printing one JSON line:
               summed launches join the ``kernels`` rows
               (``launches_incremental``), and the deletion's Θ retraction
               gives phase ``kernels`` a K4a row with negative counts;
+5d. elastic — elastic k→k′ resharding, the runtime and the serving
+              controller at phase main's scale (``phase_elastic``): phase
+              incremental's base bundle resharded 32 → 40 and 32 → 24
+              (``reshard_bundle``: the migration-cost game on the card, K5
+              for its sums, K2 for the affected edges; the game's audit;
+              the load equal to the placed parts' histogram, c2p < k′,
+              on shrink n_displaced exactly the edges on partitions
+              24–31, on grow every edge of unmoved clusters in place);
+              HDRF's cold carry 32 → 24
+              (K3's retract and K3 once per displaced chunk each); a
+              ``ServingController`` over a 2^21 / 2^19 window (cut from
+              2^22 / 2^20, and the cold S5P at k′ = 24 dropped, for the
+              time limit): the fill, a steady step, ``resize(40)`` (origin ``"resize"``,
+              a pinned reader still on k = 32), a steady step at k = 40,
+              PageRank supersteps and 16 ``query_pagerank`` a swap;
+              ``FaultTolerantLoop`` over label propagation (bitwise the
+              undisturbed run) and ``ElasticController.resize`` (the
+              state back on the card bitwise); the summed launches join
+              the ``kernels`` rows (``launches_elastic``);
 6. serve    — the serving read side with GCN inference: the
               ``ogbn_products_like(seed=0)`` graph at scale 1.0 (2,449,029
               vertices), S5P at k = 32, ``build_bundle`` and
@@ -209,9 +228,18 @@ Phases, each printing one JSON line:
               incremental sequence on ``community_graph(600, 8, 6,
               seed=3)`` (a delta, its rollback, a refined delta, a
               deletion, four window steps): every bundle leaf and result
-              field equal on both.
+              field equal on both; and the elastic sequence
+              (``_elastic_sequence``: the migration-cost game at three
+              scales, ``reshard_bundle`` grow and shrink,
+              ``reshard_scan_carry`` for Greedy and HDRF, HDRF at S = 4 in
+              each shard mode with a forced straggler handoff and a lane
+              killed and replayed, a ``ServingController`` with one
+              resize): every result equal on both.
 
-The kernel checks of phase 7 run after phases 8 and 9.
+The kernel checks of phase 7 run after phases 8 and 9.  Two worker
+processes make the host-side data of phases 5c and 6 (the seed-1 R-MAT,
+``ogbn_products_like`` and its features) while the card runs phases 3–5d;
+each phase records its data's seconds as the worker measured them.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -226,13 +254,20 @@ import argparse
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+# the sliding windows of phase incremental (cut from 2^23 / 2^21) and of
+# phase elastic's serving controller (cut from 2^22 / 2^20)
+WINDOW_EDGES, WINDOW_STEP = 1 << 22, 1 << 20
+ELASTIC_WINDOW_EDGES, ELASTIC_WINDOW_STEP = 1 << 21, 1 << 19
 
 # H100 SXM peaks (NVIDIA data sheet):
 # HBM3 bytes/s, and the float32 rate outside the tensor cores, used for
@@ -320,6 +355,36 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in _kernel_modules():
         mod.reset_launch_counts()
+
+
+# ------------------------------------------------------------ prefetched data
+
+
+def _rmat_data(scale: int, seed: int):
+    """The Graph500 R-MAT of ``seed`` at ``scale`` (phase incremental's
+    delta source), made in a worker process; returns it and its seconds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.graphs import rmat_graph
+
+    t0 = time.perf_counter()
+    g = rmat_graph(scale, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=seed)
+    return g, time.perf_counter() - t0
+
+
+def _serve_data(products_scale: float):
+    """Phase serve's host-made data, made in a worker process:
+    ``ogbn_products_like(seed=0)`` and its 100 features a vertex; returns
+    ``(graph, features, graph_s, features_s)``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import numpy as np
+
+    from repro_torch.graphs import ogbn_products_like, products_features
+
+    t0 = time.perf_counter()
+    g = ogbn_products_like(seed=0, scale=products_scale)
+    t1 = time.perf_counter()
+    feats = products_features(np.arange(g.n_vertices), 100, seed=0)
+    return g, feats, t1 - t0, time.perf_counter() - t1
 
 
 # --------------------------------------------------------------------- phases
@@ -1540,7 +1605,7 @@ def _game_k5(games) -> int:
     return sum(2 + g["ordered_sums"] for g in games if g["rounds"] > 0)
 
 
-def phase_incremental(main, compare) -> dict:
+def phase_incremental(main, compare, seed1=None) -> dict:
     """Dynamic re-partitioning at phase main's scale (``repro_torch.incremental``):
     the base bundle packed from phase main's own S5P output, a 10 % insertion
     (the first E/10 edges of R-MAT seed 1, appended) under the default drift
@@ -1562,7 +1627,6 @@ def phase_incremental(main, compare) -> dict:
 
     from repro_torch.core.metrics import replication_factor
     from repro_torch.core.s5p import s5p_partition
-    from repro_torch.graphs import rmat_graph
     from repro_torch.incremental import (CarryStore, S5PWindowChain, cold_start,
                                          pack_warm_bundle, run_incremental, s5p_apply_delta,
                                          s5p_apply_deletion)
@@ -1621,8 +1685,9 @@ def phase_incremental(main, compare) -> dict:
 
     # ---- insertion: 10 % of the base, appended ----
     m = E // 10
-    s1, d1, n1 = rmat_graph(int(round(math.log2(n))), edge_factor=16, a=0.57, b=0.19,
-                            c=0.19, seed=1)
+    if seed1 is None:  # not prefetched: made here
+        seed1 = _rmat_data(int(round(math.log2(n))), 1)
+    (s1, d1, _), info["seed1_generate_s"] = seed1
     full_src = np.concatenate([src, s1[:m]]).astype(np.int32)
     full_dst = np.concatenate([dst, d1[:m]]).astype(np.int32)
     E_full = int(full_src.size)
@@ -1728,6 +1793,8 @@ def phase_incremental(main, compare) -> dict:
     (hparts, _), dt_cold, l_cold = drive(lambda: cold_start(hdrf_dir, "hdrf", src, dst, n, k,
                                                             device=dev), path=False)
     same_as_compare = bool(np.array_equal(hparts, compare["parts"]["hdrf"].cpu().numpy()))
+    info["hdrf_cold"] = {"parts": hparts, "carry": _stored_scan_carry(hdrf_dir, "hdrf", n, k,
+                                                                      dev)}
     hidx = _parse_delete("frac:0.05", E_full, 0)
     hres, dt, launches = drive(lambda: run_incremental(hdrf_dir, "hdrf", full_src, full_dst,
                                                        n, k, delete=hidx, device=dev))
@@ -1746,7 +1813,7 @@ def phase_incremental(main, compare) -> dict:
                         f"phase compare's: {same_as_compare}")
 
     # ---- the sliding window over phase main's edges ----
-    W, B = 1 << 22, 1 << 20
+    W, B = WINDOW_EDGES, WINDOW_STEP
     chain = S5PWindowChain(src, dst, n, cfg, W, step_edges=B, device=dev)
     steps = []
     while not any(st["n_retracted"] for st in steps):  # through the first steady step
@@ -1767,12 +1834,292 @@ def phase_incremental(main, compare) -> dict:
     if live is None or live[0].size != steps[-1]["hi"] - steps[-1]["lo"]:
         problems.append("window: the live partition does not hold the last window")
     del chain
+    info["base"] = base  # phase elastic reshards it
     info["launches"] = totals
     info["phase_s"] = time.perf_counter() - t_phase
     emit({"phase": "incremental", "step": "done", "phase_s": info["phase_s"],
           "launches": totals})
     if problems:
         raise SystemExit("chip_smoke incremental phase failed: " + "; ".join(problems))
+    return info
+
+
+def _stored_scan_carry(store_dir, name: str, n: int, k: int, dev):
+    """The scan carry a ``cold_start`` saved, rebuilt on ``dev`` as
+    ``run_incremental`` rebuilds it."""
+    from repro_torch.checkpoint.manager import as_like
+    from repro_torch.incremental import CarryStore
+    from repro_torch.incremental.driver import _scan_carry
+    from repro_torch.streaming.carry import (tree_flatten, tree_flatten_with_paths,
+                                             tree_unflatten)
+
+    flat, _ = CarryStore(store_dir).load(consumer=name)
+    proto = _scan_carry(name, n, k, 0, dev).init()
+    _, spec = tree_flatten(proto)
+    return tree_unflatten(spec, [as_like(flat[key], x)
+                                 for key, x in tree_flatten_with_paths({"scan": proto})])
+
+
+def _fixed_monitor(slow: int = 2, lanes: int = 4):
+    """A straggler monitor whose plan does not depend on timing (lane
+    ``slow`` seeded at 100, the others at 1; ``record`` keeps the history
+    only), so a forced handoff gives the same plan on every device."""
+    from repro_torch.runtime import StragglerMonitor
+
+    class Fixed(StragglerMonitor):
+        def record(self, step, dt, shard=0):
+            self.n_shards = max(self.n_shards, int(shard) + 1)
+            self.history.append((step, int(shard), dt))
+
+    mon = Fixed(threshold=1.01)
+    for s in range(lanes):
+        StragglerMonitor.record(mon, 0, 100.0 if s == slow else 1.0, shard=s)
+    return mon
+
+
+def _reshard_checks(res, before: dict, after: dict, k_old: int) -> list[str]:
+    """``tests/test_elastic.py::_check_invariants`` on a resharded bundle,
+    plus the grow and shrink postconditions."""
+    import numpy as np
+
+    k = res.k_new
+    problems = []
+    parts = np.asarray(after["parts"], np.int32)
+    old = np.asarray(before["parts"], np.int32)
+    placed = np.asarray(after["alive"], bool) & (parts >= 0)
+    if parts[placed].max() >= k or np.asarray(after["c2p"]).max() >= k:
+        problems.append(f"k'={k}: parts or c2p out of range")
+    if not np.array_equal(np.asarray(after["load"]), np.bincount(parts[placed], minlength=k)):
+        problems.append(f"k'={k}: the load vector is not the placed parts' histogram")
+    if k < k_old:
+        want = int(np.count_nonzero(np.asarray(before["alive"], bool) & (old >= k)))
+        if res.n_displaced != want:
+            problems.append(f"shrink: n_displaced {res.n_displaced} != {want} on "
+                            f"partitions {k}..{k_old - 1}")
+    else:
+        moved = np.asarray(after["c2p"], np.int32) != np.asarray(before["c2p"], np.int32)
+        cu, cv = np.asarray(after["edge_cu"]), np.asarray(after["edge_cv"])
+        stable = ~moved[np.maximum(cu, 0)] & ~moved[np.maximum(cv, 0)]
+        if res.n_displaced or not np.array_equal(parts[stable], old[stable]):
+            problems.append("grow: an edge whose clusters stayed changed partition")
+    return problems
+
+
+def phase_elastic(main, incremental) -> dict:
+    """Elastic k→k′ resharding, the runtime and the serving controller at
+    phase main's scale, each step with the launch counters set to 0 just
+    before and read just after: phase incremental's base bundle (phase
+    main's output, packed once) resharded 32 → 40 and 32 → 24
+    (``reshard_bundle``, ``move_cost_scale = 1``: the migration-cost game on
+    the card, its sums on K5, the affected edges placed again on K2; the
+    game and the replay timed apart, the game's audit, the invariants of
+    ``tests/test_elastic.py``); HDRF's carry from phase incremental's cold
+    start resharded 32 → 24 (``reshard_scan_carry``: K3's retract, then K3
+    at k′); a ``ServingController`` over an ``S5PWindowChain`` of phase
+    main's edges (window 2^21, step 2^19): the fill, one steady step at
+    k = 32, ``resize(40)`` while a reader pins the k = 32 version, one
+    steady step at k = 40, with 4 PageRank supersteps and 16
+    ``query_pagerank`` after each swap; ``FaultTolerantLoop`` driving 12
+    label-propagation supersteps over the served bundle (checkpoints every
+    5, a failure at step 7) against the undisturbed run, bitwise; and
+    ``ElasticController.resize`` (``CheckpointManager``, an
+    ``ElasticPartition`` over the served window's bundle, 40 → 24): the
+    state tensors back on the card bitwise.  Cut for the script's time
+    limit, in this order: the cold S5P at k′ = 24 beside the shrink
+    (14.7 s), and the controller's window from 2^22 / 2^20 to 2^21 / 2^19
+    (its four swaps took 52.4 s); uncut, the script took 1,113.6 s on an
+    NVIDIA H100 80GB HBM3 at 700 W, the phase 115.2 s."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.elastic import last_timings, reshard_bundle, reshard_scan_carry
+    from repro_torch.gas import label_propagation_step, pagerank_step
+    from repro_torch.incremental import S5PWindowChain
+    from repro_torch.incremental.pipeline import last_games
+    from repro_torch.kernels.stream_scan import HdrfCarry
+    from repro_torch.runtime import (ElasticController, ElasticPartition, FaultInjector,
+                                     FaultTolerantLoop)
+    from repro_torch.serving import BundleRegistry, GASServer, ServingController
+
+    t_phase = time.perf_counter()
+    src, dst, n, cfg = main["src"], main["dst"], main["n"], main["cfg"]
+    dev = main["out"].parts.device
+    k, E = cfg.k, int(src.size)
+    base = incremental["base"]
+    problems, totals = [], {}
+    info = {"phase": "elastic", "E": E, "k": k}
+
+    def drive(fn, path=True):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        if path:
+            for key, v in launches.items():
+                totals[key] = totals.get(key, 0) + v
+        return res, dt, launches
+
+    def emit_step(row):
+        emit({"phase": "elastic", **row})
+        info[row["step"]] = row
+
+    # ---- the bundle resharded: grow 32 -> 40, shrink 32 -> 24 ----
+    for k_new, name in ((40, "grow"), (24, "shrink")):
+        (b2, _, res), dt, launches = drive(lambda: reshard_bundle(
+            base, cfg, k_new, src, dst, move_cost_scale=1.0, device=dev))
+        games, t = last_games(), last_timings()
+        audit = _incremental_game_audit(b2, games)
+        emit_step({"step": name, "k_old": k, "k_new": k_new, "seconds": dt,
+                   "game_s": t["game_s"], "replay_s": t["replay_s"],
+                   "rounds": res.game_rounds, "migrated_fraction": res.migrated_fraction,
+                   "migrated_edges": res.migrated_edges, "n_displaced": res.n_displaced,
+                   "moved_clusters": res.moved_clusters, "rf": res.rf, "balance": res.balance,
+                   "rf_base": float(base["rf_baseline"]), "n_live": res.n_live,
+                   "launches": launches, "game_audit": audit})
+        problems += _reshard_checks(res, base, b2, k)
+        if not audit["ok"]:
+            problems.append(f"{name}: the game's audit fails: {audit}")
+        if launches["assign_scan"] < 1 or launches["segment_agg"] != _game_k5(games):
+            problems.append(f"{name}: K2 {launches['assign_scan']} / K5 "
+                            f"{launches['segment_agg']} launches (want >= 1 / {_game_k5(games)})")
+        del b2
+
+    # ---- HDRF's carry from phase incremental's cold start: 32 -> 24 ----
+    hc = incremental["hdrf_cold"]
+    hparts = hc["parts"]
+    (work, new_parts, hres), dt, launches = drive(lambda: reshard_scan_carry(
+        HdrfCarry(n, 24, 1.1, device=dev), hc["carry"], 24, src, dst, hparts))
+    displaced = int(np.count_nonzero(hparts >= 24))
+    k3_chunks = math.ceil(displaced / (1 << 16))
+    ok = (bool(np.array_equal(work[0].cpu().numpy(), np.bincount(new_parts, minlength=24)))
+          and new_parts.max() < 24 and hres.n_displaced == displaced
+          and bool(np.array_equal(new_parts != hparts, hparts >= 24)))
+    emit_step({"step": "hdrf_carry", "k_old": k, "k_new": 24, "seconds": dt,
+               "n_displaced": hres.n_displaced, "migrated_fraction": hres.migrated_fraction,
+               "rf": hres.rf, "balance": hres.balance, "k3_retract_launches":
+               launches["scoring_retract"], "k3_insert_launches": launches["scoring_scan"],
+               "chunks": k3_chunks, "invariants": ok, "launches": launches})
+    if (not ok or launches["scoring_retract"] != k3_chunks
+            or launches["scoring_scan"] != k3_chunks):
+        problems.append(f"hdrf carry: invariants {ok}, K3 {launches} (want {k3_chunks} each)")
+    del work, new_parts, hc, incremental["hdrf_cold"]
+
+    # ---- the serving controller over the window chain, with a resize ----
+    W, B = ELASTIC_WINDOW_EDGES, ELASTIC_WINDOW_STEP
+    chain = S5PWindowChain(src, dst, n, cfg, W, step_edges=B, device=dev)
+    reg = BundleRegistry()
+    ctl = ServingController(reg, chain)
+    server = GASServer(reg)
+    rng = np.random.default_rng(0)
+    swaps = []
+
+    def serve_round():
+        t0 = time.perf_counter()
+        server.run(4)
+        for _ in range(16):
+            server.query_pagerank(rng.integers(0, n, 16))
+        return time.perf_counter() - t0
+
+    while len([r for r in ctl.history if not r.filling]) < 2:  # the fill, one steady step
+        rec, dt, launches = drive(ctl.step)
+        row = {"window_step": rec.step, "seconds": dt, "filling": rec.filling,
+               "version": ctl.version, "k": chain.config.k, "rf": rec.rf,
+               "refined": rec.refined, "launches": launches}
+        if not rec.filling:
+            row.update(origin=reg.current.origin, serve_s=serve_round())
+        swaps.append(row)
+        emit({"phase": "elastic", "step": "controller", **row})
+    v32 = reg.current_version
+    with reg.pin() as held:
+        res, dt, launches = drive(lambda: ctl.resize(40))
+        held.check()
+        pinned_k = held.k
+        pinned_vals = pagerank_step(held.gas, torch.ones(n, device=dev), held.out_deg_inv)
+        pinned_ok = pinned_k == k and bool(torch.isfinite(pinned_vals).all())
+    row = {"window_step": "resize", "seconds": dt, "version": ctl.version,
+           "origin": reg.current.origin, "k": reg.current.k, "rf": res.rf,
+           "migrated_fraction": res.migrated_fraction, "rounds": res.game_rounds,
+           "game_s": last_timings()["game_s"], "replay_s": last_timings()["replay_s"],
+           "pinned_version": v32, "pinned_k": pinned_k, "launches": launches,
+           "serve_s": serve_round()}
+    swaps.append(row)
+    emit({"phase": "elastic", "step": "controller", **row})
+    if reg.current.origin != "resize" or reg.current.k != 40 or not pinned_ok:
+        problems.append(f"controller: resize published origin {reg.current.origin}, k "
+                        f"{reg.current.k}; the pinned reader read k {pinned_k}")
+    rec, dt, launches = drive(ctl.step)
+    row = {"window_step": rec.step, "seconds": dt, "version": ctl.version,
+           "origin": reg.current.origin, "k": reg.current.k, "rf": rec.rf,
+           "refined": rec.refined, "launches": launches, "serve_s": serve_round()}
+    swaps.append(row)
+    emit({"phase": "elastic", "step": "controller", **row})
+    lat = server.metrics.query_latency_us
+    info["controller"] = {"window_edges": W, "step_edges": B, "swaps": swaps,
+                          "supersteps": server.metrics.n_supersteps,
+                          "swaps_observed": server.metrics.swaps_observed,
+                          "query_pagerank_us": _latency(lat)}
+    if reg.current.k != 40 or np.asarray(reg.current.parts).max() >= 40:
+        problems.append("controller: the step after the resize did not publish at k = 40")
+
+    # ---- FaultTolerantLoop: label propagation over the served bundle ----
+    g = reg.current.gas
+
+    def step_fn(state, batch):
+        labels = label_propagation_step(g, state["labels"])
+        return {"labels": labels, "n": state["n"] + 1}, {"labels": labels}
+
+    def loop_run(d, fail_at):
+        shutil.rmtree(d, ignore_errors=True)
+        loop = FaultTolerantLoop(step_fn, lambda s: None,
+                                 CheckpointManager(d, async_write=False), ckpt_every=5,
+                                 injector=FaultInjector(fail_at))
+        state = {"labels": torch.arange(n, dtype=torch.int32, device=dev),
+                 "n": torch.zeros((), dtype=torch.int32, device=dev)}
+        out, _, _ = loop.run(state, 12)
+        return out, loop.restarts
+
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_elastic")
+    (clean, r0), dt0, _ = drive(lambda: loop_run(os.path.join(ckpt, "clean"), ()), path=False)
+    (faulty, r1), dt1, _ = drive(lambda: loop_run(os.path.join(ckpt, "faulty"), (7,)),
+                                 path=False)
+    same = bool(torch.equal(clean["labels"], faulty["labels"])) and int(faulty["n"]) == 12
+    emit_step({"step": "fault_loop", "supersteps": 12, "ckpt_every": 5, "fail_at": 7,
+               "restarts": [r0, r1], "seconds": [dt0, dt1], "bitwise_equal": same,
+               "components": int(torch.unique(clean["labels"]).numel())})
+    if not same or (r0, r1) != (0, 1):
+        problems.append(f"fault loop: restarts {(r0, r1)}, bitwise {same}")
+
+    # ---- ElasticController: checkpoint, place, reshard the served window ----
+    state = {"labels": clean["labels"], "pagerank": server.values}
+    part = ElasticPartition(chain.bundle, chain.config, chain.seen_src, chain.seen_dst,
+                            device=dev)
+    controller = ElasticController(CheckpointManager(os.path.join(ckpt, "ctl"), keep=1,
+                                                     async_write=False),
+                                   make_mesh=lambda size: dev, partition=part)
+    (new_state, mesh, eres, step), dt, launches = drive(
+        lambda: controller.resize(state, 12, 24))
+    same = all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in ((new_state["labels"], state["labels"]),
+                            (new_state["pagerank"], state["pagerank"])))
+    emit_step({"step": "elastic_controller", "seconds": dt, "k_new": eres.k_new,
+               "migrated_fraction": eres.migrated_fraction, "rf": eres.rf, "step_out": step,
+               "state_bitwise_on_card": same, "partition_k": part.k, "launches": launches})
+    if not same or eres.k_new != 24 or part.k != 24 or step != 12:
+        problems.append(f"elastic controller: state bitwise {same}, k {part.k}, step {step}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del chain, ctl, reg, server, g, part
+
+    info["launches"] = totals
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "elastic", "step": "done", "phase_s": info["phase_s"], "launches": totals})
+    if problems:
+        raise SystemExit("chip_smoke elastic phase failed: " + "; ".join(problems))
     return info
 
 
@@ -2062,7 +2409,8 @@ _COUNTERS = {"K1": "cluster_scan", "K2": "assign_scan", "K3": "scoring_scan",
              "K6": "flash_attention", "K7": "cin"}
 
 
-def phase_kernels(main, compare, serve, lm, recsys, build, incremental) -> list[dict]:
+def phase_kernels(main, compare, serve, lm, recsys, build, incremental,
+                  elastic) -> list[dict]:
     from repro_torch.kernels.stream_scan.latency import measure_round_trips
 
     rt = measure_round_trips()
@@ -2081,13 +2429,15 @@ def phase_kernels(main, compare, serve, lm, recsys, build, incremental) -> list[
     main_k4 = [r for r in cms if r["name"] in ("K4a cms_update", "K4b cms_query")
                or "negative counts" in r["name"]]
     summary = [k1[0], main_k2, *main_k4, *k3_g1, *k5, k6[0], k7[1]]
-    totals = incremental["launches"]
     for r in summary:  # a latency bound for the serial scans, none for the rest
         r.setdefault("latency_bound_ms", None)
-        # the launches of phase incremental's path (K3 inserts and retracts)
-        r["launches_incremental"] = totals.get(_COUNTERS.get(r["name"].split()[0]), 0)
-        if r["name"].startswith("K3"):
-            r["launches_incremental_retract"] = totals.get("scoring_retract", 0)
+        # the launches of phases incremental's and elastic's paths (K3:
+        # inserts, and retracts apart)
+        for phase, totals in (("incremental", incremental["launches"]),
+                              ("elastic", elastic["launches"])):
+            r[f"launches_{phase}"] = totals.get(_COUNTERS.get(r["name"].split()[0]), 0)
+            if r["name"].startswith("K3"):
+                r[f"launches_{phase}_retract"] = totals.get("scoring_retract", 0)
     return summary, rows
 
 
@@ -2112,9 +2462,10 @@ def _latency(us: list) -> dict:
     return {"n": int(a.size), "mean_us": float(a.mean()), "p99_us": float(np.percentile(a, 99))}
 
 
-def phase_serve(products_scale: float) -> dict:
+def phase_serve(products_scale: float, data=None) -> dict:
     """The serving read side over the products-shaped graph: S5P, bundle,
-    registry, PageRank supersteps and queries, GCN inference through K5."""
+    registry, PageRank supersteps and queries, GCN inference through K5.
+    ``data`` is :func:`_serve_data`'s result when a worker made it ahead."""
     import dataclasses
 
     import numpy as np
@@ -2124,17 +2475,11 @@ def phase_serve(products_scale: float) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.core.metrics import load_balance, replication_factor
     from repro_torch.core.s5p import S5PConfig, s5p_partition
-    from repro_torch.graphs import ogbn_products_like, products_features
     from repro_torch.models.gnn import gcn_forward, gcn_init
     from repro_torch.serving import BundleRegistry, GASServer, build_bundle
 
-    t0 = time.perf_counter()
-    g = ogbn_products_like(seed=0, scale=products_scale)
-    graph_s = time.perf_counter() - t0
+    g, feats_np, graph_s, feats_s = data if data is not None else _serve_data(products_scale)
     n, E = g.n_vertices, int(g.src.size)
-    t0 = time.perf_counter()
-    feats_np = products_features(np.arange(n), 100, seed=0)
-    feats_s = time.perf_counter() - t0
     # gcn-cora at the ogb_products shape's d_feat, as launch/cells.py sizes it
     cfg = dataclasses.replace(get_arch("gcn-cora").config,
                               d_feat=get_arch("gcn-cora").shapes["ogb_products"]["d_feat"])
@@ -2426,12 +2771,15 @@ def phase_parity() -> dict:
     delta = _delta_above_2_24()
     merged = _merged_ids_past_v()
     incremental = _incremental_parity()
+    elastic = _elastic_parity()
     info = {"phase": "parity", "graph": "community_graph(2000, 32, 8, seed=5)",
             "k": 8, "E": int(src.shape[0]), "parts_identical": same,
             "differing_edges": differing, "cuda_cpu_s": seconds, "touch_up": touch_up,
             "delta_above_2^24": delta, "merged_ids_past_V": merged,
-            "incremental": incremental}
+            "incremental": incremental, "elastic": elastic}
     emit(info)
+    if not elastic["same"]:
+        raise SystemExit(f"chip_smoke: the elastic sequence differs, cuda vs cpu: {elastic}")
     if not incremental["same"]:
         raise SystemExit(f"chip_smoke: the incremental sequence differs, cuda vs cpu: "
                          f"{incremental}")
@@ -2502,6 +2850,113 @@ def _incremental_parity() -> dict:
             "refined": [gr[2].refined, gr[3].refined],
             "window_steps": [r.step for r in gr[4:]],
             "cuda_cpu_s": [t1 - t0, time.perf_counter() - t1]}
+
+
+def _elastic_sequence(dev) -> dict:
+    """On ``community_graph(2000, 32, 8, seed=5)``, k = 8, chunks of 1,024:
+    the migration-cost game at three scales (k′ = 10, homes from the cold
+    bundle's seats, -1 where they die), ``reshard_bundle`` grow (12) and
+    shrink (5), ``reshard_scan_carry`` for Greedy and HDRF (12 and 5),
+    ``run_parallel`` of HDRF at S = 4 in each shard mode (chunks of 512)
+    with a forced straggler handoff (:func:`_fixed_monitor`) and a
+    ``LaneFaultInjector`` killing lane 1's second chunk (replayed); and a
+    ``ServingController`` over an ``S5PWindowChain`` on
+    ``community_graph(600, 8, 6, seed=3)`` (window 512, step 256) with one
+    resize to k = 10.  Returns every result as host values, keyed by
+    step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import game as G
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.elastic import reshard_bundle, reshard_scan_carry
+    from repro_torch.graphs import community_graph
+    from repro_torch.incremental import S5PWindowChain, s5p_cold_bundle
+    from repro_torch.kernels.stream_scan import GreedyCarry, HdrfCarry
+    from repro_torch.runtime import LaneFaultInjector
+    from repro_torch.serving import BundleRegistry, ServingController
+    from repro_torch.streaming import EdgeStream, ParallelEdgeStream, run_carry, run_parallel
+
+    src, dst, n = community_graph(2000, n_communities=32, avg_degree=8, seed=5)
+    cfg = S5PConfig(k=8, chunk_size=1024)
+    out = {}
+    _, b0 = s5p_cold_bundle(src, dst, n, cfg, device=dev)
+    sizes = np.asarray(b0["sizes"], np.float32)
+    C, c2p = sizes.size, np.asarray(b0["c2p"], np.int32)
+    inputs = G.GameInputs(*(torch.from_numpy(np.asarray(b0[key])).to(dev)
+                            for key in ("sizes", "pair_a", "pair_b", "pair_w")), 0, 10)
+    for scale in (0.0, 1.0, 4.0):
+        res = G.run_game(inputs, C, batch_size=G.default_batch_size(256, C), assign0=c2p,
+                         seed=2, leader_mask=np.asarray(b0["comb_is_head"], bool),
+                         move_mask=sizes > 0, home=np.where(c2p < 10, c2p, -1),
+                         move_cost=(np.float32(scale) * sizes / np.float32(10)))
+        out[f"game scale={scale}"] = (res.assignment.cpu().numpy(), res.rounds)
+    for k_new in (12, 5):
+        b2, _, res = reshard_bundle(b0, cfg, k_new, src, dst, device=dev)
+        out[f"reshard_bundle k'={k_new}"] = (b2, tuple(res))
+    for name in ("greedy", "hdrf"):
+        make = ((lambda k: GreedyCarry(n, k, device=dev)) if name == "greedy"
+                else (lambda k: HdrfCarry(n, k, 1.1, device=dev)))
+        parts, carry = run_carry(EdgeStream(src, dst, n, chunk_size=1024, device=dev), make(8))
+        parts = parts.cpu().numpy()
+        for k_new in (12, 5):
+            work, p2, res = reshard_scan_carry(make(k_new), carry, k_new, src, dst, parts,
+                                               chunk_size=1024)
+            out[f"reshard_scan_carry {name} k'={k_new}"] = (
+                [x.cpu().numpy() for x in work], p2, tuple(res))
+    for shard in ("range", "rr", "hub"):  # 16 chunks of 512: every lane holds 2 or more
+        st = EdgeStream(src, dst, n, chunk_size=512, device=dev)
+        cid = ParallelEdgeStream(st, 4, shard=shard).lanes[1][1]
+        inj, mon = LaneFaultInjector([(1, cid)]), _fixed_monitor()
+        parts, carry = run_parallel(st, HdrfCarry(n, 8, 1.1, device=dev), num_streams=4,
+                                    super_chunk=2, shard=shard, straggler=mon,
+                                    on_lane_failure="replay", lane_injector=inj)
+        out[f"handoff {shard}"] = (parts.cpu().numpy(), [x.cpu().numpy() for x in carry],
+                                   inj.fired, [h[:2] for h in mon.history])
+    s2, d2, n2 = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    chain = S5PWindowChain(s2, d2, n2, S5PConfig(k=8, chunk_size=256), 512, step_edges=256,
+                           device=dev)
+    reg = BundleRegistry()
+    ctl = ServingController(reg, chain)
+    published = []
+    while reg.current is None:
+        ctl.step()
+    published.append(reg.current)
+    res = ctl.resize(10)
+    published.append(reg.current)
+    while ctl.step() is not None:
+        published.append(reg.current)
+    out["controller"] = ([(b.version, b.origin, b.k, b.rf, b.parts) for b in published],
+                         tuple(res))
+    return out
+
+
+def _same_value(a, b) -> bool:
+    """Equal values, bit for bit: dicts by key, sequences by position,
+    arrays by dtype and value."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_same_value(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_value(x, y) for x, y in zip(a, b))
+    if isinstance(a, (np.ndarray, np.generic)) or isinstance(b, (np.ndarray, np.generic)):
+        return np.asarray(a).dtype == np.asarray(b).dtype and bool(np.array_equal(a, b))
+    return a == b
+
+
+def _elastic_parity() -> dict:
+    """``_elastic_sequence`` on cuda and on cpu: every result equal."""
+    t0 = time.perf_counter()
+    gpu = _elastic_sequence("cuda")
+    t1 = time.perf_counter()
+    cpu = _elastic_sequence("cpu")
+    differing = [key for key in cpu if not _same_value(gpu[key], cpu[key])]
+    origins = [x[1] for x in cpu["controller"][0]]
+    return {"graph": "community_graph(2000, 32, 8, seed=5)", "same": not differing,
+            "differing": differing, "steps": list(cpu),
+            "game_rounds": [cpu[f"game scale={s}"][1] for s in (0.0, 1.0, 4.0)],
+            "controller_origins": origins, "cuda_cpu_s": [t1 - t0, time.perf_counter() - t1]}
 
 
 def _merged_ids_past_v() -> dict:
@@ -3191,6 +3646,19 @@ def main(argv=None) -> int:
     dev = phase_device()
     build = phase_build()
     results = {"device": dev, "build": build}
+    # the host-made data of phases incremental and serve (~140 s of numpy on
+    # one core) is made by two worker processes while the card works
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _run(args, pool, t_start, dev, build, results)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _run(args, pool, t_start, dev, build, results) -> int:
+    """The phases after the build, in order (``main``'s body)."""
+    seed1 = pool.submit(_rmat_data, args.scale, 1)
+    serve_data = pool.submit(_serve_data, args.products_scale)
     main_run = phase_main(args.scale)
     compare = phase_compare(main_run)
     t0 = time.perf_counter()
@@ -3201,16 +3669,27 @@ def main(argv=None) -> int:
     ooc = phase_ooc(main_run)
     ooc["phase_s"] = time.perf_counter() - t0
     emit({"phase": "ooc", "step": "done", "phase_s": ooc["phase_s"]})
-    incremental = phase_incremental(main_run, compare)
-    serve = phase_serve(args.products_scale)
+    t0 = time.perf_counter()
+    seed1 = seed1.result()
+    results["prefetch_wait_s"] = {"rmat_seed1": time.perf_counter() - t0}
+    incremental = phase_incremental(main_run, compare, seed1)
+    del seed1
+    elastic = phase_elastic(main_run, incremental)
+    for key in ("base", "hdrf_cold"):
+        incremental.pop(key, None)
+    t0 = time.perf_counter()
+    serve_data = serve_data.result()
+    results["prefetch_wait_s"]["serve"] = time.perf_counter() - t0
+    serve = phase_serve(args.products_scale, serve_data)
+    del serve_data
     lm = phase_lm()
     recsys = phase_recsys()
     summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build,
-                                      incremental)
+                                      incremental, elastic)
     results.update(main=main_run["info"], compare=compare["rows"],
                    pagerank=compare["pagerank"], parallel=parallel, ooc=ooc,
                    incremental={key: v for key, v in incremental.items()
-                                if key != "retract_pairs"},
+                                if key != "retract_pairs"}, elastic=elastic,
                    serve=serve["info"])
     del serve
     results["parity"] = phase_parity()

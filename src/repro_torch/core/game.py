@@ -66,8 +66,16 @@ The masked game (``leader_mask``/``move_mask``, the reference's
 and draws window b's acceptance bits from ``fold_in(split(fold_in(key0,
 round))[stage], b)``.  A window with no movable cluster of the stage's role
 is a no-op there and is skipped.  The hub batches and the size guard work
-as above.  The migration cost of elastic resharding (``move_cost``,
-``home``) waits for ROADMAP Queue 1 item 4.
+as above.
+
+The masked game also takes the migration cost of elastic resharding: with
+``move_cost`` (C,), cluster i pays ``move_cost[i]`` on every partition but
+``home[i]`` (default its ``assign0`` seat; ``home = -1`` charges every
+partition, a uniform and so neutral penalty).  A ``move_cost`` without
+masks plays the masked game with the leader prefix ``arange(C) < n_head``.
+The reference materialises the (C, k) penalty ``move_cost·(1 − one_hot(home))``
+once and adds it after the cost's two products (:func:`_costs`); each
+batch here builds the penalty of its own rows only.
 """
 
 from __future__ import annotations
@@ -238,16 +246,20 @@ def _adjacency(inputs: GameInputs, n_clusters: int) -> _Adjacency:
     return _Adjacency(rows, nbrs, w, indptr)
 
 
-def _costs(a, hyp, t, inv_k, cur_p):
-    """Cost matrix ``a·hyp + t·inv_k`` and each row's cost at ``cur_p``,
-    rounded as the reference's compiled program (XLA CPU) rounds them: its
-    min/argmin reduction contracts ``fma(a, hyp, t·inv_k)``, its gather of
-    the current partition's cost contracts the other product,
-    ``fma(t, inv_k, a·hyp)``."""
+def _costs(a, hyp, t, inv_k, cur_p, pen=None):
+    """Cost matrix ``a·hyp + t·inv_k (+ pen)`` and each row's cost at
+    ``cur_p``, rounded as the reference's compiled program (XLA CPU) rounds
+    them: its min/argmin reduction contracts ``fma(a, hyp, t·inv_k)``, its
+    gather of the current partition's cost contracts the other product,
+    ``fma(t, inv_k, a·hyp)``.  The migration penalty ``pen`` is a separate
+    buffer there, added to either form after it (one float32 add)."""
     cost = _fma_f32(a, hyp, t * inv_k)
     col = cur_p[:, None]
     t_cur = t.gather(1, col)
     cur = _fma_f32(t_cur, torch.full_like(t_cur, inv_k), a * hyp.gather(1, col))
+    if pen is not None:
+        cost = cost + pen
+        cur = cur + pen.gather(1, col)
     return cost, cur[:, 0]
 
 
@@ -294,16 +306,24 @@ def _batch_w(adj, assign, lo, hi, k, ordered: bool) -> torch.Tensor:
     return w_ip.index_add_(0, cell, adj.w[s:e]).view(hi - lo, k)
 
 
+def _move_pen(move_cost, home, lo, hi, k):
+    """Rows ``[lo, hi)`` of the reference's penalty ``move_cost[:, None]·
+    (1 − one_hot(home, k))`` (``home = -1``: a row of zeros in the one-hot)."""
+    at_home = (torch.arange(k, device=home.device) == home[lo:hi, None].long())
+    return move_cost[lo:hi, None] * (1.0 - at_home.to(torch.float32))
+
+
 def _batch_update(inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj, *,
                   hub=False, sizes_exact_below=None, size_max=None, w_max=None,
-                  active=None):
+                  active=None, migrate=None):
     """Best response of clusters ``[lo, hi)`` (one simultaneous batch),
     updating ``assign`` in place.  Returns whether any of them had an
     improving move (a device bool).  ``hub`` sums W in order; the sizes
     are summed in order when ``sizes_exact_below`` is given
     (:func:`_part_sizes`); ``size_max`` ((k,)) and ``w_max`` (()) are
     running maxima that the batch raises in place.  ``active`` ((C,)
-    bool, the masked game) limits the moves to its clusters."""
+    bool, the masked game) limits the moves to its clusters; ``migrate``,
+    a ``(move_cost, home)`` pair, adds the migration penalty."""
     k = inputs.k
     w_ip = _batch_w(adj, assign, lo, hi, k, hub)
     part_sizes = _part_sizes(inputs.sizes, assign, k, sizes_exact_below)
@@ -316,7 +336,8 @@ def _batch_update(inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj, *,
     onehot = (torch.arange(k, device=assign.device) == cur_p[:, None]).to(torch.float32)
     # hypothetical |p| if i moved to p: current size + s_i when p ≠ P_i
     hyp = part_sizes[None, :] + sz * (1.0 - onehot)
-    cost, cur = _costs(dk * sz, hyp, degs[lo:hi, None] - w_ip + sz, inv_k, cur_p)
+    pen = None if migrate is None else _move_pen(*migrate, lo, hi, k)
+    cost, cur = _costs(dk * sz, hyp, degs[lo:hi, None] - w_ip + sz, inv_k, cur_p, pen)
     # the current partition wins cost ties; other ties go to the lowest id
     strictly_better = cost.amin(dim=1) < cur
     best = torch.where(strictly_better, cost.argmin(dim=1), cur_p)
@@ -347,18 +368,21 @@ def run_game(inputs: GameInputs, n_clusters: int, *, batch_size: int = 256,
              home=None) -> GameResult:
     """Damped best-response dynamics to a pure Nash equilibrium (the
     reference's ``run_game``), on the device of ``inputs.sizes``.  With
-    ``leader_mask`` or ``move_mask`` given, the masked game (module
-    docstring); the other masks default to ``arange(C) < n_head`` and all
-    movable."""
-    if move_cost is not None or home is not None:
-        raise NotImplementedError(
-            "the migration-cost game of elastic resharding (move_cost, home) "
-            "waits for ROADMAP Queue 1 item 4")
+    ``leader_mask``, ``move_mask`` or ``move_cost`` given, the masked game
+    (module docstring); the other masks default to ``arange(C) < n_head``
+    and all movable.  ``move_cost`` charges each cluster for leaving
+    ``home`` (default ``assign0``); ``home`` alone is ignored, as in the
+    reference."""
     dev = inputs.sizes.device
     C, k, n_head = int(n_clusters), inputs.k, inputs.n_head
     if assign0 is None:
         assign0 = init_assignment(inputs.sizes, k)
-    masked = leader_mask is not None or move_mask is not None
+    masked = leader_mask is not None or move_mask is not None or move_cost is not None
+    migrate = None
+    if move_cost is not None:
+        home = np.asarray(assign0) if home is None else home
+        migrate = (torch.as_tensor(move_cost, dtype=torch.float32, device=dev),
+                   torch.as_tensor(home, dtype=torch.int32, device=dev))
     bs = int(batch_size)
     cid = torch.arange(C, dtype=torch.int64, device=dev)
     if masked:
@@ -414,7 +438,7 @@ def run_game(inputs: GameInputs, n_clusters: int, *, batch_size: int = 256,
             wanted |= _batch_update(
                 inputs, degs, assign, lo, hi, lucky, dk, inv_k, adj, hub=h,
                 sizes_exact_below=static.size_limit if in_order else None,
-                size_max=size_max, w_max=w_max, active=active)
+                size_max=size_max, w_max=w_max, active=active, migrate=migrate)
         return wanted
 
     def read(wanted):

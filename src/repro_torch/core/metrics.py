@@ -38,10 +38,13 @@ def partition_loads(parts, *, k: int) -> torch.Tensor:
 
 
 def load_balance(parts, *, k: int) -> float:
-    """Relative imbalance: k·max_i |p_i| / |E| (paper Eq. 2 LHS)."""
+    """Relative imbalance: k·max_i |p_i| / |E| (paper Eq. 2 LHS), divided
+    in float32 on the host: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which can miss the quotient by an ulp."""
     loads = partition_loads(parts, k=k)
     n = int(loads.sum())
-    return float((k * loads.max()).to(torch.float32) / max(n, 1))
+    num = (k * loads.max()).to(torch.float32).item()
+    return float(np.float32(num) / np.float32(max(n, 1)))
 
 
 def rf_by_degree(src, dst, parts, *, n_vertices: int, k: int):

@@ -8,6 +8,7 @@ from .engine import (  # noqa: F401
     carry_values,
     comm_stats,
     label_propagation,
+    label_propagation_step,
     out_degree_inv,
     pagerank,
     pagerank_step,

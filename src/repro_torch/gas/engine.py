@@ -32,7 +32,7 @@ from .._device import resolve_device
 
 __all__ = ["GASGraph", "CommStats", "build_gas_graph", "pagerank",
            "pagerank_step", "out_degree_inv", "carry_values",
-           "label_propagation", "comm_stats"]
+           "label_propagation", "label_propagation_step", "comm_stats"]
 
 
 class GASGraph(NamedTuple):
@@ -106,12 +106,12 @@ def _gas_superstep(g: GASGraph, values: torch.Tensor,
     return 0.15 + 0.85 * total
 
 
-def label_propagation(g: GASGraph, iterations: int = 5):
-    """Connected components via min-label propagation on the vertex cut:
-    the same replica-sync structure as PageRank, gather = min."""
+def label_propagation_step(g: GASGraph, labels: torch.Tensor) -> torch.Tensor:
+    """One min-label superstep from ``labels`` (int32, (V,)): each vertex
+    takes the least label among itself and its neighbours, gathered per
+    replica.  Integer minima: the same bits in any order, on any device."""
     dev = g.src.device
     n, k = g.n_vertices, g.k
-    labels = torch.arange(n, dtype=torch.int32, device=dev)
     big = 2**30
     s, d, p = g.src.long(), g.dst.long(), g.edge_part.long()
 
@@ -119,12 +119,19 @@ def label_propagation(g: GASGraph, iterations: int = 5):
         out = torch.full((n * k,), big, dtype=torch.int32, device=dev)
         return out.scatter_reduce_(0, idx, vals, reduce="amin").view(n, k)
 
+    lmin = seg_min(labels[s], d * k + p)
+    rmin = seg_min(labels[d], s * k + p)
+    local = torch.minimum(torch.where(g.replica_mask, lmin, big),
+                          torch.where(g.replica_mask, rmin, big))
+    return torch.minimum(labels, local.amin(dim=1))
+
+
+def label_propagation(g: GASGraph, iterations: int = 5):
+    """Connected components via min-label propagation on the vertex cut:
+    the same replica-sync structure as PageRank, gather = min."""
+    labels = torch.arange(g.n_vertices, dtype=torch.int32, device=g.src.device)
     for _ in range(iterations):
-        lmin = seg_min(labels[s], d * k + p)
-        rmin = seg_min(labels[d], s * k + p)
-        local = torch.minimum(torch.where(g.replica_mask, lmin, big),
-                              torch.where(g.replica_mask, rmin, big))
-        labels = torch.minimum(labels, local.amin(dim=1))
+        labels = label_propagation_step(g, labels)
     per = comm_stats(g)
     return labels, CommStats(per.mirror_to_master_msgs * iterations,
                              per.master_to_mirror_msgs * iterations)

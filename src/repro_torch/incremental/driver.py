@@ -19,13 +19,14 @@ fingerprint, stream position, carry representation and the prefix CRC),
 replays only the suffix the store has not seen, applies any deletions and
 saves the grown bundle.  :class:`S5PWindowChain` (and
 :func:`s5p_sliding_window`, which drains it) track the last W edges of a
-stream.  The stores are the reference's format: a store written by either
-package resumes in the other.  Entry points run on ``device`` (default
-the card).
+stream; ``S5PWindowChain.resize`` reshards its bundle onto k′.  The
+stores are the reference's format: a store written by either package
+resumes in the other.  Entry points run on ``device`` (default the card).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from typing import Any, NamedTuple
 
@@ -464,10 +465,22 @@ class S5PWindowChain:
             cold_restarted=cold_restarted, n_slots_freed=int(n_freed))
 
     def resize(self, k_new: int):
-        """Elastic k → k′ (the reference's ``elastic.reshard_bundle``)."""
-        raise NotImplementedError(
-            "resizing a window chain's bundle (elastic.reshard_bundle) waits "
-            "for elastic resharding, ROADMAP Queue 1 item 4")
+        """Elastic k → k′: reshard the live bundle onto ``k_new`` partitions
+        with bounded migration (:func:`repro_torch.elastic.reshard_bundle`);
+        the chain's config follows, so later steps ingest at k′.  Returns
+        the ``ReshardResult``, or ``None`` while the window is filling (only
+        ``config.k`` changes: the cold start runs at k′)."""
+        from ..elastic import reshard_bundle
+
+        if self.bundle is None:
+            self.config = dataclasses.replace(self.config, k=int(k_new))
+            return None
+        bundle, config, res = reshard_bundle(
+            self.bundle, self.config, k_new, self.seen_src, self.seen_dst,
+            device=self.device)
+        self.bundle = bundle
+        self.config = config
+        return res
 
     def steps(self):
         """Iterate the remaining churn schedule."""

@@ -37,14 +37,16 @@ stores are the reference's format, so either CLI resumes the other's):
       --resume-carry /data/carry --delta rmat:10 --delete frac:0.05
   python -m repro_torch.launch.partition --graph rmat:14 --k 32 --window-edges 65536 \
       --window-step 16384
+  python -m repro_torch.launch.partition --graph rmat:14 --k 8 --resize-k 12
 
 ``--save-carry DIR`` persists a cold run's warm-start bundle (greedy, hdrf,
 grid, s5p); ``--resume-carry DIR`` replays everything past the bundle's
 stream position (a ``file:`` graph grown by ``--write-shards --append``,
 plus any ``--delta`` batch) and applies ``--delete`` (``first:X | last:X
 | frac:F``); ``--window-edges`` partitions the last W edges step by step
-(s5p).  The elastic ``--resize-k`` (ROADMAP Queue 1 item 4) raises; the
-hybrid ``--host-budget`` waits for item 6.
+(s5p); ``--resize-k K2`` partitions cold at ``--k`` and reshards the s5p
+bundle to K2 with bounded migration.  The hybrid ``--host-budget`` waits
+for ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -193,6 +195,37 @@ def _run_window_cli(src, dst, n, k, partitioner, seed, window_edges,
     return history
 
 
+def _run_resize_cli(src, dst, n, k, k_new, partitioner, seed, *,
+                    chunk_size, drift_threshold, refine_rounds,
+                    xi_refresh_threshold, dev):
+    """``--resize-k``: a cold partition at k, then an elastic reshard to k′
+    (bounded migration, :mod:`repro_torch.elastic`).  Prints RF before and
+    after and the migrated fraction; returns the ``ReshardResult``."""
+    from ..elastic import reshard_bundle
+    from ..incremental.pipeline import s5p_cold_bundle
+
+    if partitioner != "s5p":
+        raise ValueError("--resize-k reshards the s5p warm bundle; use "
+                         "--partitioner s5p (scan carries reshard via "
+                         "repro_torch.elastic.reshard_scan_carry)")
+    cfg = _s5p_cfg(k, seed, chunk_size, "natural", 1, 8, drift_threshold,
+                   refine_rounds, xi_refresh_threshold)
+    t0 = time.perf_counter()
+    _, bundle = s5p_cold_bundle(src, dst, n, cfg, device=dev)
+    t_cold = time.perf_counter() - t0
+    rf0 = float(bundle["rf_baseline"])
+    t0 = time.perf_counter()
+    _, _, res = reshard_bundle(bundle, cfg, k_new, src, dst, device=dev)
+    t_resize = time.perf_counter() - t0
+    print(f"{partitioner:10s} k={k} RF={rf0:7.3f}  [{t_cold:.1f}s cold]")
+    print(f"resize →k={k_new} RF={res.rf:7.3f} balance={res.balance:5.2f} "
+          f"migrated={res.migrated_fraction:.1%} "
+          f"({res.migrated_edges}/{res.n_live} edges, "
+          f"{res.n_displaced} displaced, {res.moved_clusters} clusters "
+          f"moved, {res.game_rounds} rounds)  [{t_resize:.1f}s]")
+    return res
+
+
 def _run_incremental_cli(src, dst, n, k, partitioner, seed, compare, *,
                          stream, chunk_size, ordering, num_streams,
                          super_chunk, shard, save_carry, resume_carry, delta,
@@ -293,9 +326,6 @@ def run(graph: str, k: int, partitioner: str = "s5p", *, seed: int = 0,
             raise ValueError("--resize-k runs a single cold partition "
                              "followed by an elastic reshard; drop "
                              "--compare/--window-edges/carry flags")
-        raise NotImplementedError(
-            "--resize-k (elastic.reshard_bundle) waits for elastic "
-            "resharding, ROADMAP Queue 1 item 4")
     dev = resolve_device(device)
     on_disk = graph.startswith("file:")
     if on_disk:
@@ -322,6 +352,16 @@ def run(graph: str, k: int, partitioner: str = "s5p", *, seed: int = 0,
                 f"super_chunk must be <= the {rounds} chunks each of the "
                 f"{num_streams} sub-streams ingests (else it degenerates "
                 f"to a single merge), got {super_chunk}")
+    if resize_k is not None:
+        try:
+            return _run_resize_cli(
+                src, dst, n, k, resize_k, partitioner, seed,
+                chunk_size=chunk_size, drift_threshold=drift_threshold,
+                refine_rounds=refine_rounds,
+                xi_refresh_threshold=xi_refresh_threshold, dev=dev)
+        finally:
+            if on_disk:
+                stream.close()
     carry_flow = save_carry or resume_carry or delta or delete
     if window_edges is not None:
         if compare:
@@ -478,7 +518,10 @@ def main(argv=None):
                          "reports needs_cold_restart (s5p; default from "
                          "S5PConfig)")
     ap.add_argument("--resize-k", type=_positive_int, default=None,
-                    help="elastic resize (waits for ROADMAP Queue 1 item 4)")
+                    help="elastic resize: cold-partition at --k, then "
+                         "reshard the s5p bundle to this k with bounded "
+                         "migration (prints RF before/after + the migrated "
+                         "fraction)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain versions)")
     a = ap.parse_args(argv)

@@ -1,5 +1,5 @@
 """Serving entry point of the port: batched greedy decoding of a dense LM,
-and batched scoring of the recsys model.
+batched scoring of the recsys model, and live partition serving of a graph.
 
   python -m repro_torch.launch.serve --arch llama3-8b --tokens 16 --device cpu
   python -m repro_torch.launch.serve --arch llama3-8b --full --batch 4 --prompt-len 4096 --tokens 32
@@ -13,7 +13,15 @@ parameters and one id column per field from one key and scores them
 (K7 in every CIN layer on the card).  Both print the reference's line
 (``repro.launch.serve``).  The smoke config runs unless ``--full`` asks for
 the published one.  Runs on ``cuda`` unless ``--device`` names another
-device.  ``--graph`` waits for the incremental slice (``S5PWindowChain``).
+device.
+
+  python -m repro_torch.launch.serve --graph block-rmat --window 4096 [--background]
+
+``serve_graph`` runs the live partition-serving loop instead: a
+sliding-window S5P chain churns (in a background ingest thread with
+``--background``), each step published as an atomic bundle swap, while a
+GAS PageRank reader runs supersteps and point queries over the pinned
+versions (:mod:`repro_torch.serving`).
 """
 
 from __future__ import annotations
@@ -138,9 +146,74 @@ def serve_recsys(arch: str = "xdeepfm", batch: int = 64, smoke: bool = True, see
     return scores
 
 
-def serve_graph(graph: str = "block-rmat", **kwargs):
-    raise NotImplementedError("serve_graph needs S5PWindowChain and the serving "
-                              "controller, ported with the incremental slice")
+def serve_graph(graph: str = "block-rmat", k: int = 8,
+                window_edges: int = 4096, step_edges: int | None = None,
+                supersteps_per_swap: int = 4, queries_per_swap: int = 2,
+                auto_cold_restart: bool = True, background: bool = False,
+                seed: int = 0, verbose: bool = True, device=None):
+    """The live partition-serving loop: a sliding-window S5P chain over
+    ``graph``'s edge stream (``block-rmat`` or ``community``, the
+    reference's sizes), a :class:`~repro_torch.serving.ServingController`
+    publishing each step's live window as an atomic bundle swap, and a
+    :class:`~repro_torch.serving.GASServer` running PageRank supersteps and
+    point queries over the pinned versions.  ``background`` runs ingest on
+    its own thread with a free-running reader; otherwise churn and compute
+    interleave deterministically.  Returns ``(server, controller)``."""
+    import numpy as np
+
+    from ..core.s5p import S5PConfig
+    from ..graphs import block_rmat_graph, community_graph
+    from ..incremental import S5PWindowChain
+    from ..serving import BundleRegistry, GASServer, ServingController
+
+    dev = resolve_device(device)
+    if graph == "block-rmat":
+        src, dst, n = block_rmat_graph(block_scale=6, n_blocks=16,
+                                       edge_factor=8, seed=seed)
+    elif graph == "community":
+        src, dst, n = community_graph(4096, n_communities=32, seed=seed)
+    else:
+        raise ValueError(f"unknown --graph {graph!r}; one of block-rmat | community")
+    cfg = S5PConfig(k=k, seed=seed, chunk_size=max(window_edges, 1024))
+    chain = S5PWindowChain(src, dst, n, cfg, window_edges,
+                           step_edges=step_edges,
+                           auto_cold_restart=auto_cold_restart, device=dev)
+    registry = BundleRegistry()
+    controller = ServingController(registry, chain)
+    server = GASServer(registry)
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    if background:
+        controller.start(throttle_s=0.001)
+        while not controller.done.is_set() or registry.current is None:
+            if server.superstep() is None:
+                time.sleep(0.001)
+                continue
+            server.query_pagerank(rng.integers(0, n, 16))
+            if controller.done.is_set():
+                break
+        controller.join()
+    else:
+        while controller.step() is not None:
+            if registry.current is None:
+                continue  # window still filling
+            for _ in range(supersteps_per_swap):
+                server.superstep()
+            for _ in range(queries_per_swap):
+                server.query_pagerank(rng.integers(0, n, 16))
+    server.run_to_convergence()
+    if verbose:
+        s = server.metrics.summary()
+        print(f"[serve] graph={graph} V={n} E={src.size} k={k} "
+              f"window={window_edges}")
+        print(f"[serve] versions={controller.version} "
+              f"swaps_observed={s['swaps_observed']} "
+              f"supersteps={s['supersteps']} "
+              f"bytes/superstep={s['sync_bytes_per_superstep']:.0f} "
+              f"rf={s['rf_final']:.3f} "
+              f"query_lat={s['query_latency_us_mean']:.0f}us "
+              f"wall={time.perf_counter() - t0:.1f}s")
+    return server, controller
 
 
 def main(argv=None):
@@ -154,10 +227,21 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--graph", default=None,
-                    help="serve a live-partitioned graph (not ported yet)")
+                    help="serve a live-partitioned graph instead of a "
+                         "model: block-rmat | community")
+    ap.add_argument("--k", type=int, default=8)
+    ap.add_argument("--window", type=int, default=4096)
+    ap.add_argument("--step-edges", type=int, default=None)
+    ap.add_argument("--background", action="store_true",
+                    help="run ingest on a background thread (free-running "
+                         "reader) instead of deterministic interleave")
+    ap.add_argument("--no-cold-restart", action="store_true")
     args = ap.parse_args(argv)
     if args.graph is not None:
-        serve_graph(args.graph)
+        serve_graph(args.graph, k=args.k, window_edges=args.window,
+                    step_edges=args.step_edges, background=args.background,
+                    auto_cold_restart=not args.no_cold_restart, seed=args.seed,
+                    device=args.device)
     elif get_arch(args.arch).family == "recsys":
         serve_recsys(args.arch, batch=args.batch, smoke=not args.full, seed=args.seed,
                      device=args.device)

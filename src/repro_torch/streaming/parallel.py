@@ -38,11 +38,16 @@ last drive did (schedule, per-lane chunks, edges and seconds).
 
 ``num_streams=1`` (or a one-chunk stream) runs the sequential driver and
 is bit-identical to it in every shard mode.  ``shard_map`` waits for
-multi-device S5P (ROADMAP Queue 1 item 7) and ``straggler`` handoff for
-the runtime (item 4); each raises.  ``on_lane_failure="replay"`` re-folds
-a failed lane's super-chunk from the merge base: the in-memory one, or
-with a ``carry_store`` (:class:`~repro_torch.incremental.CarryStore`) the
-one checkpointed at every merge, restored from disk.
+multi-device S5P (ROADMAP Queue 1 item 7) and raises.
+``on_lane_failure="replay"`` re-folds a failed lane's super-chunk from the
+merge base: the in-memory one, or with a ``carry_store``
+(:class:`~repro_torch.incremental.CarryStore`) the one checkpointed at
+every merge, restored from disk.  A ``straggler`` monitor
+(:class:`~repro_torch.runtime.StragglerMonitor`) gets each lane's time per
+chunk at every merge, and its ``rebalance_plan`` moves a tail cut of each
+straggler lane's remaining chunks to the fastest lane (hub mode: at a
+whole-hub boundary, the moved hubs' ``pin_map`` entries with them).  The
+lanes share one card, so a lane's time includes the others' contention.
 """
 
 from __future__ import annotations
@@ -310,6 +315,7 @@ class ParallelEdgeStream:
         C, S = stream.n_chunks, self.num_streams
         self._chunk_pos: list[np.ndarray] | None = None  # hub: chunk → positions
         self._lane_of_pos: np.ndarray | None = None
+        self._lane_of_pos_owned = False  # False: shared with the kept plan
         self._pin_vertex: np.ndarray | None = None
         self.pin_map: dict[int, int] = {}
         self.hub_threshold: int | None = None
@@ -340,6 +346,16 @@ class ParallelEdgeStream:
         self.pin_map = dict(plan["pin_map"])
         self._chunk_pos = list(plan["chunk_pos"])
         self.lanes = [list(lane) for lane in plan["lanes"]]
+
+    def _register_chunks(self, positions: np.ndarray) -> list[int]:
+        """Pack stream positions (ascending: stream order) into new
+        fixed-size plan chunks; returns their ids."""
+        B = self.stream.chunk_size
+        cids = []
+        for i in range(0, len(positions), B):
+            cids.append(len(self._chunk_pos))
+            self._chunk_pos.append(positions[i:i + B])
+        return cids
 
     @property
     def n_hubs(self) -> int:
@@ -563,7 +579,10 @@ def run_parallel(
     re-folds a lane whose super-chunk raised, from the merge base, which
     is bit-identical to the drive without the failure; ``lane_injector``
     is a duck-typed ``check(lane, chunk_id)`` called before each chunk
-    (threads backend).  With a ``carry_store`` (threads backend) every
+    (threads backend).  ``straggler`` (threads backend) records each lane's
+    time a chunk at every merge and hands a tail cut of each straggler's
+    remaining chunks to the fastest lane (:func:`_handoff_lanes`).  With a
+    ``carry_store`` (threads backend) every
     merge base, the start carry included, is checkpointed under
     ``carry_consumer`` (default ``parallel:<carry class>``) and
     ``carry_config`` (plus the cadence and the shard mode), keyed by the
@@ -589,10 +608,6 @@ def run_parallel(
             "multi-device S5P, ROADMAP Queue 1 item 7")
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if straggler is not None:
-        raise NotImplementedError(
-            "straggler handoff waits for elastic resharding and the runtime, "
-            "ROADMAP Queue 1 item 4")
     if num_streams == 1 or stream.n_chunks <= 1:
         t0 = time.perf_counter()
         out = run_carry(stream, pc, *extras, carry=carry)
@@ -608,10 +623,11 @@ def run_parallel(
                             hub_threshold=hub_threshold)
     S = ps.num_streams
     backend = backend or "threads"
-    if (lane_injector is not None or carry_store is not None
+    if (lane_injector is not None or straggler is not None or carry_store is not None
             or on_lane_failure != "raise") and backend != "threads":
-        raise ValueError("lane fault handling and carry checkpoints run on the "
-                         f"threads backend; got backend={backend!r}")
+        raise ValueError("lane fault handling, straggler handoff and carry "
+                         "checkpoints run on the threads backend; got "
+                         f"backend={backend!r}")
     base = pc.init() if carry is None else carry
     parts_by_chunk: dict[int, torch.Tensor] = {}
     ctl = _CadenceController(pc, super_chunk)
@@ -707,11 +723,15 @@ def run_parallel(
             return restored
 
         save_base()  # a lane can die before the first merge commits
+        # a straggler handoff re-deals the remaining chunks between merges:
+        # the plan's own lists stay as they are
+        lanes = [list(lane) for lane in ps.lanes]
         pos = [0] * S
+        sc_index = 0
         with (ThreadPoolExecutor(max_workers=S) if cuda else _InlineExecutor()) as ex:
-            while any(pos[s] < len(ps.lanes[s]) for s in range(S)):
+            while any(pos[s] < len(lanes[s]) for s in range(S)):
                 sc = ctl.next()
-                batches = [ps.lanes[s][pos[s]:pos[s] + sc] for s in range(S)]
+                batches = [lanes[s][pos[s]:pos[s] + sc] for s in range(S)]
                 futs = [ex.submit(lane_fold, s, batches[s], start_of(s, batches[s]),
                                   lane_injector) for s in range(S)]
                 locals_: list = [None] * S
@@ -746,6 +766,14 @@ def run_parallel(
                     lane_edges[s] += sum(ps.chunk_n_valid(c) for c in batches[s])
                     lane_wall[s] += times[s]
                 save_base()
+                if straggler is not None:
+                    for s in range(S):
+                        if batches[s]:
+                            # a lane's time a chunk: its speed, not its load
+                            straggler.record(sc_index, times[s] / len(batches[s]),
+                                             shard=s)
+                    _handoff_lanes(ps, lanes, pos, straggler)
+                sc_index += 1
         if cuda:
             for p in parts_by_chunk.values():
                 p.record_stream(main)
@@ -773,3 +801,83 @@ def run_parallel(
             for cid in range(stream.n_chunks)]
     parts = outs[0] if len(outs) == 1 else torch.cat(outs)
     return stream.scatter_back(parts), result
+
+
+def _handoff_lanes(ps, lanes, pos, straggler):
+    """Live lane handoff at a merge boundary: the monitor's
+    ``rebalance_plan`` over each lane's remaining chunk range says what
+    tail cut each straggler gives up, and those chunk ids move to the
+    receiving lane's queue.  Chunks already folded (before ``pos``) never
+    move.  In hub mode the cut is re-sliced at a whole-hub boundary
+    (:func:`_handoff_lanes_hub`)."""
+    ranges = [(pos[s], len(lanes[s])) for s in range(len(lanes))]
+    plan = straggler.rebalance_plan(ranges)
+    if plan == ranges:
+        return
+    if ps.shard == "hub":
+        _handoff_lanes_hub(ps, lanes, pos, ranges, plan)
+        return
+    moved: list[int] = []
+    receiver = None
+    for s, ((_, hi_old), (_, hi_new)) in enumerate(zip(ranges, plan)):
+        if hi_new < hi_old:
+            cut = hi_old - hi_new
+            moved.extend(lanes[s][len(lanes[s]) - cut:])
+            del lanes[s][len(lanes[s]) - cut:]
+        elif hi_new > hi_old:
+            receiver = s
+    if receiver is not None and moved:
+        # keep stream order within the receiving lane's tail
+        lanes[receiver].extend(sorted(moved))
+        log.info("straggler handoff: %d chunk(s) moved to lane %d",
+                 len(moved), receiver)
+
+
+def _handoff_lanes_hub(ps, lanes, pos, ranges, plan):
+    """Hub-granular handoff: each straggler's remaining edges are cut at a
+    whole-hub boundary (a hub edge moves iff its hub's first remaining
+    occurrence is past the boundary, so a hub's remaining edges all stay or
+    all move, in stream order either way), both sides are registered as new
+    plan chunks, and the moved hubs' ``pin_map`` entries go to the
+    receiver."""
+    B = ps.stream.chunk_size
+    receiver = None
+    for s, ((_, hi_old), (_, hi_new)) in enumerate(zip(ranges, plan)):
+        if hi_new > hi_old:
+            receiver = s
+    if receiver is None:
+        return
+    for s, ((_, hi_old), (_, hi_new)) in enumerate(zip(ranges, plan)):
+        cut = hi_old - hi_new
+        if cut <= 0 or s == receiver:
+            continue
+        rest = lanes[s][pos[s]:]
+        if not rest:
+            continue
+        positions = np.concatenate([ps._chunk_pos[c] for c in rest])
+        boundary = max(len(positions) - cut * B, 0)
+        pv = ps._pin_vertex[positions]
+        idx = np.arange(len(positions))
+        move = (pv < 0) & (idx >= boundary)
+        # a hub edge moves with its hub's first remaining occurrence
+        hub = pv >= 0
+        if hub.any():
+            hubs, first = np.unique(pv[hub], return_index=True)
+            first_of = np.flatnonzero(hub)[first]  # positions ascend
+            move[hub] = first_of[np.searchsorted(hubs, pv[hub])] >= boundary
+        keep_pos = positions[~move]
+        move_pos = positions[move]
+        if not move_pos.size:
+            continue
+        lanes[s] = lanes[s][:pos[s]] + ps._register_chunks(keep_pos)
+        lanes[receiver].extend(ps._register_chunks(move_pos))
+        moved_hubs = np.unique(pv[move & hub])
+        for h in moved_hubs:
+            ps.pin_map[int(h)] = receiver
+        if not ps._lane_of_pos_owned:  # the kept plan's array stays as built
+            ps._lane_of_pos = ps._lane_of_pos.copy()
+            ps._lane_of_pos_owned = True
+        ps._lane_of_pos[move_pos] = receiver
+        log.info("straggler handoff (hub): %d edge(s), %d hub pin(s) "
+                 "moved lane %d → %d", len(move_pos), len(moved_hubs), s,
+                 receiver)

@@ -36,6 +36,7 @@ from repro_torch.incremental import (CarryStore, S5PWindowChain, compact_bundle,
                                      compact_edge_slots, cold_start, run_incremental,
                                      s5p_apply_delta, s5p_apply_deletion, s5p_cold_bundle,
                                      s5p_cold_restart)
+from repro_torch.runtime import LaneFaultInjector
 from test_torch_incremental import _h, community, same_bundle, same_result
 
 K = 4
@@ -293,8 +294,11 @@ def test_window_chain_steps_equal_the_reference(case):
     live_s, live_d = tchain.live_edges()
     last = steps[-1]
     assert live_s.size == last.hi - last.lo
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tchain.resize(8)
+    # an elastic resize of the live window: the reference's reshard, bit for bit
+    k2 = tcfg.k + 2
+    jres, tres = jchain.resize(k2), tchain.resize(k2)
+    assert tuple(jres) == tuple(tres) and tchain.config.k == k2
+    same_bundle(jchain.bundle, tchain.bundle, "resized")
 
 
 def test_sliding_window_tracks_the_live_set():
@@ -362,19 +366,6 @@ def test_hdrf_deletion_equals_the_reference(tmp_path):
 
 # ====================================== run_parallel: replay from disk
 
-class _KillOnce:
-    """Duck-typed lane injector: raises the first time ``lane`` reaches
-    ``chunk``."""
-
-    def __init__(self, lane, chunk):
-        self.lane, self.chunk, self.fired = lane, chunk, False
-
-    def check(self, lane, chunk_id):
-        if not self.fired and (lane, chunk_id) == (self.lane, self.chunk):
-            self.fired = True
-            raise RuntimeError("injected lane death")
-
-
 class _CountingStore(CarryStore):
     loads = 0
 
@@ -396,7 +387,7 @@ def test_run_parallel_carry_store_replays_from_disk(name, tmp_path):
     kw = dict(num_streams=3, super_chunk=2)
     want_parts, want = run_parallel(stream, pc, **kw)
     store = _CountingStore(tmp_path / "bases", keep=2)
-    inject = _KillOnce(1, stream.n_chunks // 2)
+    inject = LaneFaultInjector([(1, stream.n_chunks // 2)])
     got_parts, got = run_parallel(stream, pc, carry_store=store, on_lane_failure="replay",
                                   lane_injector=inject, carry_consumer=f"lanes:{name}",
                                   carry_config={"n": n}, **kw)
@@ -414,4 +405,4 @@ def test_run_parallel_carry_store_replays_from_disk(name, tmp_path):
     # without replay the failure propagates
     with pytest.raises(RuntimeError, match="injected"):
         run_parallel(stream, pc, carry_store=CarryStore(tmp_path / "b2"),
-                     lane_injector=_KillOnce(0, 0), **kw)
+                     lane_injector=LaneFaultInjector([(0, 0)]), **kw)

@@ -104,13 +104,17 @@ def test_init_assignment_and_batch_size():
 
 
 def test_masked_game_raises():
-    """The masked game is ported (tests/test_torch_parallel.py holds it to
-    the reference); its migration cost (elastic resharding) still raises."""
+    """The masked game and its migration cost are ported
+    (tests/test_torch_elastic.py holds the cost to the reference at several
+    scales): with ``move_mask`` given, a cost or a home alone plays the
+    reference's game bit for bit."""
     inputs, C = _game_inputs(_graph("0"), 4, False, False)
+    ti = interop.game_inputs(inputs, device="cpu")
     for kw in ({"move_cost": np.ones(C, np.float32)}, {"home": np.zeros(C, np.int32)}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            tgame.run_game(interop.game_inputs(inputs, device="cpu"), C,
-                           move_mask=np.ones(C, bool), **kw)
+        ref = jgame.run_game(inputs, C, move_mask=np.ones(C, bool), **kw)
+        port = tgame.run_game(ti, C, move_mask=np.ones(C, bool), **kw)
+        np.testing.assert_array_equal(np.asarray(ref.assignment), port.assignment.numpy())
+        assert int(ref.rounds) == port.rounds
 
 
 @pytest.mark.parametrize("scale", [3001, 4097, 4099, 7919, 8191])

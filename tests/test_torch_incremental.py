@@ -520,7 +520,7 @@ def test_incremental_cli_delta_spec_and_validation(tmp_path):
             (dict(ordering="shuffled", save_carry=str(store)), ValueError, "natural"),
             (dict(window_edges=64, save_carry=str(store)), ValueError, "does not combine"),
             (dict(window_edges=64), ValueError, "s5p pipeline"),
-            (dict(resize_k=8), NotImplementedError, "item 4"),
+            (dict(resize_k=8), ValueError, "s5p warm bundle"),
             (dict(resize_k=8, compare=True), ValueError, "resize-k")]:
         with pytest.raises(err, match=match):
             cli.run("toy", K, "greedy", device=CPU, **kw)

@@ -34,7 +34,10 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
             "repro_torch.checkpoint.reshard", "repro_torch.incremental.store",
             "repro_torch.incremental.delta", "repro_torch.incremental.drift",
-            "repro_torch.incremental.pipeline", "repro_torch.incremental.driver"} <= set(mods)
+            "repro_torch.incremental.pipeline", "repro_torch.incremental.driver",
+            "repro_torch.elastic.reshard", "repro_torch.runtime.fault",
+            "repro_torch.runtime.straggler", "repro_torch.runtime.elastic",
+            "repro_torch.serving.controller"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -74,6 +77,8 @@ def _entry_points():
     from repro_torch.streaming import ShardedEdgeStream
 
     from repro_torch import incremental as inc
+    from repro_torch.elastic import reshard_bundle
+    from repro_torch.launch.serve import serve_graph
 
     cfg = GCNConfig(n_layers=2, d_hidden=2, d_feat=2, n_classes=2)
     lm_cfg = get_arch("llama3-8b").smoke_config
@@ -108,6 +113,8 @@ def _entry_points():
         "s5p_apply_deletion": lambda: inc.s5p_apply_deletion({}, S5PConfig(k=2), src, dst, []),
         "compact_bundle": lambda: inc.compact_bundle({}, S5PConfig(k=2)),
         "window_chain": lambda: inc.S5PWindowChain(src, dst, 3, S5PConfig(k=2), 2),
+        "reshard_bundle": lambda: reshard_bundle({}, S5PConfig(k=2), 3, src, dst),
+        "serve_graph": lambda: serve_graph("block-rmat"),
     }
 
 
@@ -118,7 +125,8 @@ def _entry_points():
                                   "xdeepfm_init", "cin_layer_kernel", "sharded_stream",
                                   "edge_chunk_pipeline", "token_pipeline", "cold_start",
                                   "run_incremental", "s5p_cold_bundle", "s5p_apply_delta",
-                                  "s5p_apply_deletion", "compact_bundle", "window_chain"])
+                                  "s5p_apply_deletion", "compact_bundle", "window_chain",
+                                  "reshard_bundle", "serve_graph"])
 def test_entry_points_need_a_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1386,3 +1386,210 @@ def test_bundle_saved_from_the_card_loads_on_the_cpu(cuda, tmp_path):
     res_card = run_incremental(tmp_path / "cpu", "s5p", src, dst, n, 8, s5p_config=cfg,
                                save=False, device=cuda)
     assert np.array_equal(res_cpu.parts, res_card.parts) and res_cpu.rf == res_card.rf
+
+
+# ---------------------------------------------------------------- elastic
+
+def _warm_pair(cuda, seed=0, k=8):
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.graphs import community_graph
+    from repro_torch.incremental import s5p_cold_bundle
+
+    src, dst, n = community_graph(800, n_communities=16, avg_degree=6, p_intra=0.9,
+                                  seed=seed)
+    cfg = S5PConfig(k=k, seed=seed, chunk_size=512)
+    _, gb = s5p_cold_bundle(src, dst, n, cfg, device=cuda)
+    _, cb = s5p_cold_bundle(src, dst, n, cfg, device="cpu")
+    return src, dst, n, cfg, gb, cb
+
+
+def _same_bundles(g, c):
+    assert sorted(g) == sorted(c)
+    for key in c:
+        a, b = np.asarray(g[key]), np.asarray(c[key])
+        assert a.dtype == b.dtype and np.array_equal(a, b), key
+
+
+@pytest.mark.parametrize("k_new", [12, 5])
+@pytest.mark.parametrize("scale", [0.0, 1.0])
+def test_reshard_bundle_cuda_equals_cpu(cuda, k_new, scale):
+    """Grow and shrink with the migration-cost game on the card (its sums
+    on K5) and the affected edges placed again on K2: the CPU's bundle and
+    result bit for bit."""
+    from repro_torch.elastic import reshard_bundle
+    from repro_torch.kernels import segment_agg, stream_scan
+
+    def launch_counts():
+        return {**stream_scan.launch_counts(), **segment_agg.launch_counts()}
+
+    src, dst, n, cfg, gb, cb = _warm_pair(cuda, seed=1)
+    _same_bundles(gb, cb)
+    before = launch_counts()
+    g2, _, gres = reshard_bundle(gb, cfg, k_new, src, dst, move_cost_scale=scale,
+                                 device=cuda)
+    after = launch_counts()
+    c2, _, cres = reshard_bundle(cb, cfg, k_new, src, dst, move_cost_scale=scale,
+                                 device="cpu")
+    assert tuple(gres) == tuple(cres) and gres.game_rounds > 0
+    _same_bundles(g2, c2)
+    assert after["assign_scan"] > before["assign_scan"]
+    assert after["segment_agg"] >= before["segment_agg"] + 2
+
+
+@pytest.mark.parametrize("scale", [0.0, 0.5, 4.0])
+def test_move_cost_game_cuda_equals_cpu(cuda, scale):
+    from repro_torch.core import game as G
+
+    src, dst, n, cfg, gb, _ = _warm_pair(cuda, seed=2)
+    sizes = np.asarray(gb["sizes"], np.float32)
+    C, k = sizes.size, 10
+    rng = np.random.default_rng(3)
+    assign0 = rng.integers(0, k, C).astype(np.int32)
+    home = np.where(rng.random(C) < 0.2, -1, assign0).astype(np.int32)
+    cost = (np.float32(scale) * sizes / np.float32(k)).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        inputs = G.GameInputs(*(torch.from_numpy(np.asarray(gb[key])).to(dev)
+                                for key in ("sizes", "pair_a", "pair_b", "pair_w")), 0, k)
+        res = G.run_game(inputs, C, batch_size=G.default_batch_size(256, C), max_rounds=64,
+                         assign0=assign0, seed=4,
+                         leader_mask=np.asarray(gb["comb_is_head"], bool),
+                         move_mask=sizes > 0, move_cost=cost, home=home)
+        out.append((res.assignment.cpu().numpy(), res.rounds))
+    assert np.array_equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+
+
+@pytest.mark.parametrize("k_new", [12, 4])
+@pytest.mark.parametrize("name", ["greedy", "hdrf"])
+def test_reshard_scan_carry_cuda_equals_cpu(cuda, name, k_new):
+    """K3's retract of the displaced edges and K3 at k′: the CPU's carry and
+    parts."""
+    from repro_torch.elastic import reshard_scan_carry
+    from repro_torch.graphs import community_graph
+    from repro_torch.kernels.stream_scan import GreedyCarry, HdrfCarry, launch_counts
+    from repro_torch.streaming import EdgeStream, run_carry
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=5, seed=5)
+    out = []
+    for dev in (cuda, "cpu"):
+        make = ((lambda k: GreedyCarry(n, k, device=dev)) if name == "greedy"
+                else (lambda k: HdrfCarry(n, k, 1.1, device=dev)))
+        parts, carry = run_carry(EdgeStream(src, dst, n, chunk_size=256, device=dev), make(8))
+        before = launch_counts()
+        work, new_parts, res = reshard_scan_carry(make(k_new), carry, k_new, src, dst,
+                                                  parts.cpu().numpy(), chunk_size=256)
+        after = launch_counts()
+        out.append(([x.cpu() for x in work], new_parts, tuple(res)))
+        if dev is cuda and k_new < 8:
+            assert after["scoring_retract"] > before["scoring_retract"]
+            assert after["scoring_scan"] > before["scoring_scan"]
+    (gw, gp, gr), (cw, cp, cr) = out
+    assert gr == cr and np.array_equal(gp, cp)
+    assert all(torch.equal(a, b) for a, b in zip(gw, cw))
+
+
+def _fixed_monitor():
+    """A straggler monitor whose plan does not depend on timing: lane 2 is
+    the straggler, lane 0 the fastest."""
+    from repro_torch.runtime import StragglerMonitor
+
+    class Fixed(StragglerMonitor):
+        def record(self, step, dt, shard=0):
+            self.n_shards = max(self.n_shards, int(shard) + 1)
+            self.history.append((step, int(shard), dt))
+
+    mon = Fixed(threshold=1.01)
+    for s in range(4):
+        StragglerMonitor.record(mon, 0, 100.0 if s == 2 else 1.0, shard=s)
+    return mon
+
+
+@pytest.mark.parametrize("shard", ["range", "rr", "hub"])
+def test_straggler_handoff_cuda_equals_cpu(cuda, shard):
+    """A forced handoff (and a lane killed and replayed) with the lanes on
+    their own CUDA streams gives the CPU's parts and carry."""
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels.stream_scan import HdrfCarry
+    from repro_torch.runtime import LaneFaultInjector
+    from repro_torch.streaming import EdgeStream, ParallelEdgeStream, run_parallel
+
+    src, dst, n = rmat_graph(11, edge_factor=8, seed=2)
+    out = []
+    for dev in (cuda, "cpu"):
+        st = EdgeStream(src, dst, n, chunk_size=1024, device=dev)
+        cid = ParallelEdgeStream(st, 4, shard=shard).lanes[1][1]
+        inj = LaneFaultInjector([(1, cid)])
+        parts, carry = run_parallel(st, HdrfCarry(n, 8, 1.1, device=dev), num_streams=4,
+                                    super_chunk=2, shard=shard, straggler=_fixed_monitor(),
+                                    on_lane_failure="replay", lane_injector=inj)
+        assert inj.fired == [(1, cid)]
+        out.append((parts.cpu(), [x.cpu() for x in carry]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+def test_serving_controller_resize_cuda_equals_cpu(cuda):
+    """The controller over a window chain on the card, with a resize swap
+    and a forced cold restart: the CPU's versions, origins and parts."""
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.graphs import community_graph
+    from repro_torch.incremental import S5PWindowChain
+    from repro_torch.serving import BundleRegistry, ServingController
+
+    src, dst, n = community_graph(512, n_communities=8, avg_degree=6, p_intra=0.9, seed=13)
+    E = src.size
+    runs = []
+    for dev in (cuda, "cpu"):
+        chain = S5PWindowChain(src, dst, n, S5PConfig(k=4, chunk_size=max(E // 3, 256)),
+                               E // 3, step_edges=E // 6, device=dev)
+        reg = BundleRegistry()
+        ctl = ServingController(reg, chain)
+        seen = []
+        while reg.current is None:
+            ctl.step()
+        ctl.step()
+        ctl.resize(6)
+        seen.append(reg.current)
+        ctl.request_cold_restart()
+        seen.append(reg.current)
+        while ctl.step() is not None:
+            seen.append(reg.current)
+        assert reg.current.device.type == torch.device(dev).type
+        runs.append([(b.version, b.origin, b.k, b.parts) for b in seen])
+    assert len(runs[0]) == len(runs[1])
+    for a, b in zip(*runs):
+        assert a[:3] == b[:3] and np.array_equal(a[3], b[3])
+    assert runs[0][0][1] == "resize" and runs[0][1][1] == "cold-restart"
+
+
+def test_fault_tolerant_loop_on_the_card_resumes_exactly(cuda, tmp_path):
+    """Label propagation supersteps over a bundle on the card, checkpointed
+    every 5 and failed at step 7: bitwise the undisturbed run."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.gas import build_gas_graph, label_propagation_step
+    from repro_torch.graphs import community_graph
+    from repro_torch.runtime import FaultInjector, FaultTolerantLoop
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    parts = torch.from_numpy((src % 8).astype(np.int32))
+    g = build_gas_graph(torch.from_numpy(src).to(cuda), torch.from_numpy(dst).to(cuda),
+                        parts, n, 8, device=cuda)
+
+    def step_fn(state, batch):
+        labels = label_propagation_step(g, state["labels"])
+        return {"labels": labels, "n": state["n"] + 1}, {"labels": labels}
+
+    def run(d, fail_at):
+        loop = FaultTolerantLoop(step_fn, lambda s: None,
+                                 CheckpointManager(d, async_write=False), ckpt_every=5,
+                                 injector=FaultInjector(fail_at))
+        state = {"labels": torch.arange(n, dtype=torch.int32, device=cuda),
+                 "n": torch.zeros((), dtype=torch.int32, device=cuda)}
+        out, step, _ = loop.run(state, 12)
+        return out, loop.restarts
+
+    clean, r0 = run(tmp_path / "clean", ())
+    faulty, r1 = run(tmp_path / "faulty", (7,))
+    assert (r0, r1) == (0, 1) and int(faulty["n"]) == 12
+    assert faulty["labels"].device.type == "cuda"
+    assert torch.equal(clean["labels"], faulty["labels"])

@@ -295,7 +295,7 @@ def test_serve_lm_bf16_first_logits_match_reference():
 def test_cli(capsys):
     tserve.main(["--arch", "qwen3-14b", "--tokens", "3", "--batch", "1", "--device", "cpu"])
     assert "[serve] qwen3-14b: 1×3 tokens in" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="incremental slice"):
-        tserve.main(["--graph", "block-rmat"])
+    with pytest.raises(ValueError, match="unknown --graph"):
+        tserve.main(["--graph", "kronecker", "--device", "cpu"])
     tserve.main(["--arch", "xdeepfm", "--batch", "3", "--device", "cpu"])
     assert "[serve] xdeepfm: scored 3 in" in capsys.readouterr().out

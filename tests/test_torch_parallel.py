@@ -43,6 +43,7 @@ from repro_torch.core.cms import SketchCarry
 from repro_torch.core.postprocess import AssignCarry
 from repro_torch.core.s5p import S5PConfig, s5p_partition
 from repro_torch.kernels.stream_scan import GreedyCarry, GridCarry, HdrfCarry
+from repro_torch.runtime import LaneFaultInjector
 from repro_torch.streaming import (EdgeStream, ParallelEdgeStream, last_ingest_stats,
                                    reset_cadence_log, run_carry, run_parallel,
                                    run_retract)
@@ -237,20 +238,6 @@ def test_s5p_s1_bit_identical_across_shards():
         assert "touch_up" not in out.aux
 
 
-class _FailOnce:
-    """Raises at one (lane, chunk) the first time it is reached."""
-
-    def __init__(self, lane, nth):
-        self.lane, self.nth, self.seen, self.fired = lane, nth, 0, False
-
-    def check(self, lane, chunk_id):
-        if lane == self.lane and not self.fired:
-            self.seen += 1
-            if self.seen > self.nth:
-                self.fired = True
-                raise RuntimeError("lane killed")
-
-
 @pytest.mark.parametrize("shard", ["range", "hub"])
 @pytest.mark.parametrize("name", ["hdrf", "cluster", "sketch"])
 def test_lane_replay_gives_the_unkilled_bits(name, shard):
@@ -259,16 +246,17 @@ def test_lane_replay_gives_the_unkilled_bits(name, shard):
     stream = EdgeStream(src, dst, n, chunk_size=13, device="cpu")
     kw = dict(num_streams=3, super_chunk=2, shard=shard)
     want_p, want = run_parallel(stream, make(), **kw)
-    inj = _FailOnce(lane=1, nth=2)
+    cid = ParallelEdgeStream(stream, 3, shard=shard).lanes[1][2]  # lane 1's third chunk
+    inj = LaneFaultInjector([(1, cid)])
     got_p, got = run_parallel(stream, make(), on_lane_failure="replay",
                               lane_injector=inj, **kw)
-    assert inj.fired
+    assert inj.fired == [(1, cid)]
     if want_p is not None:
         assert torch.equal(want_p, got_p)
     for a, b in zip(tree_leaves(want), tree_leaves(got)):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-    with pytest.raises(RuntimeError, match="lane killed"):
-        run_parallel(stream, make(), lane_injector=_FailOnce(1, 2), **kw)
+    with pytest.raises(RuntimeError, match="injected lane 1"):
+        run_parallel(stream, make(), lane_injector=LaneFaultInjector([(1, cid)]), **kw)
 
 
 def test_linear_carries_are_exact_under_every_plan():
@@ -349,7 +337,8 @@ def test_knobs_validate_and_unported_paths_raise(tmp_path):
             (dict(num_streams=2, backend="vmap", on_lane_failure="replay"),
              ValueError, "threads"),
             (dict(num_streams=2, backend="shard_map"), NotImplementedError, "item 7"),
-            (dict(num_streams=2, straggler=object()), NotImplementedError, "item 4"),
+            (dict(num_streams=2, backend="vmap", straggler=object()), ValueError,
+             "threads"),
             (dict(num_streams=2, backend="vmap", carry_store=object()),
              ValueError, "threads")]:
         with pytest.raises(err, match=match):
@@ -416,9 +405,13 @@ def test_masked_game_defaults_and_refusals():
     ref = jgame.run_game(inputs, C, leader_mask=np.arange(C) < 5, **kw)
     port = tgame.run_game(ti, C, leader_mask=np.arange(C) < 5, **kw)
     np.testing.assert_array_equal(np.asarray(ref.assignment), port.assignment.numpy())
-    for kw2 in ({"move_cost": np.ones(C, np.float32)}, {"home": np.zeros(C, np.int32)}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            tgame.run_game(ti, C, **kw, **kw2)
+    # the migration cost alone plays the masked game (leader prefix, all
+    # movable, home = assign0); home alone is ignored, as in the reference
+    for kw2 in ({"move_cost": np.full(C, 0.5, np.float32)}, {"home": np.zeros(C, np.int32)}):
+        ref = jgame.run_game(inputs, C, **kw, **kw2)
+        port = tgame.run_game(ti, C, **kw, **kw2)
+        np.testing.assert_array_equal(np.asarray(ref.assignment), port.assignment.numpy())
+        assert int(ref.rounds) == port.rounds
 
 
 # ------------------------------------------------------ S5P with touch-up

@@ -2,8 +2,9 @@
 
 ``repro_torch.serving`` against the live ``repro.serving`` on the same
 edges and parts: bundle fingerprints equal; the registry's pin, refcount
-and retire behaviour as ``tests/test_serving.py`` pins it (no controller:
-the writer side is not ported yet); ``GASServer`` PageRank values after n
+and retire behaviour as ``tests/test_serving.py`` pins it (the writer
+side, ``ServingController``, is held in ``test_torch_controller.py``);
+``GASServer`` PageRank values after n
 super-steps within rtol 1e-5 (float32 sums in another order, as in
 ``test_torch_gas.py``); component labels exact; ``query_gnn`` within the
 GCN tolerance of ``test_torch_gnn.py`` (rtol 1e-5, atol 1e-6), against
