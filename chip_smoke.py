@@ -236,10 +236,10 @@ Phases, each printing one JSON line:
               killed and replayed, a ``ServingController`` with one
               resize): every result equal on both.
 
-The kernel checks of phase 7 run after phases 8 and 9.  Two worker
-processes make the host-side data of phases 5c and 6 (the seed-1 R-MAT,
-``ogbn_products_like`` and its features) while the card runs phases 3–5d;
-each phase records its data's seconds as the worker measured them.
+The kernel checks of phase 7 run after phases 8 and 9.  Phase 6's
+features (one generator a vertex) are made in ranges by worker processes
+while the script makes the graph and runs nothing timed: no timed phase
+shares the host with them.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -357,34 +357,45 @@ def reset_launch_counts() -> None:
         mod.reset_launch_counts()
 
 
-# ------------------------------------------------------------ prefetched data
+# ------------------------------------------------------------- serve's data
+
+FEATURE_WORKERS = 6
 
 
-def _rmat_data(scale: int, seed: int):
-    """The Graph500 R-MAT of ``seed`` at ``scale`` (phase incremental's
-    delta source), made in a worker process; returns it and its seconds."""
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.graphs import rmat_graph
-
-    t0 = time.perf_counter()
-    g = rmat_graph(scale, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=seed)
-    return g, time.perf_counter() - t0
-
-
-def _serve_data(products_scale: float):
-    """Phase serve's host-made data, made in a worker process:
-    ``ogbn_products_like(seed=0)`` and its 100 features a vertex; returns
-    ``(graph, features, graph_s, features_s)``."""
+def _products_features(lo: int, hi: int):
+    """``products_features`` of vertices [lo, hi), in a worker process: one
+    generator a vertex, so the ranges concatenate to the whole table."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
-    from repro_torch.graphs import ogbn_products_like, products_features
+    from repro_torch.graphs import products_features
 
+    return products_features(np.arange(lo, hi), 100, seed=0)
+
+
+def _serve_data(products_scale: float):
+    """Phase serve's host-made data: ``ogbn_products_like(seed=0)`` made
+    here while :data:`FEATURE_WORKERS` spawned processes make its 100
+    features a vertex in ranges.  Returns ``(graph, features, graph_s,
+    features_s)``, each the wall time from the common start."""
+    import numpy as np
+
+    from repro_torch.graphs import ogbn_products_like
+
+    n = int(2_449_029 * products_scale)  # ogbn_products_like's vertex count
+    cuts = np.linspace(0, n, FEATURE_WORKERS + 1).astype(int)
     t0 = time.perf_counter()
-    g = ogbn_products_like(seed=0, scale=products_scale)
-    t1 = time.perf_counter()
-    feats = products_features(np.arange(g.n_vertices), 100, seed=0)
-    return g, feats, t1 - t0, time.perf_counter() - t1
+    with ProcessPoolExecutor(max_workers=FEATURE_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(_products_features, int(lo), int(hi))
+                for lo, hi in zip(cuts[:-1], cuts[1:])]
+        g = ogbn_products_like(seed=0, scale=products_scale)
+        graph_s = time.perf_counter() - t0
+        feats = np.concatenate([job.result() for job in jobs])
+    if g.n_vertices != n:
+        raise SystemExit(f"chip_smoke: ogbn_products_like made {g.n_vertices} vertices, "
+                         f"not {n}")
+    return g, feats, graph_s, time.perf_counter() - t0
 
 
 # --------------------------------------------------------------------- phases
@@ -1605,7 +1616,7 @@ def _game_k5(games) -> int:
     return sum(2 + g["ordered_sums"] for g in games if g["rounds"] > 0)
 
 
-def phase_incremental(main, compare, seed1=None) -> dict:
+def phase_incremental(main, compare) -> dict:
     """Dynamic re-partitioning at phase main's scale (``repro_torch.incremental``):
     the base bundle packed from phase main's own S5P output, a 10 % insertion
     (the first E/10 edges of R-MAT seed 1, appended) under the default drift
@@ -1630,6 +1641,7 @@ def phase_incremental(main, compare, seed1=None) -> dict:
     from repro_torch.incremental import (CarryStore, S5PWindowChain, cold_start,
                                          pack_warm_bundle, run_incremental, s5p_apply_delta,
                                          s5p_apply_deletion)
+    from repro_torch.graphs import rmat_graph
     from repro_torch.incremental.pipeline import last_games, theta_delta_pairs
     from repro_torch.launch.partition import _parse_delete
 
@@ -1685,9 +1697,10 @@ def phase_incremental(main, compare, seed1=None) -> dict:
 
     # ---- insertion: 10 % of the base, appended ----
     m = E // 10
-    if seed1 is None:  # not prefetched: made here
-        seed1 = _rmat_data(int(round(math.log2(n))), 1)
-    (s1, d1, _), info["seed1_generate_s"] = seed1
+    t0 = time.perf_counter()
+    s1, d1, _ = rmat_graph(int(round(math.log2(n))), edge_factor=16, a=0.57, b=0.19,
+                           c=0.19, seed=1)
+    info["seed1_generate_s"] = time.perf_counter() - t0
     full_src = np.concatenate([src, s1[:m]]).astype(np.int32)
     full_dst = np.concatenate([dst, d1[:m]]).astype(np.int32)
     E_full = int(full_src.size)
@@ -1877,6 +1890,19 @@ def _fixed_monitor(slow: int = 2, lanes: int = 4):
     return mon
 
 
+def _reshard_affected(before: dict, after: dict, k_new: int) -> int:
+    """The live edges a bundle reshard placed again: those on a partition
+    past ``k_new`` and those of a cluster whose partition changed."""
+    import numpy as np
+
+    old = np.asarray(before["parts"], np.int32)
+    placed = np.asarray(before["alive"], bool) & (old >= 0)
+    moved = np.asarray(after["c2p"], np.int32) != np.asarray(before["c2p"], np.int32)
+    cu, cv = np.asarray(before["edge_cu"]), np.asarray(before["edge_cv"])
+    on_moved = ((cu >= 0) & moved[np.maximum(cu, 0)]) | ((cv >= 0) & moved[np.maximum(cv, 0)])
+    return int(np.count_nonzero(placed & ((old >= k_new) | on_moved)))
+
+
 def _reshard_checks(res, before: dict, after: dict, k_old: int) -> list[str]:
     """``tests/test_elastic.py::_check_invariants`` on a resharded bundle,
     plus the grow and shrink postconditions."""
@@ -1912,7 +1938,8 @@ def phase_elastic(main, incremental) -> dict:
     main's output, packed once) resharded 32 → 40 and 32 → 24
     (``reshard_bundle``, ``move_cost_scale = 1``: the migration-cost game on
     the card, its sums on K5, the affected edges placed again on K2; the
-    game and the replay timed apart, the game's audit, the invariants of
+    game's seconds beside the rest of the step, K2 held to one launch a
+    chunk of the edges placed again, the game's audit, the invariants of
     ``tests/test_elastic.py``); HDRF's carry from phase incremental's cold
     start resharded 32 → 24 (``reshard_scan_carry``: K3's retract, then K3
     at k′); a ``ServingController`` over an ``S5PWindowChain`` of phase
@@ -1935,7 +1962,7 @@ def phase_elastic(main, incremental) -> dict:
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.elastic import last_timings, reshard_bundle, reshard_scan_carry
+    from repro_torch.elastic import reshard_bundle, reshard_scan_carry
     from repro_torch.gas import label_propagation_step, pagerank_step
     from repro_torch.incremental import S5PWindowChain
     from repro_torch.incremental.pipeline import last_games
@@ -1973,10 +2000,12 @@ def phase_elastic(main, incremental) -> dict:
     for k_new, name in ((40, "grow"), (24, "shrink")):
         (b2, _, res), dt, launches = drive(lambda: reshard_bundle(
             base, cfg, k_new, src, dst, move_cost_scale=1.0, device=dev))
-        games, t = last_games(), last_timings()
+        games = last_games()
         audit = _incremental_game_audit(b2, games)
+        k2_chunks = math.ceil(_reshard_affected(base, b2, k_new) / cfg.chunk_size)
         emit_step({"step": name, "k_old": k, "k_new": k_new, "seconds": dt,
-                   "game_s": t["game_s"], "replay_s": t["replay_s"],
+                   "game_s": games[-1]["seconds"],
+                   "after_game_s": dt - games[-1]["seconds"], "k2_chunks": k2_chunks,
                    "rounds": res.game_rounds, "migrated_fraction": res.migrated_fraction,
                    "migrated_edges": res.migrated_edges, "n_displaced": res.n_displaced,
                    "moved_clusters": res.moved_clusters, "rf": res.rf, "balance": res.balance,
@@ -1985,9 +2014,11 @@ def phase_elastic(main, incremental) -> dict:
         problems += _reshard_checks(res, base, b2, k)
         if not audit["ok"]:
             problems.append(f"{name}: the game's audit fails: {audit}")
-        if launches["assign_scan"] < 1 or launches["segment_agg"] != _game_k5(games):
+        if (launches["assign_scan"] != k2_chunks
+                or launches["segment_agg"] != _game_k5(games)):
             problems.append(f"{name}: K2 {launches['assign_scan']} / K5 "
-                            f"{launches['segment_agg']} launches (want >= 1 / {_game_k5(games)})")
+                            f"{launches['segment_agg']} launches (want {k2_chunks} / "
+                            f"{_game_k5(games)})")
         del b2
 
     # ---- HDRF's carry from phase incremental's cold start: 32 -> 24 ----
@@ -2045,7 +2076,7 @@ def phase_elastic(main, incremental) -> dict:
     row = {"window_step": "resize", "seconds": dt, "version": ctl.version,
            "origin": reg.current.origin, "k": reg.current.k, "rf": res.rf,
            "migrated_fraction": res.migrated_fraction, "rounds": res.game_rounds,
-           "game_s": last_timings()["game_s"], "replay_s": last_timings()["replay_s"],
+           "game_s": last_games()[-1]["seconds"],
            "pinned_version": v32, "pinned_k": pinned_k, "launches": launches,
            "serve_s": serve_round()}
     swaps.append(row)
@@ -2462,10 +2493,9 @@ def _latency(us: list) -> dict:
     return {"n": int(a.size), "mean_us": float(a.mean()), "p99_us": float(np.percentile(a, 99))}
 
 
-def phase_serve(products_scale: float, data=None) -> dict:
+def phase_serve(products_scale: float) -> dict:
     """The serving read side over the products-shaped graph: S5P, bundle,
-    registry, PageRank supersteps and queries, GCN inference through K5.
-    ``data`` is :func:`_serve_data`'s result when a worker made it ahead."""
+    registry, PageRank supersteps and queries, GCN inference through K5."""
     import dataclasses
 
     import numpy as np
@@ -2478,7 +2508,7 @@ def phase_serve(products_scale: float, data=None) -> dict:
     from repro_torch.models.gnn import gcn_forward, gcn_init
     from repro_torch.serving import BundleRegistry, GASServer, build_bundle
 
-    g, feats_np, graph_s, feats_s = data if data is not None else _serve_data(products_scale)
+    g, feats_np, graph_s, feats_s = _serve_data(products_scale)
     n, E = g.n_vertices, int(g.src.size)
     # gcn-cora at the ogb_products shape's d_feat, as launch/cells.py sizes it
     cfg = dataclasses.replace(get_arch("gcn-cora").config,
@@ -3646,19 +3676,6 @@ def main(argv=None) -> int:
     dev = phase_device()
     build = phase_build()
     results = {"device": dev, "build": build}
-    # the host-made data of phases incremental and serve (~140 s of numpy on
-    # one core) is made by two worker processes while the card works
-    pool = ProcessPoolExecutor(max_workers=2, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        return _run(args, pool, t_start, dev, build, results)
-    finally:
-        pool.shutdown(wait=True, cancel_futures=True)
-
-
-def _run(args, pool, t_start, dev, build, results) -> int:
-    """The phases after the build, in order (``main``'s body)."""
-    seed1 = pool.submit(_rmat_data, args.scale, 1)
-    serve_data = pool.submit(_serve_data, args.products_scale)
     main_run = phase_main(args.scale)
     compare = phase_compare(main_run)
     t0 = time.perf_counter()
@@ -3669,19 +3686,11 @@ def _run(args, pool, t_start, dev, build, results) -> int:
     ooc = phase_ooc(main_run)
     ooc["phase_s"] = time.perf_counter() - t0
     emit({"phase": "ooc", "step": "done", "phase_s": ooc["phase_s"]})
-    t0 = time.perf_counter()
-    seed1 = seed1.result()
-    results["prefetch_wait_s"] = {"rmat_seed1": time.perf_counter() - t0}
-    incremental = phase_incremental(main_run, compare, seed1)
-    del seed1
+    incremental = phase_incremental(main_run, compare)
     elastic = phase_elastic(main_run, incremental)
     for key in ("base", "hdrf_cold"):
         incremental.pop(key, None)
-    t0 = time.perf_counter()
-    serve_data = serve_data.result()
-    results["prefetch_wait_s"]["serve"] = time.perf_counter() - t0
-    serve = phase_serve(args.products_scale, serve_data)
-    del serve_data
+    serve = phase_serve(args.products_scale)
     lm = phase_lm()
     recsys = phase_recsys()
     summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build,

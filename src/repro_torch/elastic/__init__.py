@@ -17,11 +17,10 @@ calls it in place of a cold re-partition.
 
 from .reshard import (  # noqa: F401
     ReshardResult,
-    last_timings,
     reshard_bundle,
     reshard_carry,
     reshard_scan_carry,
 )
 
 __all__ = ["ReshardResult", "reshard_bundle", "reshard_scan_carry",
-           "reshard_carry", "last_timings"]
+           "reshard_carry"]

@@ -21,15 +21,14 @@ the affected edges are placed again through
 edges' loads.  :func:`reshard_scan_carry` retracts a Greedy/HDRF carry's
 displaced edges on K3 (``sign = -1``) while it still has k columns,
 slices or pads the columns and scans the displaced edges again at k′ (K3).
-:func:`last_timings` splits the last bundle reshard into the game and the
-replay; ``incremental.pipeline.last_games`` reports its game.
+:func:`~repro_torch.incremental.pipeline.last_games` reports a bundle
+reshard's game and its seconds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -53,17 +52,7 @@ from ..incremental.pipeline import (
 from ..streaming import EdgeStream, run_carry, run_retract
 
 __all__ = ["ReshardResult", "reshard_bundle", "reshard_scan_carry",
-           "reshard_carry", "last_timings"]
-
-_LAST_TIMINGS: dict[str, float] = {}
-
-
-def last_timings() -> dict[str, float]:
-    """Seconds of the last :func:`reshard_bundle`: ``game_s`` (the
-    migration-cost game, ending in its host read) and ``replay_s`` (K2 over
-    the affected edges, ending in the parts' host read); 0 for a part that
-    did not run."""
-    return dict(_LAST_TIMINGS)
+           "reshard_carry"]
 
 
 class ReshardResult(NamedTuple):
@@ -103,9 +92,7 @@ def reshard_bundle(bundle: dict, config: S5PConfig, k_new: int,
     config_at_k_new, result)``; the input bundle is not modified.
     """
     dev = resolve_device(device)
-    _LAST_TIMINGS.clear()
-    _LAST_TIMINGS.update(game_s=0.0, replay_s=0.0)
-    _pipe._LAST_GAMES.clear()
+    _pipe._new_game_log()
     k_old = int(config.k)
     if k_new < 1:
         raise ValueError(f"k_new must be >= 1, got {k_new}")
@@ -149,7 +136,6 @@ def reshard_bundle(bundle: dict, config: S5PConfig, k_new: int,
     move_mask = sizes > 0
     game_rounds = 0
     if np.any(move_mask):
-        t0 = time.perf_counter()
         inputs = _game_inputs(sizes, np.asarray(b["pair_a"], np.int32),
                               np.asarray(b["pair_b"], np.int32),
                               np.asarray(b["pair_w"], np.float32), int(k_new), dev)
@@ -161,7 +147,6 @@ def reshard_bundle(bundle: dict, config: S5PConfig, k_new: int,
             move_mask=move_mask, move_cost=move_cost, home=home)
         c2p_new = _np(res.assignment, np.int32)
         game_rounds = int(res.rounds)
-        _LAST_TIMINGS["game_s"] = time.perf_counter() - t0
     else:
         c2p_new = c2p0
     moved_c = c2p_new != old_c2p
@@ -188,7 +173,6 @@ def reshard_bundle(bundle: dict, config: S5PConfig, k_new: int,
     aidx = np.nonzero(affected)[0]
     n_vertices = int(np.asarray(b["degrees"]).shape[0])
     if aidx.size:
-        t0 = time.perf_counter()
         re_stream = EdgeStream(slot_src[aidx], slot_dst[aidx], n_vertices,
                                chunk_size=config.chunk_size, device=dev)
         ac = AssignCarry(int(k_new), max_load, _dev(c2p_new, dev))
@@ -198,7 +182,6 @@ def reshard_bundle(bundle: dict, config: S5PConfig, k_new: int,
             carry=_dev(load64.astype(np.int32), dev))
         parts[aidx] = _np(re_parts, np.int32)
         load = _np(load, np.int32)
-        _LAST_TIMINGS["replay_s"] = time.perf_counter() - t0
     else:
         load = load64.astype(np.int32)
 

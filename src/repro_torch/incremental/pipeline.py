@@ -41,6 +41,7 @@ Exact vs approximate, rollback and compaction are the reference's: see
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -68,19 +69,28 @@ _LAST_GAMES: list[dict] = []
 
 
 def last_games() -> list[dict]:
-    """The games the last delta or deletion played, in order: each one's
-    kind (``settle`` or ``refine``), batch size, leader and move masks, and
-    its ``GameResult`` report (rounds, hub batches, ordered sums, size
-    guard)."""
+    """The games the last delta, deletion or reshard played, in order: each
+    one's kind (``settle``, ``refine`` or ``reshard``), batch size, leader
+    and move masks, seconds (``run_game`` alone: every round ends in a host
+    read), and its ``GameResult`` report (rounds, hub batches, ordered
+    sums, size guard)."""
     return list(_LAST_GAMES)
 
 
+def _new_game_log() -> None:
+    """Start :func:`last_games`'s list for a new delta, deletion or reshard."""
+    _LAST_GAMES.clear()
+
+
 def _play(kind: str, inputs, C: int, **kw):
-    """``run_game`` on the bundle's cluster graph, its report kept for
-    :func:`last_games`."""
+    """``run_game`` on the bundle's cluster graph, its report and seconds
+    kept for :func:`last_games`."""
+    t0 = time.perf_counter()
     res = _game.run_game(inputs, C, **kw)
+    seconds = time.perf_counter() - t0
     _LAST_GAMES.append({"game": kind, "n_clusters": int(C), "batch_size": kw["batch_size"],
                         "leader_mask": kw["leader_mask"], "move_mask": kw["move_mask"],
+                        "seconds": seconds,
                         **{f: getattr(res, f) for f in res._fields if f != "assignment"}})
     return res
 
@@ -496,7 +506,7 @@ def s5p_apply_delta(bundle: dict, config: S5PConfig, full_src, full_dst,
     modified) and an :class:`IncrementalResult`.
     """
     dev = resolve_device(device)
-    _LAST_GAMES.clear()
+    _new_game_log()
     b = ensure_slot_index(dict(bundle))
     full_src = _np(full_src, np.int32)
     full_dst = _np(full_dst, np.int32)
@@ -793,7 +803,7 @@ def s5p_apply_deletion(bundle: dict, config: S5PConfig, full_src, full_dst,
     the input bundle is not modified.
     """
     dev = resolve_device(device)
-    _LAST_GAMES.clear()
+    _new_game_log()
     b = ensure_slot_index(dict(bundle))
     full_src = _np(full_src, np.int32)
     full_dst = _np(full_dst, np.int32)

@@ -315,7 +315,6 @@ class ParallelEdgeStream:
         C, S = stream.n_chunks, self.num_streams
         self._chunk_pos: list[np.ndarray] | None = None  # hub: chunk → positions
         self._lane_of_pos: np.ndarray | None = None
-        self._lane_of_pos_owned = False  # False: shared with the kept plan
         self._pin_vertex: np.ndarray | None = None
         self.pin_map: dict[int, int] = {}
         self.hub_threshold: int | None = None
@@ -874,10 +873,9 @@ def _handoff_lanes_hub(ps, lanes, pos, ranges, plan):
         moved_hubs = np.unique(pv[move & hub])
         for h in moved_hubs:
             ps.pin_map[int(h)] = receiver
-        if not ps._lane_of_pos_owned:  # the kept plan's array stays as built
-            ps._lane_of_pos = ps._lane_of_pos.copy()
-            ps._lane_of_pos_owned = True
-        ps._lane_of_pos[move_pos] = receiver
+        lane_of_pos = ps._lane_of_pos.copy()  # the cached plan's array stays as built
+        lane_of_pos[move_pos] = receiver
+        ps._lane_of_pos = lane_of_pos
         log.info("straggler handoff (hub): %d edge(s), %d hub pin(s) "
                  "moved lane %d → %d", len(move_pos), len(moved_hubs), s,
                  receiver)

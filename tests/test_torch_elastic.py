@@ -36,8 +36,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import game as tgame
 from repro_torch.core.metrics import replication_factor
 from repro_torch.core.s5p import S5PConfig
-from repro_torch.elastic import (ReshardResult, last_timings, reshard_bundle, reshard_carry,
-                                 reshard_scan_carry)
+from repro_torch.elastic import ReshardResult, reshard_bundle, reshard_carry, reshard_scan_carry
 from repro_torch.graphs import community_graph
 from repro_torch.incremental import CarryStore, s5p_apply_delta, s5p_cold_bundle
 from repro_torch.incremental.pipeline import last_games
@@ -113,10 +112,9 @@ def test_reshard_grow_bounded_migration():
     stable = (~moved_c[np.maximum(cu, 0)]) & (~moved_c[np.maximum(cv, 0)])
     np.testing.assert_array_equal(np.asarray(b2["parts"])[stable], old_parts[stable])
     np.testing.assert_array_equal(np.asarray(tb["parts"], np.int32), old_parts)  # not mutated
-    t = last_timings()
-    assert t["game_s"] > 0 and t["replay_s"] > 0
     (game,) = last_games()
     assert game["game"] == "reshard" and game["rounds"] == res.game_rounds
+    assert game["seconds"] > 0
 
 
 def test_reshard_shrink_displaces_dead_partitions():
