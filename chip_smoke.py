@@ -31,7 +31,8 @@ Phases, each printing one JSON line:
               = -1, once) and the carry must equal the one rebuilt without
               that chunk; then PageRank (10 iterations) on the S5P and HDRF
               partitions: mirror-sync bytes, their ratio, seconds of the
-              layout build and of the supersteps;
+              layout build and of the supersteps; S5P's values again on the
+              card and on the CPU, both bitwise (the gather on K5);
 5. parallel — parallel ingest at S = 8 lanes on the main path's graph and
               k, each run with the launch counters set to 0 just before
               and read just after: S5P under ``S5PConfig(k, num_streams=8,
@@ -106,6 +107,24 @@ Phases, each printing one JSON line:
               undisturbed run) and ``ElasticController.resize`` (the
               state back on the card bitwise); the summed launches join
               the ``kernels`` rows (``launches_elastic``);
+5e. hybrid  — the memory-budget hybrid partitioner (``phase_hybrid``):
+              ``run_hybrid`` on phase main's graph, k = 32, budget 0.05 of
+              E·CORE_EDGE_BYTES·2 (45,530,385 bytes): the plan (mode, ξ*,
+              ladder, estimated core), the core spilled, the peak budget
+              bytes and retreats, the accepted levels and game rounds, RF
+              and balance beside the streaming run's, seconds of pass 0,
+              the plan, the spill and the refinement, peak memory; pass 0
+              must equal phase main bit for bit, peak ≤ budget, RF ≤ the
+              streaming RF and the parts' RF, max load under its cap, the
+              40-key bundle at E, and the launches exact (K1 240; K4a pass
+              0's + 480 and K4b + 2 for the degree sketch; K2 + ⌈core /
+              65,536⌉ + 240 a level; K5 as the games report); the bundle
+              through ``HybridServingChain`` and a ``ServingController``
+              (the publish, origin ``"cold"``; a delta of 65,536 edges);
+              the frontier on ``block_rmat_graph(14, 8, 8)`` at rungs 0,
+              0.05, 0.3, 1.0 (RF non-increasing, ≤ streaming, peak ≤
+              budget, rung 0 the plain S5P, 1.0 in memory); the summed
+              launches join the ``kernels`` rows (``launches_hybrid``);
 6. serve    — the serving read side with GCN inference: the
               ``ogbn_products_like(seed=0)`` graph at scale 1.0 (2,449,029
               vertices), S5P at k = 32, ``build_bundle`` and
@@ -115,7 +134,8 @@ Phases, each printing one JSON line:
               d_feat 100 over ``products_features``, ``query_gnn`` for all
               vertices and then 16 times for 16 vertices; launch counters
               set to 0 just before and read just after, K5 launched 6 times
-              per forward (and twice in S5P's game); one more ``query_gnn``
+              per forward, once a PageRank superstep and as S5P's game
+              reports; one more ``query_gnn``
               under ``torch.profiler``, its device time split into K5 and
               the rest; the ``game_audit``; S5P's Θ stream replayed from
               the run's clusters (``theta_capture``), which must end at the
@@ -234,7 +254,11 @@ Phases, each printing one JSON line:
               ``reshard_scan_carry`` for Greedy and HDRF, HDRF at S = 4 in
               each shard mode with a forced straggler handoff and a lane
               killed and replayed, a ``ServingController`` with one
-              resize): every result equal on both.
+              resize): every result equal on both; and the hybrid sequence
+              (``_hybrid_sequence``: ``run_hybrid`` at three budgets and at
+              S = 4 hub lanes, a spill that retreats, ``HybridServingChain``
+              with one delta): every result, bundle leaf and published
+              bundle equal on both.
 
 The kernel checks of phase 7 run after phases 8 and 9.  Phase 6's
 features (one generator a vertex) are made in ranges by worker processes
@@ -251,6 +275,7 @@ register report, the full results) go to ``chiprun_out/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1215,9 +1240,23 @@ def phase_compare(main) -> dict:
                     "values": values}
         if not bool(torch.isfinite(values).all()):
             problems.append(f"PageRank on {name}: values not finite")
+        if name == "s5p":  # the gather on K5: the same bits again, and the CPU's
+            again = pagerank(g, iterations=10)[0]
+            del g
+            t0 = time.perf_counter()
+            g_cpu = build_gas_graph(src, dst, parts_of[name].cpu(), n, k, device="cpu")
+            on_cpu = pagerank(g_cpu, iterations=10)[0]
+            pr[name].update(bitwise_repeat=bool(torch.equal(values, again)),
+                            bitwise_cpu=bool(torch.equal(values.cpu(), on_cpu)),
+                            cpu_s=time.perf_counter() - t0)
+            del g_cpu
+            if not (pr[name]["bitwise_repeat"] and pr[name]["bitwise_cpu"]):
+                problems.append(f"PageRank on the card: repeat bitwise "
+                                f"{pr[name]['bitwise_repeat']}, the CPU's bits "
+                                f"{pr[name]['bitwise_cpu']}")
     # PageRank is replica-exact, so its values do not depend on the cut;
-    # the float32 sums run in another order for each layout (and atomics
-    # in a varying one), so the two agree to a relative 1e-4
+    # each cut's replica rows sum the float32 terms in another order, so
+    # the two agree to a relative 1e-4
     a, b = pr["s5p"]["values"], pr["hdrf"]["values"]
     pr_diff = float(((a - b).abs() / torch.maximum(a.abs(), b.abs())).max())
     if pr_diff > 1e-4:
@@ -1228,6 +1267,8 @@ def phase_compare(main) -> dict:
             "s5p_layout_s": pr["s5p"]["layout_s"], "s5p_supersteps_s": pr["s5p"]["supersteps_s"],
             "hdrf_layout_s": pr["hdrf"]["layout_s"],
             "hdrf_supersteps_s": pr["hdrf"]["supersteps_s"],
+            "s5p_bitwise_repeat": pr["s5p"]["bitwise_repeat"],
+            "s5p_bitwise_cpu": pr["s5p"]["bitwise_cpu"], "s5p_cpu_s": pr["s5p"]["cpu_s"],
             "max_rel_value_diff": pr_diff}
     emit(info)
     if problems:
@@ -2154,6 +2195,241 @@ def phase_elastic(main, incremental) -> dict:
     return info
 
 
+# ------------------------------------------------------------ phase hybrid
+
+# phase hybrid: the full-scale budget, as a fraction of E·CORE_EDGE_BYTES·2
+# (0.05 of the main graph's: 45,530,385 bytes, ~9 % of its edges), and the
+# frontier's graph and rungs
+HYBRID_BUDGET_FRACTION = 0.05
+FRONTIER_BLOCK_SCALE = 14
+FRONTIER_RUNGS = (0.0, 0.05, 0.3, 1.0)
+
+
+@contextlib.contextmanager
+def _hybrid_recorder():
+    """Record what ``run_hybrid`` computed inside: pass 0's ``S5POutput``
+    and each refinement game's report (``GameResult`` without the
+    assignment), for the launch counts and the check against phase main."""
+    from repro_torch.hybrid import driver as hd
+
+    rec = {"pass0": None, "games": []}
+    s5p, game = hd.s5p_partition, hd.refine_core_game
+
+    def s5p_rec(*a, **kw):
+        rec["pass0"] = s5p(*a, **kw)
+        return rec["pass0"]
+
+    def game_rec(*a, **kw):
+        g = game(*a, **kw)
+        rec["games"].append({f: getattr(g, f) for f in g._fields if f != "assignment"})
+        return g
+
+    hd.s5p_partition, hd.refine_core_game = s5p_rec, game_rec
+    try:
+        yield rec
+    finally:
+        hd.s5p_partition, hd.refine_core_game = s5p, game
+
+
+def _hybrid_want(res, src, dst, n, chunk: int, games, base: dict) -> dict:
+    """The launches a hybrid run must make beyond pass 0's (``base``): K4a
+    twice a stream chunk and K4b twice (the plan), then for each level
+    whose core holds an edge (min exact degree above the level, no
+    self-loop) K2 once a ``chunk`` of that core and once a stream chunk
+    for the tail, K5 as each game reports."""
+    import numpy as np
+
+    n_chunks = math.ceil(src.size / chunk)
+    want = dict(base)
+    if res.budget_bytes > 0:
+        want["cms_update"] = base.get("cms_update", 0) + 2 * n_chunks
+        want["cms_query"] = base.get("cms_query", 0) + 2
+    played = []
+    if res.mode != "streaming":
+        deg = np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)
+        dmin = np.minimum(deg[src], deg[dst])[src != dst]
+        ladder = res.plan.ladder[:res.plan.ladder.index(res.xi_star) + 1]
+        played = [int((dmin > lv).sum()) for lv in ladder]
+        played = [m for m in played if m > 0]
+    want["assign_scan"] = base.get("assign_scan", 0) + sum(
+        math.ceil(m / chunk) + n_chunks for m in played)
+    want["segment_agg"] = base.get("segment_agg", 0) + sum(
+        2 + g["ordered_sums"] for g in games if g["rounds"] > 0)
+    return want, len(played)
+
+
+def _launch_problems(name: str, launches: dict, want: dict) -> list[str]:
+    bad = {key: (launches.get(key, 0), v) for key, v in want.items()
+           if launches.get(key, 0) != v}
+    return [f"{name}: launches (got, want) {bad}"] if bad else []
+
+
+def _hybrid_row(res) -> dict:
+    plan = res.plan
+    ladder_used = (plan.ladder[:plan.ladder.index(res.xi_star) + 1]
+                   if res.mode != "streaming" else ())
+    return {"budget_bytes": res.budget_bytes, "mode": res.mode,
+            "plan": {"mode": plan.mode, "xi_star": plan.xi_star, "ladder": list(plan.ladder),
+                     "est_core_edges": plan.est_core_edges,
+                     "est_core_bytes": plan.est_core_bytes,
+                     "sample_edges": plan.sample_edges, "sketch_bytes": plan.sketch_bytes},
+            "xi_star": res.xi_star, "retreats": len(plan.ladder) - len(ladder_used)
+            if res.mode != "streaming" else None,
+            "core_edges": res.core_edges, "peak_budget_bytes": res.peak_budget_bytes,
+            "accepted_levels": list(res.accepted_levels), "game_rounds": res.game_rounds,
+            "rf": res.rf, "balance": res.balance, "rf_streaming": res.rf_streaming,
+            "balance_streaming": res.balance_streaming, "seconds": dict(res.timings)}
+
+
+def phase_hybrid(main) -> dict:
+    """The memory-budget hybrid partitioner (``repro_torch.hybrid``) at
+    phase main's scale, each step with the launch counters set to 0 just
+    before and read just after: ``run_hybrid`` on phase main's graph at k =
+    32 under ``S5PConfig(host_budget=…)`` of 0.05 × E·CORE_EDGE_BYTES·2
+    (pass 0 must equal phase main's run bit for bit; peak ≤ budget, RF ≤
+    the streaming RF and equal to the returned parts' RF, max load under
+    its cap, the 40-key bundle at ``stream_pos == E``; K1 240, K4a pass 0's
+    + 480, K4b pass 0's + 2, K2 pass 0's + ⌈core / 65,536⌉ + 240 a level,
+    K5 as the games report); ``HybridServingChain`` through a
+    ``ServingController`` (the publish, origin ``"cold"``, and one delta
+    of 65,536 uniform edges, ``default_rng(26)``); then the frontier of
+    ``benchmarks/hybrid_bench.py``'s gates on ``block_rmat_graph(14, 8,
+    8)`` at k = 32, rungs 0, 0.05, 0.3 and 1.0 (RF non-increasing, ≤ the
+    streaming RF above 0, peak ≤ budget, rung 0 the plain S5P bit for bit,
+    1.0 in memory)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.metrics import partition_loads, replication_factor
+    from repro_torch.core.s5p import S5PConfig, s5p_partition
+    from repro_torch.graphs import block_rmat_graph
+    from repro_torch.hybrid import CORE_EDGE_BYTES, HybridServingChain, run_hybrid
+    from repro_torch.serving import BundleRegistry, ServingController
+
+    t_phase = time.perf_counter()
+    src, dst, n, cfg = main["src"], main["dst"], main["n"], main["cfg"]
+    dev = main["out"].parts.device
+    k, E = cfg.k, int(src.size)
+    problems, totals = [], {}
+    info = {"phase": "hybrid", "E": E, "k": k}
+
+    def drive(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        for key, v in launches.items():
+            totals[key] = totals.get(key, 0) + v
+        return res, dt, launches
+
+    # ---- the full-scale run ----
+    budget = int(HYBRID_BUDGET_FRACTION * E * CORE_EDGE_BYTES * 2)
+    hcfg = dataclasses.replace(cfg, host_budget=budget)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _hybrid_recorder() as rec:
+        res, dt, launches = drive(lambda: run_hybrid((src, dst, n), hcfg, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    pass0 = rec["pass0"]
+    base = {key: main["launches"][key] for key in
+            ("cluster_scan", "assign_scan", "cms_update", "cms_query", "segment_agg")}
+    want, n_levels = _hybrid_want(res, src, dst, n, cfg.chunk_size, rec["games"], base)
+    s_t, d_t = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    p_t = torch.from_numpy(res.parts).to(dev)
+    rf_parts = replication_factor(s_t, d_t, p_t, n_vertices=n, k=k)
+    max_load = int(partition_loads(p_t, k=k).max())
+    pass0_same = bool(torch.equal(pass0.parts, main["out"].parts))
+    row = {"step": "run", **_hybrid_row(res), "wall_s": dt,
+           "budget_fraction_of_edges": budget / (E * CORE_EDGE_BYTES),
+           "pass0_equals_main": pass0_same, "rf_main": main["info"]["rf"],
+           "rf_of_parts": rf_parts, "max_load": max_load, "max_load_cap": pass0.max_load,
+           "bundle_keys": len(res.bundle), "stream_pos": int(res.bundle["stream_pos"]),
+           "levels_played": n_levels, "games": rec["games"],
+           "max_memory_allocated": peak, "launches": launches, "launches_want": want}
+    emit({"phase": "hybrid", **row})
+    info["run"] = row
+    if not pass0_same or res.rf_streaming != main["info"]["rf"]:
+        problems.append(f"pass 0 differs from phase main (parts equal {pass0_same}, RF "
+                        f"{res.rf_streaming} against {main['info']['rf']})")
+    if res.mode == "streaming" or not res.peak_budget_bytes <= budget:
+        problems.append(f"mode {res.mode}, peak {res.peak_budget_bytes} of {budget} bytes")
+    if not res.rf <= res.rf_streaming or res.rf != rf_parts:
+        problems.append(f"RF {res.rf} (of its parts {rf_parts}), streaming {res.rf_streaming}")
+    if max_load > pass0.max_load:
+        problems.append(f"max load {max_load} > cap {pass0.max_load}")
+    if len(res.bundle) != 40 or int(res.bundle["stream_pos"]) != E:
+        problems.append(f"bundle: {len(res.bundle)} keys at {int(res.bundle['stream_pos'])}")
+    if len(rec["games"]) != n_levels:
+        problems.append(f"{len(rec['games'])} games for {n_levels} levels with a core")
+    problems += _launch_problems("run", launches, want)
+
+    # ---- the hybrid bundle served: the publish, then one delta ----
+    rng = np.random.default_rng(26)
+    delta = (rng.integers(0, n, 1 << 16).astype(np.int32),
+             rng.integers(0, n, 1 << 16).astype(np.int32))
+    chain = HybridServingChain(res, hcfg, src, dst, n, deltas=[delta], device=dev)
+    reg = BundleRegistry()
+    ctl = ServingController(reg, chain)
+    serving = []
+    for step in ("publish", "delta"):
+        srec, sdt, slaunches = drive(ctl.step)
+        b = reg.current
+        b.check()
+        serving.append({"step": step, "seconds": sdt, "version": b.version,
+                        "origin": b.origin, "n_edges": b.n_edges, "rf": b.rf,
+                        "balance": b.balance, "refined": bool(getattr(srec, "refined", False)),
+                        "launches": slaunches})
+        emit({"phase": "hybrid", "step": "serving", **serving[-1]})
+    info["serving"] = serving
+    done = ctl.step() is None
+    if ([(s["version"], s["origin"], s["n_edges"]) for s in serving]
+            != [(1, "cold", E), (2, serving[1]["origin"], E + (1 << 16))]
+            or serving[0]["rf"] != res.rf or not done or serving[1]["origin"] == "cold"):
+        problems.append(f"serving chain: {serving}, done {done}")
+    del chain, reg, ctl, res, rec, pass0, s_t, d_t, p_t
+
+    # ---- the frontier (benchmarks/hybrid_bench.py's gates) ----
+    fs, fd, fn = block_rmat_graph(block_scale=FRONTIER_BLOCK_SCALE, n_blocks=8,
+                                  edge_factor=8, seed=0)
+    fE = int(fs.size)
+    fcfg = S5PConfig(k=k)
+    plain, plain_s, plain_l = drive(lambda: s5p_partition(fs, fd, fn, fcfg, device=dev))
+    rows, prev, rf_stream = [], None, None
+    for frac in FRONTIER_RUNGS:
+        b = int(frac * fE * CORE_EDGE_BYTES * 2)
+        with _hybrid_recorder() as frec:
+            r, rdt, rl = drive(lambda: run_hybrid((fs, fd, fn), fcfg, host_budget=b,
+                                                  device=dev))
+        fwant, _ = _hybrid_want(r, fs, fd, fn, fcfg.chunk_size, frec["games"], plain_l)
+        row = {"budget_fraction": frac, **_hybrid_row(r), "wall_s": rdt, "launches": rl}
+        rows.append(row)
+        emit({"phase": "hybrid", "step": "frontier", **row})
+        rf_stream = r.rf_streaming if rf_stream is None else rf_stream
+        if b > 0 and not (r.peak_budget_bytes <= b and r.rf <= rf_stream):
+            problems.append(f"frontier {frac}: peak {r.peak_budget_bytes} of {b}, RF {r.rf} "
+                            f"against streaming {rf_stream}")
+        if prev is not None and not r.rf <= prev:
+            problems.append(f"frontier {frac}: RF {r.rf} > the previous rung's {prev}")
+        if frac == 0.0 and not np.array_equal(r.parts, plain.parts.cpu().numpy()):
+            problems.append("frontier rung 0 differs from the plain s5p_partition")
+        if frac == 1.0 and r.mode != "in_memory":
+            problems.append(f"frontier rung 1.0 planned {r.mode}")
+        problems += _launch_problems(f"frontier {frac}", rl, fwant)
+        prev = r.rf
+    info["frontier"] = {"graph": f"block_rmat_graph({FRONTIER_BLOCK_SCALE}, 8, 8, seed=0)",
+                        "V": int(fn), "E": fE, "k": k, "plain_s5p_s": plain_s, "rows": rows}
+
+    info["launches"] = totals
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "hybrid", "step": "done", "phase_s": info["phase_s"], "launches": totals})
+    if problems:
+        raise SystemExit("chip_smoke hybrid phase failed: " + "; ".join(problems))
+    return info
+
+
 def _compress(schedule) -> str:
     from repro_torch.streaming.parallel import _compress_schedule
 
@@ -2441,7 +2717,7 @@ _COUNTERS = {"K1": "cluster_scan", "K2": "assign_scan", "K3": "scoring_scan",
 
 
 def phase_kernels(main, compare, serve, lm, recsys, build, incremental,
-                  elastic) -> list[dict]:
+                  elastic, hybrid) -> list[dict]:
     from repro_torch.kernels.stream_scan.latency import measure_round_trips
 
     rt = measure_round_trips()
@@ -2462,10 +2738,11 @@ def phase_kernels(main, compare, serve, lm, recsys, build, incremental,
     summary = [k1[0], main_k2, *main_k4, *k3_g1, *k5, k6[0], k7[1]]
     for r in summary:  # a latency bound for the serial scans, none for the rest
         r.setdefault("latency_bound_ms", None)
-        # the launches of phases incremental's and elastic's paths (K3:
-        # inserts, and retracts apart)
+        # the launches of phases incremental's, elastic's and hybrid's
+        # paths (K3: inserts, and retracts apart)
         for phase, totals in (("incremental", incremental["launches"]),
-                              ("elastic", elastic["launches"])):
+                              ("elastic", elastic["launches"]),
+                              ("hybrid", hybrid["launches"])):
             r[f"launches_{phase}"] = totals.get(_COUNTERS.get(r["name"].split()[0]), 0)
             if r["name"].startswith("K3"):
                 r[f"launches_{phase}_retract"] = totals.get("scoring_retract", 0)
@@ -2594,9 +2871,9 @@ def phase_serve(products_scale: float) -> dict:
     if fwd_k5 != 6 or full_k5 != 6 or any(k != 6 for k in point_k5):
         problems.append(f"K5 launches per forward {fwd_k5}, {full_k5}, {point_k5}, not 6")
     want_k5 = 2 + out.aux["game"]["ordered_sums"]
-    if game_k5 != want_k5 or launches["segment_agg"] - game_k5 != 6 * 18:
+    if game_k5 != want_k5 or launches["segment_agg"] - game_k5 != 10 + 6 * 18:
         problems.append(f"K5 launched {launches['segment_agg']} times, {game_k5} in S5P's "
-                        f"game: not {want_k5} + 6 x 18")
+                        f"game: not {want_k5} + 10 PageRank supersteps + 6 x 18")
     if not theta["ends_at_run_sketch"]:
         problems.append("the replayed Θ stream does not end at the run's sketch")
     if launches["cluster_scan"] != n_chunks or launches["assign_scan"] != n_chunks:
@@ -2802,12 +3079,16 @@ def phase_parity() -> dict:
     merged = _merged_ids_past_v()
     incremental = _incremental_parity()
     elastic = _elastic_parity()
+    hybrid = _hybrid_parity()
     info = {"phase": "parity", "graph": "community_graph(2000, 32, 8, seed=5)",
             "k": 8, "E": int(src.shape[0]), "parts_identical": same,
             "differing_edges": differing, "cuda_cpu_s": seconds, "touch_up": touch_up,
             "delta_above_2^24": delta, "merged_ids_past_V": merged,
-            "incremental": incremental, "elastic": elastic}
+            "incremental": incremental, "elastic": elastic, "hybrid": hybrid}
     emit(info)
+    if not hybrid["same"] or not hybrid["retreated"]:
+        raise SystemExit(f"chip_smoke: the hybrid sequence differs, cuda vs cpu, or its "
+                         f"spill did not retreat: {hybrid}")
     if not elastic["same"]:
         raise SystemExit(f"chip_smoke: the elastic sequence differs, cuda vs cpu: {elastic}")
     if not incremental["same"]:
@@ -2987,6 +3268,96 @@ def _elastic_parity() -> dict:
             "differing": differing, "steps": list(cpu),
             "game_rounds": [cpu[f"game scale={s}"][1] for s in (0.0, 1.0, 4.0)],
             "controller_origins": origins, "cuda_cpu_s": [t1 - t0, time.perf_counter() - t1]}
+
+
+def _retreat_graph():
+    """131,072 edges whose stride sample (every other edge) hides the hubs:
+    the even positions hold 2,048 edges among 8 super vertices, 8,192
+    among 1,024 mid vertices and a ring of low vertices, the odd ones
+    edges among 512 hubs of a degree between theirs.  The plan misses the
+    hubs' edges below the super vertices' threshold, so the spill
+    retreats (the input of ``tests/test_torch_hybrid.py``'s retreat)."""
+    import numpy as np
+
+    rng = np.random.default_rng(26)
+    half = 1 << 16
+    sup = rng.integers(0, 8, (2048, 2))
+    mid = 8 + rng.integers(0, 1024, (8192, 2))
+    low_ids = 8 + 1024 + 512 + np.arange(half - 2048 - 8192)
+    low = np.stack([low_ids, np.roll(low_ids, 1)], 1)
+    even = np.concatenate([sup, mid, low])[rng.permutation(half)]
+    odd = 8 + 1024 + rng.integers(0, 512, (half, 2))
+    e = np.empty((2 * half, 2), np.int64)
+    e[0::2], e[1::2] = even, odd
+    return e[:, 0].astype(np.int32), e[:, 1].astype(np.int32), int(e.max()) + 1
+
+
+def _hybrid_fields(res) -> dict:
+    """A ``HybridResult`` as values to compare: every field but the
+    seconds, the plan as a tuple, the bundle leaf by leaf."""
+    out = {f: getattr(res, f) for f in res._fields if f not in ("timings", "bundle", "plan")}
+    return {**out, "plan": tuple(res.plan), "bundle": dict(res.bundle)}
+
+
+def _hybrid_sequence(dev) -> dict:
+    """On ``community_graph(2000, 32, 8, seed=5)``, k = 8: ``run_hybrid`` at
+    0, 0.3 and 1.0 of E·CORE_EDGE_BYTES·2 and at 0.3 with S = 4 hub lanes
+    (chunks of 1,024, super-chunk auto); on ``_retreat_graph`` (k = 8,
+    chunks of 2^14) a budget of 800,000 bytes, whose spill retreats; a
+    ``HybridServingChain`` of the full budget's result with one delta of
+    48 edges (``default_rng(11)``) through a ``ServingController``."""
+    import numpy as np
+
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.graphs import community_graph
+    from repro_torch.hybrid import CORE_EDGE_BYTES, HybridServingChain, run_hybrid
+    from repro_torch.serving import BundleRegistry, ServingController
+
+    src, dst, n = community_graph(2000, n_communities=32, avg_degree=8, seed=5)
+    full = src.size * CORE_EDGE_BYTES * 2
+    cfg = S5PConfig(k=8)
+    out, runs = {}, {}
+    for frac in (0.0, 0.3, 1.0):
+        runs[frac] = run_hybrid((src, dst, n), cfg, host_budget=int(frac * full), device=dev)
+        out[f"budget {frac}"] = _hybrid_fields(runs[frac])
+    hub = S5PConfig(k=8, chunk_size=1024, num_streams=4, shard="hub", super_chunk="auto")
+    out["S=4 hub"] = _hybrid_fields(run_hybrid((src, dst, n), hub, host_budget=int(0.3 * full),
+                                               device=dev))
+    rs, rd, rn = _retreat_graph()
+    r = run_hybrid((rs, rd, rn), S5PConfig(k=8, chunk_size=1 << 14), host_budget=800_000,
+                   device=dev)
+    out["retreat"] = _hybrid_fields(r)
+    out["retreated"] = r.mode == "hybrid" and r.xi_star > r.plan.xi_star
+    rng = np.random.default_rng(11)
+    delta = (rng.integers(0, n, 48).astype(np.int32), rng.integers(0, n, 48).astype(np.int32))
+    chain = HybridServingChain(runs[1.0], cfg, src, dst, n, deltas=[delta], device=dev)
+    reg = BundleRegistry()
+    ctl = ServingController(reg, chain)
+    published = []
+    while ctl.step() is not None:
+        b = reg.current
+        published.append((b.version, b.origin, b.k, b.n_edges, b.rf, b.balance,
+                          np.asarray(b.parts)))
+    out["serving"] = published
+    out["serving bundle"] = dict(chain.bundle)
+    return out
+
+
+def _hybrid_parity() -> dict:
+    """``_hybrid_sequence`` on cuda and on cpu: every result equal."""
+    t0 = time.perf_counter()
+    gpu = _hybrid_sequence("cuda")
+    t1 = time.perf_counter()
+    cpu = _hybrid_sequence("cpu")
+    differing = [key for key in cpu if not _same_value(gpu[key], cpu[key])]
+    return {"graph": "community_graph(2000, 32, 8, seed=5); the retreat graph",
+            "same": not differing, "differing": differing, "steps": list(cpu),
+            "retreated": bool(cpu["retreated"]),
+            "modes": {key: v["mode"] for key, v in cpu.items()
+                      if isinstance(v, dict) and "mode" in v},
+            "accepted_levels": {key: list(v["accepted_levels"]) for key, v in cpu.items()
+                                if isinstance(v, dict) and "mode" in v},
+            "cuda_cpu_s": [t1 - t0, time.perf_counter() - t1]}
 
 
 def _merged_ids_past_v() -> dict:
@@ -3690,16 +4061,17 @@ def main(argv=None) -> int:
     elastic = phase_elastic(main_run, incremental)
     for key in ("base", "hdrf_cold"):
         incremental.pop(key, None)
+    hybrid = phase_hybrid(main_run)
     serve = phase_serve(args.products_scale)
     lm = phase_lm()
     recsys = phase_recsys()
     summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build,
-                                      incremental, elastic)
+                                      incremental, elastic, hybrid)
     results.update(main=main_run["info"], compare=compare["rows"],
                    pagerank=compare["pagerank"], parallel=parallel, ooc=ooc,
                    incremental={key: v for key, v in incremental.items()
                                 if key != "retract_pairs"}, elastic=elastic,
-                   serve=serve["info"])
+                   hybrid=hybrid, serve=serve["info"])
     del serve
     results["parity"] = phase_parity()
     results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], recsys=recsys["info"],

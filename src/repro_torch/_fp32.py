@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fma_f32", "xla_sum_f32"]
+__all__ = ["fma_f32", "xla_sum_f32", "xla_sum_f32_columns"]
 
 
 def fma_f32(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -43,17 +43,25 @@ def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
     Only elementwise float32 adds are used, so the bits are the same on
     the CPU and on ``cuda``.
     """
-    x = x.reshape(-1).to(torch.float32)
-    while x.numel() > 32:
-        n = x.numel()
+    return xla_sum_f32_columns(x.reshape(-1, 1))[0]
+
+
+def xla_sum_f32_columns(x: torch.Tensor) -> torch.Tensor:
+    """:func:`xla_sum_f32` of each column of a (n, m) tensor at once: the
+    reference's ``jnp.sum(y, axis=1)`` of its (m, n) transpose.  Rows are
+    contiguous, so each add reads whole lines."""
+    x = x.to(torch.float32)
+    while x.shape[0] > 32:
+        n = x.shape[0]
         n_win = -(-n // 32)
         pad = n_win * 32 - n
-        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).view(n_win, 32)
-        acc = torch.zeros(n_win, dtype=torch.float32, device=x.device)
+        x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
+        x = x.view(n_win, 32, x.shape[1])
+        acc = torch.zeros((n_win, x.shape[2]), dtype=torch.float32, device=x.device)
         for j in range(32):
             acc = acc + x[:, j]
         x = acc
-    acc = torch.zeros((), dtype=torch.float32, device=x.device)
-    for j in range(x.numel()):
+    acc = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[0]):
         acc = acc + x[j]
     return acc

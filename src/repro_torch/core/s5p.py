@@ -21,8 +21,9 @@ touch-up (``touch_up``, :func:`_touch_up`) plays a masked game of at most
 and re-places the edges of the clusters that moved.  The stream may be
 an out-of-core ``ShardedEdgeStream`` (edge shards paged from disk).  The
 drift knobs serve the warm-start bundle of :mod:`repro_torch.incremental`,
-which packs ``aux["incremental"]``; the hybrid budget (ROADMAP Queue 1
-item 6) raises.
+which packs ``aux["incremental"]``.  ``host_budget`` is the memory-budget
+hybrid's knob: :func:`s5p_partition` ignores it, only
+:func:`repro_torch.hybrid.run_hybrid` reads it.
 """
 
 from __future__ import annotations
@@ -79,13 +80,10 @@ class S5PConfig:
     refine_rounds: int = 16
     drift_churn_threshold: float = 0.25
     xi_refresh_threshold: float = 0.5
+    # memory-budget hybrid (repro_torch.hybrid): host bytes for a resident
+    # high-degree core; None = the pure-streaming pipeline.  s5p_partition
+    # ignores it; run_hybrid's host_budget= overrides.
     host_budget: int | None = None
-
-    def __post_init__(self):
-        if self.host_budget is not None:
-            raise NotImplementedError(
-                "the memory-budget hybrid partitioner (host_budget) waits "
-                "for ROADMAP Queue 1 item 6")
 
 
 @dataclasses.dataclass

@@ -14,11 +14,15 @@ holds an edge set and *replicas* of every incident vertex.  Per super-step:
 The replication factor is therefore the driver of communication: the
 byte counts (:func:`comm_stats`) are exact, not simulated.  This is the
 reference's single-host mode (``repro.gas.engine``): partitions are
-segments of one device array, and the per-partition gather is one
-``index_add_`` into a ``(V·k,)`` accumulator.  On the card float32
-atomics add in an order that changes from run to run, so PageRank values
-agree with the reference within a tolerance (the tests state it); the
-mirror counts and label propagation (integer minima) are exact.
+segments of one device array.  PageRank's per-partition gather is one K5
+launch (``kernels/segment_agg``) over the replica rows, laid out once by
+:func:`build_gas_graph`: each edge is keyed to the compacted row of its
+``(dst, part)`` replica, and K5 sums each row in edge order, as
+``jax.ops.segment_sum`` does.  The mirror→master sum runs in the order of
+XLA's CPU reduce and the apply as the fused multiply-add XLA emits, so a
+superstep gives the reference's bits on the CPU and the same bits on the
+card, run after run.  The mirror counts and label propagation (integer
+minima) are exact.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from .._fp32 import fma_f32, xla_sum_f32_columns
+from ..kernels.segment_agg.kernel import segment_agg
+from ..kernels.segment_agg.ops import SegmentLayout, segment_layout
 
 __all__ = ["GASGraph", "CommStats", "build_gas_graph", "pagerank",
            "pagerank_step", "out_degree_inv", "carry_values",
@@ -46,6 +53,8 @@ class GASGraph(NamedTuple):
     masters: torch.Tensor  # (V,) int32 — master partition per vertex
     n_vertices: int
     k: int
+    replica_slots: torch.Tensor  # (R,) int64: p·V + v of each replica, in (v, p) order
+    gather: SegmentLayout  # K5 layout: edge → its (dst, part) replica row
 
 
 class CommStats(NamedTuple):
@@ -78,9 +87,17 @@ def build_gas_graph(src, dst, parts, n_vertices: int, k: int, *,
     # master = lowest-id partition holding the vertex (comm counts do not
     # depend on the choice); argmax returns the first maximum
     masters = torch.where(mask.any(dim=1), mask.to(torch.uint8).argmax(dim=1), 0)
+    # PageRank's gather layout: replica rows compacted in (v, p) order, so
+    # K5 runs over R ≈ RF·V rows instead of V·k; each row's sum lands in
+    # a (k, V) accumulator, whose k rows the mirror→master sum reads whole
+    flat = torch.nonzero(mask.view(-1))[:, 0]
+    row_of = torch.full((n_vertices * k,), -1, dtype=torch.int64, device=dev)
+    row_of[flat] = torch.arange(flat.numel(), device=dev)
+    gather = segment_layout(src, row_of[dst.long() * k + p], int(flat.numel()), device=dev)
     return GASGraph(src=src, dst=dst, edge_part=parts, part_offsets=offsets,
                     replica_mask=mask, masters=masters.to(torch.int32),
-                    n_vertices=n_vertices, k=k)
+                    n_vertices=n_vertices, k=k,
+                    replica_slots=(flat % k) * n_vertices + flat // k, gather=gather)
 
 
 def comm_stats(g: GASGraph) -> CommStats:
@@ -94,16 +111,16 @@ def _gas_superstep(g: GASGraph, values: torch.Tensor,
                    out_deg_inv: torch.Tensor) -> torch.Tensor:
     """One gather-apply-scatter round of PageRank, replica-exact: the
     partition-local accumulators (vertex × partition) are summed by the
-    mirror→master reduction, as the distributed run would."""
-    s = g.src.long()
-    contrib = values[s] * out_deg_inv[s]
-    flat = g.dst.long() * g.k + g.edge_part.long()
-    local = torch.zeros(g.n_vertices * g.k, dtype=torch.float32,
-                        device=values.device)
-    local.index_add_(0, flat, contrib)
-    local = local.view(g.n_vertices, g.k)
-    total = torch.where(g.replica_mask, local, 0.0).sum(dim=1)
-    return 0.15 + 0.85 * total
+    mirror→master reduction, as the distributed run would.  The gather is
+    one K5 launch on the card (the plain version on the CPU): each
+    replica row sums ``values[src]·out_deg_inv[src]`` over its edges in
+    edge order."""
+    contrib = (values * out_deg_inv)[:, None]
+    local = torch.zeros(g.k * g.n_vertices, dtype=torch.float32, device=values.device)
+    local[g.replica_slots] = segment_agg(contrib, g.gather)[:, 0]
+    # the mirror→master sum: XLA's CPU reduce over each vertex's k replicas
+    total = xla_sum_f32_columns(local.view(g.k, g.n_vertices))
+    return fma_f32(torch.full_like(total, 0.85), total, torch.full_like(total, 0.15))
 
 
 def label_propagation_step(g: GASGraph, labels: torch.Tensor) -> torch.Tensor:

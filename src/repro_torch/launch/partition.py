@@ -45,8 +45,19 @@ stream position (a ``file:`` graph grown by ``--write-shards --append``,
 plus any ``--delta`` batch) and applies ``--delete`` (``first:X | last:X
 | frac:F``); ``--window-edges`` partitions the last W edges step by step
 (s5p); ``--resize-k K2`` partitions cold at ``--k`` and reshards the s5p
-bundle to K2 with bounded migration.  The hybrid ``--host-budget`` waits
-for ROADMAP Queue 1 item 6.
+bundle to K2 with bounded migration.
+
+Memory-budget hybrid (``repro_torch.hybrid``): a resident high-degree core
+refined in memory, the rest streamed (s5p only):
+
+  python -m repro_torch.launch.partition --graph rmat:14 --k 32 --host-budget 2M
+  python -m repro_torch.launch.partition --graph rmat:14 --k 32 --hybrid --budget-fraction 0.25
+
+``--host-budget BYTES`` (``512M`` / ``2G`` suffixes; 0 = pure streaming)
+caps the resident core; ``--hybrid`` sizes the budget as
+``--budget-fraction`` of the host's available memory (``/proc/meminfo``
+MemAvailable, else ``os.sysconf``).  ``--save-carry DIR`` persists the
+hybrid run's warm bundle like a cold run's.
 """
 
 from __future__ import annotations
@@ -111,6 +122,88 @@ def write_shards_cli(graph: str, out_dir: str, shard_edges: int, seed: int = 0,
 
 
 SHARD_MODES = ("range", "rr", "round-robin", "hub")
+
+_BYTE_SUFFIXES = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30, "T": 1 << 40}
+
+
+def parse_bytes(spec: str) -> int:
+    """``--host-budget`` spec → bytes: plain int, or ``512M`` / ``2G`` /
+    ``64KB`` (binary suffixes, case-insensitive, optional trailing B)."""
+    s = str(spec).strip().upper()
+    if s.endswith("B") and len(s) > 1 and not s[:-1].isdigit():
+        s = s[:-1]
+    mult = 1
+    if s and s[-1] in _BYTE_SUFFIXES:
+        mult = _BYTE_SUFFIXES[s[-1]]
+        s = s[:-1]
+    try:
+        value = int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected bytes like 1048576, 512M or 2G, got {spec!r}")
+    if value < 0:
+        raise argparse.ArgumentTypeError(f"byte budget must be >= 0, got {spec!r}")
+    return value * mult
+
+
+def _parse_meminfo_available(text: str) -> int | None:
+    """``/proc/meminfo`` text → available bytes (``MemAvailable`` line,
+    falling back to ``MemFree``), or None when neither parses."""
+    free = None
+    for line in text.splitlines():
+        key, _, rest = line.partition(":")
+        key = key.strip()
+        if key not in ("MemAvailable", "MemFree"):
+            continue
+        fields = rest.split()
+        if not fields or not fields[0].isdigit():
+            continue
+        value = int(fields[0])
+        unit = fields[1].upper() if len(fields) > 1 else "KB"
+        mult = {"B": 1, "KB": 1 << 10, "MB": 1 << 20, "GB": 1 << 30}.get(unit)
+        if mult is None:
+            continue
+        if key == "MemAvailable":
+            return value * mult
+        free = value * mult
+    return free
+
+
+def detect_available_memory() -> int | None:
+    """Available host memory in bytes, or None when undetectable:
+    ``/proc/meminfo``'s MemAvailable first, then
+    ``os.sysconf(SC_AVPHYS_PAGES) * SC_PAGE_SIZE``."""
+    import os
+
+    try:
+        with open("/proc/meminfo") as fh:
+            avail = _parse_meminfo_available(fh.read())
+        if avail is not None:
+            return avail
+    except OSError:
+        pass
+    try:
+        pages = os.sysconf("SC_AVPHYS_PAGES")
+        page_size = os.sysconf("SC_PAGE_SIZE")
+    except (ValueError, OSError, AttributeError):
+        return None
+    if pages <= 0 or page_size <= 0:
+        return None
+    return int(pages) * int(page_size)
+
+
+def auto_host_budget(fraction: float = 0.5) -> int:
+    """Size ``--host-budget`` from available memory (``--hybrid`` with no
+    explicit budget): ``fraction`` of what the host reports as available."""
+    if not 0 < fraction <= 1:
+        raise ValueError(
+            f"budget_fraction must be in (0, 1], got {fraction}")
+    avail = detect_available_memory()
+    if avail is None:
+        raise RuntimeError(
+            "could not detect available host memory (/proc/meminfo and "
+            "os.sysconf both unavailable); pass --host-budget explicitly")
+    return int(avail * fraction)
 
 
 def _parse_delete(spec: str, n_edges: int, seed: int) -> np.ndarray:
@@ -193,6 +286,41 @@ def _run_window_cli(src, dst, n, k, partitioner, seed, window_edges,
     print(f"[window] {len(history)} steps, {dt:.1f}s total "
           f"({dt / max(len(history), 1):.2f}s/step)")
     return history
+
+
+def _run_hybrid_cli(src, dst, n, k, seed, host_budget, *, stream,
+                    chunk_size, ordering, num_streams, super_chunk,
+                    shard, refine_rounds, save_carry, dev):
+    """``--host-budget``: one memory-budget hybrid partition (s5p), the
+    reference's row.  ``--save-carry`` persists the hybrid warm bundle
+    like a cold run's.  Returns the ``HybridResult``."""
+    from ..hybrid import run_hybrid
+
+    cfg = _s5p_cfg(k, seed, chunk_size, ordering, num_streams, super_chunk,
+                   None, refine_rounds, None, shard)
+    cfg = dataclasses.replace(cfg, host_budget=int(host_budget))
+    t0 = time.perf_counter()
+    res = run_hybrid(stream if stream is not None else (src, dst, n), cfg,
+                     device=dev)
+    dt = time.perf_counter() - t0
+    pct = res.peak_budget_bytes / max(host_budget, 1)
+    print(f"{'hybrid':10s} RF={res.rf:7.3f} balance={res.balance:5.2f} "
+          f"mode={res.mode} core={res.core_edges} "
+          f"streamRF={res.rf_streaming:7.3f} "
+          f"peak={res.peak_budget_bytes}B ({pct:.0%} of budget) "
+          f"rounds={res.game_rounds}  {dt:6.1f}s")
+    if save_carry:
+        from ..incremental import CarryStore, s5p_identity_config
+        from ..incremental.driver import _prefix_crc
+
+        E = int(np.asarray(src).shape[0])
+        path = CarryStore(save_carry).save(
+            res.bundle, consumer="s5p", config=s5p_identity_config(cfg),
+            stream_pos=E,
+            extra_meta={"n_vertices": int(n),
+                        "prefix_crc": _prefix_crc(src, dst, E)})
+        print(f"[hybrid] carry→{path}")
+    return res
 
 
 def _run_resize_cli(src, dst, n, k, k_new, partitioner, seed, *,
@@ -302,12 +430,14 @@ def run(graph: str, k: int, partitioner: str = "s5p", *, seed: int = 0,
         refine_rounds: int | None = None,
         xi_refresh_threshold: float | None = None,
         window_edges: int | None = None, window_step: int | None = None,
-        resize_k: int | None = None, device=None):
+        resize_k: int | None = None, host_budget: int | None = None,
+        hybrid: bool = False, budget_fraction: float = 0.5, device=None):
     """Partition ``graph`` with one partitioner (or all, ``compare``) and
     print one row each.  Returns ``[(name, rf, balance, gas_comm_bytes,
     seconds), ...]``, the reference's rows; the carry flows return the
     reference's results instead (a cold start's row, an
-    ``IncrementalResult``, or the window's ``WindowStep`` history)."""
+    ``IncrementalResult``, or the window's ``WindowStep`` history), and
+    ``host_budget`` / ``hybrid`` the ``HybridResult``."""
     for pname, v in (("k", k), ("chunk_size", chunk_size), ("window", window),
                      ("num_streams", num_streams)):
         if v < 1:
@@ -321,6 +451,19 @@ def run(graph: str, k: int, partitioner: str = "s5p", *, seed: int = 0,
     if shard not in SHARD_MODES:
         raise ValueError(f"shard must be one of range | rr | round-robin | "
                          f"hub, got {shard!r}")
+    if hybrid and host_budget is None:
+        host_budget = auto_host_budget(budget_fraction)
+        print(f"[hybrid] auto-sized --host-budget: {host_budget} bytes "
+              f"({budget_fraction:.0%} of available host memory)")
+    if host_budget is not None:
+        if partitioner != "s5p":
+            raise ValueError("--host-budget drives the s5p hybrid pipeline; "
+                             "use --partitioner s5p")
+        if (compare or window_edges is not None or resize_k is not None
+                or resume_carry or delta or delete):
+            raise ValueError("--host-budget runs a single hybrid partition; "
+                             "drop --compare/--window-edges/--resize-k/"
+                             "carry-resume flags (--save-carry combines)")
     if resize_k is not None:
         if compare or window_edges is not None or resume_carry or delta or delete:
             raise ValueError("--resize-k runs a single cold partition "
@@ -352,6 +495,17 @@ def run(graph: str, k: int, partitioner: str = "s5p", *, seed: int = 0,
                 f"super_chunk must be <= the {rounds} chunks each of the "
                 f"{num_streams} sub-streams ingests (else it degenerates "
                 f"to a single merge), got {super_chunk}")
+    if host_budget is not None:
+        try:
+            return _run_hybrid_cli(
+                src, dst, n, k, seed, host_budget,
+                stream=stream if on_disk else None, chunk_size=chunk_size,
+                ordering=ordering, num_streams=num_streams,
+                super_chunk=super_chunk, shard=shard,
+                refine_rounds=refine_rounds, save_carry=save_carry, dev=dev)
+        finally:
+            if on_disk:
+                stream.close()
     if resize_k is not None:
         try:
             return _run_resize_cli(
@@ -458,6 +612,18 @@ def _super_chunk_arg(value: str):
             f"expected a chunk count >= 1 or 'auto', got {value!r}")
 
 
+def _fraction_arg(value: str) -> float:
+    """argparse type of ``--budget-fraction``: a float in (0, 1]."""
+    try:
+        fv = float(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected a fraction, got {value!r}")
+    if not 0 < fv <= 1:
+        raise argparse.ArgumentTypeError(
+            f"must be a fraction in (0, 1], got {value!r}")
+    return fv
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--graph", default="community:4000",
@@ -522,6 +688,20 @@ def main(argv=None):
                          "reshard the s5p bundle to this k with bounded "
                          "migration (prints RF before/after + the migrated "
                          "fraction)")
+    ap.add_argument("--host-budget", type=parse_bytes, default=None,
+                    metavar="BYTES",
+                    help="memory-budget hybrid mode: host bytes spendable "
+                         "on a resident high-degree core (accepts 512M / "
+                         "2G suffixes; 0 = pure streaming; s5p only)")
+    ap.add_argument("--hybrid", action="store_true",
+                    help="memory-budget hybrid mode with the budget "
+                         "auto-sized from available host memory "
+                         "(--budget-fraction of /proc/meminfo "
+                         "MemAvailable, falling back to os.sysconf); "
+                         "--host-budget overrides")
+    ap.add_argument("--budget-fraction", type=_fraction_arg, default=0.5,
+                    help="fraction of detected available memory --hybrid "
+                         "spends on the resident core (default 0.5)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain versions)")
     a = ap.parse_args(argv)
@@ -539,7 +719,8 @@ def main(argv=None):
         drift_threshold=a.drift_threshold, refine_rounds=a.refine_rounds,
         xi_refresh_threshold=a.xi_refresh_threshold,
         window_edges=a.window_edges, window_step=a.window_step,
-        resize_k=a.resize_k, device=a.device)
+        resize_k=a.resize_k, host_budget=a.host_budget, hybrid=a.hybrid,
+        budget_fraction=a.budget_fraction, device=a.device)
 
 
 if __name__ == "__main__":

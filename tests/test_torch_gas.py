@@ -2,11 +2,12 @@
 
 ``repro_torch.gas`` against the live ``repro.gas`` on the same partitions:
 the vertex-cut layout and the mirror counts exactly, label propagation
-exactly (integer minima), PageRank within ``rtol = 1e-5``: both sum the
-same float32 terms, but XLA and PyTorch reduce the (V, k) accumulator in
-another order and XLA may contract ``0.15 + 0.85·total`` into an FMA, so
-the last bits may differ (ten supersteps keep the drift far below 1e-5).
-Then ``python -m repro_torch.launch.partition --compare`` on the CPU
+exactly (integer minima), PageRank bit for bit: the gather sums each
+replica row in edge order (K5's plain version, as ``jax.ops.segment_sum``),
+the (V, k) accumulator is reduced in the order of XLA's CPU reduce and the
+apply is the FMA XLA contracts ``0.15 + 0.85·total`` into.  Across two
+different cuts of one graph PageRank is held within ``rtol = 1e-5``: the
+replica rows then sum the same terms in another order.  Then ``python -m repro_torch.launch.partition --compare`` on the CPU
 prints the reference's RF, balance and gas_comm columns.
 """
 
@@ -50,16 +51,26 @@ def test_build_gas_graph_exact(graphs):
     assert (j.n_vertices, j.k) == (t.n_vertices, t.k)
 
 
+def _same_leaves(a, b):
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+        elif isinstance(x, tuple):  # the K5 gather layout
+            _same_leaves(x, y)
+        else:
+            np.testing.assert_array_equal(x, y)
+
+
 def test_build_gas_graph_takes_arrays_or_tensors(cut):
     src, dst, parts, n, k = cut
     a = tg.build_gas_graph(src, dst, parts, n, k, device="cpu")
     b = tg.build_gas_graph(torch.from_numpy(src), torch.from_numpy(dst),
                            torch.from_numpy(parts), n, k, device="cpu")
-    for x, y in zip(a, b):
-        if isinstance(x, torch.Tensor):
-            assert x.dtype == y.dtype and torch.equal(x, y)
-        else:
-            np.testing.assert_array_equal(x, y)
+    _same_leaves(a, b)
+    # the gather layout: one row a replica, each edge on its (dst, part) row
+    slot = (a.edge_part.long() * n + a.dst.long())[a.gather.order]
+    assert a.gather.n_rows == int(a.replica_mask.sum())
+    assert torch.equal(a.replica_slots[a.gather.dst.long()], slot)
 
 
 def test_comm_stats_exact(graphs):
@@ -73,7 +84,7 @@ def test_pagerank(graphs, iterations):
     j, t = graphs
     jv, js = jg.pagerank(j, iterations)
     tv, ts = tg.pagerank(t, iterations)
-    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=RTOL, atol=0)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
     assert tuple(ts) == tuple(js)
 
 
@@ -82,8 +93,20 @@ def test_pagerank_step_and_out_degree(graphs):
     np.testing.assert_array_equal(np.asarray(jg.out_degree_inv(j)),
                                   tg.out_degree_inv(t).numpy())
     vals = np.random.default_rng(0).random(t.n_vertices).astype(np.float32)
-    np.testing.assert_allclose(tg.pagerank_step(t, torch.from_numpy(vals)).numpy(),
-                               np.asarray(jg.pagerank_step(j, vals)), rtol=RTOL, atol=0)
+    np.testing.assert_array_equal(tg.pagerank_step(t, torch.from_numpy(vals)).numpy(),
+                                  np.asarray(jg.pagerank_step(j, vals)))
+
+
+@pytest.mark.parametrize("k", [33, 70])
+def test_pagerank_bitwise_past_32_partitions(community_bench_graph, k):
+    """Past 32 partitions XLA's CPU reduce sums each vertex's replicas in
+    windows of 32: the mirror→master sum must follow them."""
+    src, dst, n = community_bench_graph
+    parts = np.array(JPART["hash"](src, dst, n, k, 0))
+    j = jg.build_gas_graph(src, dst, parts, n, k)
+    t = tg.build_gas_graph(src, dst, torch.from_numpy(parts), n, k, device="cpu")
+    assert int(t.replica_mask.sum(dim=1).max()) > 1
+    np.testing.assert_array_equal(tg.pagerank(t, 3)[0].numpy(), np.asarray(jg.pagerank(j, 3)[0]))
 
 
 def test_pagerank_is_partition_invariant(cut):

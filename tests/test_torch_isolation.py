@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.incremental.pipeline", "repro_torch.incremental.driver",
             "repro_torch.elastic.reshard", "repro_torch.runtime.fault",
             "repro_torch.runtime.straggler", "repro_torch.runtime.elastic",
-            "repro_torch.serving.controller"} <= set(mods)
+            "repro_torch.serving.controller", "repro_torch.hybrid",
+            "repro_torch.hybrid.planner", "repro_torch.hybrid.refiner",
+            "repro_torch.hybrid.driver"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -80,6 +82,8 @@ def _entry_points():
     from repro_torch.elastic import reshard_bundle
     from repro_torch.launch.serve import serve_graph
 
+    from repro_torch import hybrid
+
     cfg = GCNConfig(n_layers=2, d_hidden=2, d_feat=2, n_classes=2)
     lm_cfg = get_arch("llama3-8b").smoke_config
     lm_params = {"embed": torch.ones(lm_cfg.vocab, lm_cfg.d_model)}
@@ -115,6 +119,11 @@ def _entry_points():
         "window_chain": lambda: inc.S5PWindowChain(src, dst, 3, S5PConfig(k=2), 2),
         "reshard_bundle": lambda: reshard_bundle({}, S5PConfig(k=2), 3, src, dst),
         "serve_graph": lambda: serve_graph("block-rmat"),
+        "run_hybrid": lambda: hybrid.run_hybrid((src, dst, 3), S5PConfig(k=2, host_budget=1 << 20)),
+        "plan_budget": lambda: hybrid.plan_budget(src, dst, 3, 1 << 20),
+        "place_core": lambda: hybrid.place_core(None, z, 2, 2, 3),
+        "hybrid_chain": lambda: hybrid.HybridServingChain(None, S5PConfig(k=2), src, dst, 3),
+        "cli_host_budget": lambda: run("toy", 2, host_budget=1 << 20),
     }
 
 
@@ -126,7 +135,9 @@ def _entry_points():
                                   "edge_chunk_pipeline", "token_pipeline", "cold_start",
                                   "run_incremental", "s5p_cold_bundle", "s5p_apply_delta",
                                   "s5p_apply_deletion", "compact_bundle", "window_chain",
-                                  "reshard_bundle", "serve_graph"])
+                                  "reshard_bundle", "serve_graph", "run_hybrid",
+                                  "plan_budget", "place_core", "hybrid_chain",
+                                  "cli_host_budget"])
 def test_entry_points_need_a_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -5,7 +5,8 @@ with equal bits on two launches; K4a with negative counts), K6 and K7 against
 their plain versions within stated tolerances, the GCN, the LM and xDeepFM on
 cuda against cpu, streams paged from disk shards onto the card, and incremental
 re-partitioning (``cluster_retract_chunk``; a delta, its rollback, a deletion
-and window steps; a bundle saved from the card) on cuda against cpu.  Needs a
+and window steps; a bundle saved from the card), PageRank's K5 gather, the
+hybrid partitioner and its carries on cuda against cpu.  Needs a
 CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -1593,3 +1594,97 @@ def test_fault_tolerant_loop_on_the_card_resumes_exactly(cuda, tmp_path):
     assert (r0, r1) == (0, 1) and int(faulty["n"]) == 12
     assert faulty["labels"].device.type == "cuda"
     assert torch.equal(clean["labels"], faulty["labels"])
+
+
+@pytest.mark.parametrize("k", [8, 40])
+def test_pagerank_on_the_card_repeats_and_equals_cpu(cuda, k):
+    """PageRank's gather runs on K5: two runs on the card give the same
+    bits, and the CPU's (the reference's order of sums and FMA)."""
+    from repro_torch.gas import build_gas_graph, pagerank
+    from repro_torch.kernels.segment_agg import launch_counts
+
+    src, dst, n = _graph(12, seed=2)
+    parts = torch.from_numpy((np.arange(src.size) % k).astype(np.int32))
+    g = build_gas_graph(torch.from_numpy(src), torch.from_numpy(dst), parts, n, k, device=cuda)
+    before = launch_counts()["segment_agg"]
+    a = pagerank(g, 10)[0]
+    b = pagerank(g, 10)[0]
+    torch.cuda.synchronize()
+    assert launch_counts()["segment_agg"] == before + 20  # one launch a superstep
+    want = pagerank(build_gas_graph(src, dst, parts, n, k, device="cpu"), 10)[0]
+    assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+
+
+def _hybrid_fields(res) -> dict:
+    out = {f: getattr(res, f) for f in res._fields if f not in ("timings", "bundle")}
+    out["plan"] = tuple(res.plan)
+    return {**out, **{f"bundle.{key}": v for key, v in res.bundle.items()}}
+
+
+def _same_fields(a: dict, b: dict) -> None:
+    assert sorted(a) == sorted(b)
+    for key in a:
+        x, y = a[key], b[key]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            assert np.asarray(x).dtype == np.asarray(y).dtype, key
+            assert np.array_equal(x, y), key
+        else:
+            assert x == y, (key, x, y)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
+def test_run_hybrid_cuda_equals_cpu(cuda, frac):
+    """``run_hybrid`` on the card: every ``HybridResult`` field and bundle
+    leaf the CPU's; K2 once a chunk of each level's core and of the tail."""
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.graphs import community_graph
+    from repro_torch.hybrid import CORE_EDGE_BYTES, run_hybrid
+    from repro_torch.kernels.stream_scan import launch_counts
+
+    src, dst, n = community_graph(2000, n_communities=32, avg_degree=8, seed=5)
+    cfg = S5PConfig(k=8, chunk_size=1024, host_budget=int(frac * src.size * CORE_EDGE_BYTES * 2))
+    before = launch_counts()["assign_scan"]
+    got = run_hybrid((src, dst, n), cfg, device=cuda)
+    torch.cuda.synchronize()
+    k2 = launch_counts()["assign_scan"] - before
+    want = run_hybrid((src, dst, n), cfg, device="cpu")
+    _same_fields(_hybrid_fields(got), _hybrid_fields(want))
+    chunks = -(-src.size // 1024)
+    if frac == 0.0:
+        assert got.mode == "streaming" and k2 == chunks
+    else:
+        assert got.mode != "streaming" and k2 > chunks
+
+
+def test_tail_and_degree_sketch_carries_cuda_equal_cpu(cuda):
+    """``TailAssignCarry`` from a seeded load and ``DegreeSketchCarry`` at
+    S = 1 and S = 4 hub lanes (and one chunk's retract) on the card."""
+    from repro_torch.hybrid.planner import DegreeSketchCarry
+    from repro_torch.hybrid.refiner import TailAssignCarry
+    from repro_torch.streaming import EdgeStream, run_carry, run_parallel
+
+    src, dst, n = _graph(11, seed=3)
+    rng = np.random.default_rng(0)
+    deg = (np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)).astype(np.int32)
+    v2c_h = np.where(deg > 40, rng.integers(0, 300, n), -1).astype(np.int32)
+    v2c_t = rng.integers(0, 300, n).astype(np.int32)
+    c2p = rng.integers(0, 8, 300).astype(np.int32)
+    load0 = rng.integers(0, 500, 8).astype(np.int32)
+    outs = []
+    for dev in (cuda, "cpu"):
+        tail = TailAssignCarry(8, src.size // 8 + 600, torch.from_numpy(c2p).to(dev),
+                               degrees=deg, v2c_h=v2c_h, v2c_t=v2c_t, xi=20,
+                               core_threshold=60)
+        st = EdgeStream(src, dst, n, chunk_size=4096, device=dev)
+        parts, load = run_carry(st, tail, carry=torch.from_numpy(load0.copy()).to(dev))
+        sk = []
+        for lanes in (1, 4):
+            _, s = run_parallel(st, DegreeSketchCarry(400, 5, seed=2, device=dev),
+                                num_streams=lanes, super_chunk=2, shard="hub")
+            sk.append(s.table.cpu())
+        ch = st.chunk_at(0)
+        back = DegreeSketchCarry(400, 5, seed=2, device=dev).retract_chunk(
+            s, ch.src, ch.dst, ch.n_valid, None)
+        outs.append((parts.cpu(), load.cpu(), *sk, back.table.cpu()))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

@@ -78,8 +78,16 @@ def test_community_fixture_k8(community_bench_graph, use_cms):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        S5PConfig(k=4, host_budget=1 << 20)
+    """No option raises any more: ``host_budget`` (the hybrid's knob) is
+    accepted and ignored by ``s5p_partition``, as in the reference."""
+    src, dst, n, _ = random_graph(2)
+    cfg = S5PConfig(k=4, host_budget=1 << 20)
+    assert cfg.host_budget == 1 << 20
+    with_budget = s5p_partition(src, dst, n, cfg, device="cpu")
+    without = s5p_partition(src, dst, n, S5PConfig(k=4), device="cpu")
+    ref = jax_s5p(src, dst, n, JConfig(k=4, host_budget=1 << 20))
+    np.testing.assert_array_equal(with_budget.parts.numpy(), without.parts.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.parts), with_budget.parts.numpy())
     # the parallel-ingest options, the touch-up and the drift knobs of
     # incremental re-partitioning are ported
     for kw in ({"num_streams": 2}, {"shard": "hub"}, {"super_chunk": 4},
