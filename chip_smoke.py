@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
               statistics pass's three cluster-size sums under 2^24 terms,
               and the game's δ on the card with the CPU's bits;
 4. compare  — every other entry of ``PARTITIONERS`` on the main path's
-              graph and k (the S5P row is the main run's), each with the
+              graph and k (the S5P row is the main run's; CLUGP's runs on the
+              same R-MAT cut to scale 17, ``CLUGP_SCALE``), each with the
               launch counters set to 0 just before and read just after:
               parts must lie in [0, k), K3 must launch once per chunk for
               Greedy and HDRF, G1 once per chunk for grid; the rows that
@@ -260,6 +261,36 @@ Phases, each printing one JSON line:
               with one delta): every result, bundle leaf and published
               bundle equal on both.
 
+5f. distributed — multi-device S5P over ``torch.distributed``
+              (``core/distributed.py``, ``run_parallel``'s ``shard_map``), after
+              every other phase, nothing beside it: phase main's R-MAT cut to
+              scale 16 (``DIST_SCALE``) and its sequential S5P beside, the
+              edges written once as ``.npy`` (under ``build/``) and
+              memory-mapped by the ranks; ``distributed_partition`` under the
+              default ``S5PConfig`` (k = 32) in a world of 4 ranks sharing the
+              card under gloo, then in this process alone as a world of 1 under
+              NCCL, each rank with its launch counters and collective bytes set
+              to 0 just before and read just after: every phase's seconds (the
+              max over ranks), ``info``, RF and balance beside the sequential
+              run's, max load at or under its cap with every valid edge
+              placed, the same parts hash on every rank, K1 exactly ⌈shard /
+              65,536⌉ and K2 ⌈shard / chunk⌉ times a rank, K4a once a
+              2^18-pair chunk of the rank's pairs, K4b once, K5 as the game
+              reports, the collectives' bytes by phase, peak device memory a
+              rank; HDRF at 4 ranks (range, super-chunk 8) bit for bit the
+              threads backend at S = 4 run before the world starts, K3 once a
+              lane chunk; and the parity sequence on ``community_graph(600, 8,
+              6, seed=3)``, k = 8, in a world of 2 ranks sharing the card, each
+              running it on the card and then on the CPU
+              (``distributed_partition`` at S = 2, S5P at 2 hub lanes with auto
+              cadence, Greedy and grid at 2 range lanes,
+              ``ElasticController`` resizing a state on both ranks onto the
+              first): every result equal on both.  ``--only distributed``
+              runs phases 1–3 and this one alone.
+
+The R-MATs of phases 4 (CLUGP's), 5c (its 10 % delta, seed 1) and 5f are
+made by worker processes while phase main makes its own graph, before
+anything is timed.
 The kernel checks of phase 7 run after phases 8 and 9.  Phase 6's
 features (one generator a vertex) are made in ranges by worker processes
 while the script makes the graph and runs nothing timed: no timed phase
@@ -626,16 +657,36 @@ def theta_capture(src, dst, out, cfg) -> dict:
             "ends_at_run_sketch": bool(torch.equal(sketch.table, out.aux["sketch"].table))}
 
 
-def phase_main(scale: int) -> dict:
+def _rmat_worker(scale: int, seed: int):
+    """The Graph500 R-MAT at ``scale`` from ``seed``, made in a worker
+    process; returns ``((src, dst, n), seconds)``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.graphs import rmat_graph
+
+    t0 = time.perf_counter()
+    g = rmat_graph(scale, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=seed)
+    return g, time.perf_counter() - t0
+
+
+def phase_main(scale: int, later: dict | None = None) -> dict:
+    """S5P on the R-MAT at ``scale``.  ``later`` names the other phases'
+    R-MATs, ``{name: (scale, seed)}``: worker processes make them while this
+    process makes its own, and all are done before anything is timed
+    (returned under ``"graphs"`` as ``((src, dst, n), seconds)``)."""
     import torch
 
     from repro_torch.core.metrics import load_balance, partition_loads, replication_factor
     from repro_torch.core.s5p import S5PConfig, s5p_partition
     from repro_torch.graphs import rmat_graph
 
-    t0 = time.perf_counter()
-    src, dst, n = rmat_graph(scale, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=0)
-    gen_s = time.perf_counter() - t0
+    later = later or {}
+    with ProcessPoolExecutor(max_workers=max(len(later), 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {name: pool.submit(_rmat_worker, *args) for name, args in later.items()}
+        t0 = time.perf_counter()
+        src, dst, n = rmat_graph(scale, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=0)
+        gen_s = time.perf_counter() - t0
+        graphs = {name: job.result() for name, job in jobs.items()}
     dev = torch.device("cuda")
     cfg = S5PConfig(k=32)
     torch.cuda.synchronize()
@@ -691,7 +742,7 @@ def phase_main(scale: int) -> dict:
     if problems:
         raise SystemExit("chip_smoke main path failed: " + "; ".join(problems))
     return {"info": info, "out": out, "src": src, "dst": dst, "n": n,
-            "launches": launches, "cfg": cfg}
+            "launches": launches, "cfg": cfg, "graphs": graphs}
 
 
 def first_diff(got, want, names) -> str | None:
@@ -1184,29 +1235,34 @@ def phase_compare(main) -> dict:
     rows, parts_of, problems = {}, {}, []
     for name, fn in PARTITIONERS.items():
         kw = {"full_output": True} if name in S5P_BASED else {}
+        g_src, g_dst, g_n, g_s, g_d = src, dst, n, s_t, d_t
+        if name == "clugp" and "clugp" in main["graphs"]:  # its graph cut (§ CLUGP_SCALE)
+            g_src, g_dst, g_n = main["graphs"]["clugp"][0]
+            g_s, g_d = torch.from_numpy(g_src).to(dev), torch.from_numpy(g_dst).to(dev)
         if name == "s5p":  # the main run, under the same arguments
             out, dt, launches = main["out"], main["info"]["wall_s"], main["launches"]
         else:
             torch.cuda.synchronize()
             reset_launch_counts()
             t0 = time.perf_counter()
-            out = fn(src, dst, n, k, 0, device=dev, **kw)
+            out = fn(g_src, g_dst, g_n, k, 0, device=dev, **kw)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = launch_counts()
         parts = out.parts if kw else out
         loads = partition_loads(parts, k=k)
         row = {"phase": "compare", "partitioner": name,
-               "rf": replication_factor(s_t, d_t, parts, n_vertices=n, k=k),
+               "graph": f"rmat:{int(round(math.log2(g_n)))} edge_factor=16 seed=0",
+               "rf": replication_factor(g_s, g_d, parts, n_vertices=g_n, k=k),
                "balance": load_balance(parts, k=k), "max_load": int(loads.max()),
-               "gas_comm_bytes": gas_comm_bytes(s_t, d_t, parts, n_vertices=n, k=k),
+               "gas_comm_bytes": gas_comm_bytes(g_s, g_d, parts, n_vertices=g_n, k=k),
                "seconds": dt, "launches": launches}
         if kw:
             row.update(clusters=out.n_clusters, head_clusters=out.n_head_clusters,
                        game_rounds=out.game_rounds, game_converged=out.game_converged,
                        seconds_by_phase=out.timings)
             if name != "s5p":  # the main run's audit is phase main's
-                row["game_audit"] = _game_audit(out, src, dst)
+                row["game_audit"] = _game_audit(out, g_src, g_dst)
                 problems += _audit_problems(name, row["game_audit"])
                 want_k5 = 2 + out.aux["game"]["ordered_sums"]
                 if launches["segment_agg"] != want_k5:
@@ -1215,7 +1271,7 @@ def phase_compare(main) -> dict:
         emit(row)
         rows[name] = row
         parts_of[name] = parts
-        if int(parts.min()) < 0 or int(parts.max()) >= k or parts.shape != (E,):
+        if int(parts.min()) < 0 or int(parts.max()) >= k or parts.shape != (len(g_src),):
             problems.append(f"{name}: a part outside [0, {k})")
     for name, kernel in (("greedy", "scoring_scan"), ("hdrf", "scoring_scan"),
                          ("grid", "grid_scan")):
@@ -1738,10 +1794,7 @@ def phase_incremental(main, compare) -> dict:
 
     # ---- insertion: 10 % of the base, appended ----
     m = E // 10
-    t0 = time.perf_counter()
-    s1, d1, _ = rmat_graph(int(round(math.log2(n))), edge_factor=16, a=0.57, b=0.19,
-                           c=0.19, seed=1)
-    info["seed1_generate_s"] = time.perf_counter() - t0
+    (s1, d1, _), info["seed1_generate_s"] = main["graphs"]["seed1"]  # made beside phase main's
     full_src = np.concatenate([src, s1[:m]]).astype(np.int32)
     full_dst = np.concatenate([dst, d1[:m]]).astype(np.int32)
     E_full = int(full_src.size)
@@ -3424,6 +3477,333 @@ def _highest_f32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+# ------------------------------------------------------- phase distributed
+
+DIST_WORLD = 4  # ranks sharing the card under gloo
+# phase compare's CLUGP row runs on the R-MAT cut from 20 to this scale:
+# at 20 its game (96 ordered rounds) took 185.7-325.6 s by host, and the
+# script 1,338.2 s on the slowest host (NVIDIA H100 80GB HBM3, 700 W)
+CLUGP_SCALE = 17
+# the worlds' R-MAT scale, cut from phase main's 20: there the world of 4
+# took 290.8 s, its replicated game 252.6 s over 2,192,371 raw cluster
+# ids; at 17 the phase took 101.6 s and the script 1,185.9 s, too near its
+# limit (NVIDIA H100 80GB HBM3, 700 W)
+DIST_SCALE = 16
+DIST_DIR = os.path.join(ROOT, "build", "chip_smoke_distributed")  # gitignored
+DIST_PARITY = "community_graph(600, 8, 6, seed=3)"
+
+
+def _np_hash(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def _drive_rank(fn):
+    """Run ``fn`` in a rank with its launch counters and collective bytes
+    set to 0 just before and read just after: ``(result, seconds,
+    launches, bytes, peak device bytes beyond what was allocated before)``."""
+    import torch
+
+    from repro_torch import _dist
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    _dist.reset_collective_bytes()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    return (got, time.perf_counter() - t0, launch_counts(), _dist.collective_bytes(),
+            torch.cuda.max_memory_allocated() - before)
+
+
+def _rank_full_width(rank, world, dev, edges_dir, n, k, with_hdrf):
+    """A rank of phase distributed's full-width worlds: ``distributed_partition``
+    over the world under ``S5PConfig(k)``, then (``with_hdrf``) HDRF at one
+    range lane a rank, super-chunk 8 (``run_parallel`` resolves to
+    ``shard_map``).  The edges are phase main's, memory-mapped."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import distributed_partition, last_partition_stats
+    from repro_torch.core.metrics import load_balance, replication_factor
+    from repro_torch.core.s5p import S5PConfig
+    from repro_torch.kernels.stream_scan import HdrfCarry
+    from repro_torch.streaming import EdgeStream, last_ingest_stats, run_parallel
+
+    src = np.load(os.path.join(edges_dir, "src.npy"), mmap_mode="r")
+    dst = np.load(os.path.join(edges_dir, "dst.npy"), mmap_mode="r")
+    (parts, info), wall, launches, moved, peak = _drive_rank(
+        lambda: distributed_partition(src, dst, n, S5PConfig(k=k), None))
+    st = last_partition_stats()
+    p = parts.cpu().numpy()
+    valid = src != dst
+    out = {"rank": rank, "backend": dist.get_backend(), "device": str(dev), "info": info,
+           "wall_s": wall, "seconds": st["seconds"], "collective_bytes": st["collective_bytes"],
+           "bytes_by_kind": moved, "launches": launches, "peak_bytes": peak,
+           "shard_edges": st["shard_edges"], "place_chunk": st["place_chunk"],
+           "pairs": st["pairs"], "game": {key: st["game"][key] for key in
+                                          ("ordered_sums", "hub_batches", "batch_size")},
+           "parts_hash": _np_hash(p), "max_load": int(np.bincount(p[valid], minlength=k).max()),
+           "max_load_cap": st["max_load"], "unplaced_valid_edges": int((p[valid] < 0).sum())}
+    if rank == 0:
+        s_t, d_t = torch.from_numpy(np.array(src)).to(dev), torch.from_numpy(np.array(dst)).to(dev)
+        out["rf"] = replication_factor(s_t, d_t, parts, n_vertices=n, k=k)
+        out["balance"] = load_balance(parts, k=k)
+        del s_t, d_t
+    del parts
+    if with_hdrf:
+        stream = EdgeStream(np.array(src), np.array(dst), n, chunk_size=1 << 16, device=dev)
+        (hp, carry), wall, launches, moved, peak = _drive_rank(lambda: run_parallel(
+            stream, HdrfCarry(n, k, device=dev), num_streams=world, super_chunk=8,
+            shard="range"))
+        ing = last_ingest_stats()
+        out["hdrf"] = {"backend": ing.backend, "wall_s": wall, "launches": launches,
+                       "bytes_by_kind": moved, "peak_bytes": peak,
+                       "lane_chunks": ing.lanes[rank].chunks, "merges": len(ing.schedule),
+                       "parts_hash": _np_hash(hp), "carry_hash": [_np_hash(x) for x in carry[:3]]}
+    return out
+
+
+def _parity_sequence(rank, world, dev):
+    """The parity sequence of phase distributed in one rank, on ``dev`` (the
+    card or the CPU): ``distributed_partition`` at S = 2, S5P at 2 hub lanes
+    (auto cadence), Greedy and grid at 2 range lanes, and
+    ``ElasticController`` resizing a state placed on both ranks onto the
+    first alone."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.reshard import reshard_state
+    from repro_torch.core.baselines import greedy_partition, grid_partition
+    from repro_torch.core.distributed import distributed_partition
+    from repro_torch.core.s5p import S5PConfig, s5p_partition
+    from repro_torch.graphs import community_graph
+    from repro_torch.runtime import ElasticController
+
+    src, dst, n = community_graph(600, n_communities=8, avg_degree=6, seed=3)
+    reset_launch_counts()
+    out = {}
+    parts, info = distributed_partition(src, dst, n, S5PConfig(k=8), None, device=dev)
+    out["distributed_partition"] = (parts.cpu().numpy(), info)
+    cfg = S5PConfig(k=8, num_streams=world, shard="hub", super_chunk="auto", chunk_size=256)
+    res = s5p_partition(src, dst, n, cfg, device=dev)
+    out["s5p S=2 hub auto"] = (res.parts.cpu().numpy(), res.n_clusters, res.game_rounds,
+                               res.aux["parallel_ingest"]["backend"],
+                               {key: v for key, v in res.aux.get("touch_up", {}).items()
+                                if key != "game"})
+    for name, fn in (("greedy", greedy_partition), ("grid", grid_partition)):
+        out[f"{name} S=2"] = fn(src, dst, n, 8, 0, chunk_size=256, num_streams=world,
+                                super_chunk=2, shard="range", device=dev).cpu().numpy()
+    state = {"w": torch.arange(24, dtype=torch.float32, device=dev).reshape(6, 4) - 7.5,
+             "table": torch.tensor([-5, 2**31 - 1, -2**31], dtype=torch.int32, device=dev),
+             "step": torch.tensor([7], dtype=torch.int64, device=dev)}
+    mesh = DeviceMesh(dev.type, list(range(world)), mesh_dim_names=("data",))
+    placed = reshard_state(state, (mesh, [Replicate()]))
+    ctl = ElasticController(
+        CheckpointManager(os.path.join(DIST_DIR, f"ckpt-{dev.type}-{rank}"), async_write=False),
+        make_mesh=lambda size: DeviceMesh(dev.type, list(range(size)), mesh_dim_names=("data",)),
+        make_shardings=lambda m: (m, [Replicate()]))
+    new_state, new_mesh, _, step = ctl.resize(placed, 3, 1)
+    inside = new_mesh.get_coordinate() is not None
+    out["elastic 2 -> 1"] = (step, inside, {
+        key: (v.full_tensor() if inside else v.to_local()).cpu().numpy()
+        for key, v in new_state.items()})
+    out["elastic_equals_state"] = (not inside) or all(
+        np.array_equal(out["elastic 2 -> 1"][2][key], v.cpu().numpy()) for key, v in state.items())
+    return {"results": out, "launches": launch_counts()}
+
+
+def _rank_parity(rank, world, dev):
+    """A rank of the parity world (ranks sharing the card under gloo): the
+    sequence on the card, then on the CPU."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = _parity_sequence(rank, world, dev)
+    t1 = time.perf_counter()
+    host = _parity_sequence(rank, world, torch.device("cpu"))
+    return {"cuda": card, "cpu": host, "cuda_cpu_s": [t1 - t0, time.perf_counter() - t1]}
+
+
+def _world_summary(ranks, n_chunk: int = 1 << 16) -> tuple[dict, list]:
+    """Phase distributed's report of one full-width world, and its problems."""
+    import math as m
+
+    problems = []
+    r0 = ranks[0]
+    S = len(ranks)
+    phases = list(r0["seconds"])
+    row = {"world": S, "backend": r0["backend"], "info": r0["info"],
+           "seconds_max_over_ranks": {p: max(r["seconds"][p] for r in ranks) for p in phases},
+           "wall_s_max": max(r["wall_s"] for r in ranks),
+           "collective_bytes_by_phase": [r["collective_bytes"] for r in ranks],
+           "bytes_by_kind": [r["bytes_by_kind"] for r in ranks],
+           "peak_bytes": [r["peak_bytes"] for r in ranks],
+           "rf": r0["rf"], "balance": r0["balance"],
+           "max_load": r0["max_load"], "max_load_cap": r0["max_load_cap"],
+           "unplaced_valid_edges": r0["unplaced_valid_edges"],
+           "parts_hashes": [r["parts_hash"] for r in ranks],
+           "launches": [r["launches"] for r in ranks], "pairs": [r["pairs"] for r in ranks],
+           "game": r0["game"]}
+    if len(set(row["parts_hashes"])) != 1:
+        problems.append(f"S={S}: the ranks' parts differ: {row['parts_hashes']}")
+    if row["max_load"] > row["max_load_cap"] or row["unplaced_valid_edges"]:
+        problems.append(f"S={S}: max load {row['max_load']} (cap {row['max_load_cap']}), "
+                        f"{row['unplaced_valid_edges']} valid edges unplaced")
+    for r in ranks:
+        want = {"cluster_scan": m.ceil(r["shard_edges"] / n_chunk),
+                "assign_scan": m.ceil(r["shard_edges"] / r["place_chunk"]),
+                "cms_update": max(1, m.ceil(r["pairs"] / (1 << 18))), "cms_query": 1,
+                "segment_agg": 2 + r["game"]["ordered_sums"]}
+        got = {key: r["launches"][key] for key in want}
+        if got != want:
+            problems.append(f"S={S} rank {r['rank']}: launches {got}, not {want}")
+    return row, problems
+
+
+def phase_distributed(main, main_scale: int) -> dict:
+    """Multi-device S5P over ``torch.distributed`` (``core/distributed.py``,
+    ``run_parallel``'s ``shard_map``): a world of 4 ranks sharing the card
+    under gloo, then a world of 1 under NCCL, at k = 32 under the default
+    ``S5PConfig`` on phase main's R-MAT cut to :data:`DIST_SCALE` (the
+    sequential S5P of that graph beside it); HDRF at 4 ranks against the
+    threads backend; the parity sequence as a world of 2 on the card and
+    on the CPU.  Nothing else runs beside it."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _dist
+    from repro_torch.core.s5p import S5PConfig, s5p_partition
+    from repro_torch.core.metrics import load_balance, replication_factor
+    from repro_torch.kernels.stream_scan import HdrfCarry
+    from repro_torch.streaming import EdgeStream, last_ingest_stats, run_parallel
+
+    t_phase = time.perf_counter()
+    scale = min(main_scale, DIST_SCALE)
+    k = main["cfg"].k
+    if scale == main_scale:
+        src, dst, n = main["src"], main["dst"], main["n"]
+    else:  # made beside phase main's graph
+        src, dst, n = main["graphs"]["distributed"][0]
+    E = int(src.shape[0])
+    os.makedirs(DIST_DIR, exist_ok=True)
+    edges = os.path.join(DIST_DIR, "edges")
+    os.makedirs(edges, exist_ok=True)
+    np.save(os.path.join(edges, "src.npy"), np.asarray(src, np.int32))
+    np.save(os.path.join(edges, "dst.npy"), np.asarray(dst, np.int32))
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    seq = s5p_partition(src, dst, n, S5PConfig(k=k), device=dev)
+    s_t, d_t = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+    info = {"phase": "distributed", "graph": f"rmat:{scale} edge_factor=16 seed=0",
+            "cut_from": f"rmat:{main_scale}", "V": n, "E": E, "k": k,
+            "sequential": {"rf": replication_factor(s_t, d_t, seq.parts, n_vertices=n, k=k),
+                           "balance": load_balance(seq.parts, k=k),
+                           "clusters": seq.n_clusters, "game_rounds": seq.game_rounds,
+                           "seconds": seq.timings, "wall_s": time.perf_counter() - t0},
+            "rf_main": main["info"]["rf"], "balance_main": main["info"]["balance"]}
+    del seq, s_t, d_t
+    emit({**info, "step": "sequential"})
+    problems = []
+
+    # ---- HDRF at S = 4 on the threads backend, in the parent, first ----
+    stream = EdgeStream(src, dst, n, chunk_size=1 << 16, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hp, carry = run_parallel(stream, HdrfCarry(n, k, device=dev), num_streams=DIST_WORLD,
+                             super_chunk=8, shard="range", backend="threads")
+    torch.cuda.synchronize()
+    threads = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+               "plan_chunks": sum(lane.chunks for lane in last_ingest_stats().lanes),
+               "parts_hash": _np_hash(hp), "carry_hash": [_np_hash(x) for x in carry[:3]]}
+    del hp, carry, stream
+    torch.cuda.empty_cache()
+
+    # ---- 4 ranks under gloo on the card, then this process alone as a
+    # world of 1 under NCCL ----
+    worlds = {}
+    for world, with_hdrf in ((DIST_WORLD, True), (1, False)):
+        t0 = time.perf_counter()
+        if world > 1:
+            ranks = _dist.spawn_world(_rank_full_width, world, (edges, n, k, with_hdrf),
+                                      work_dir=os.path.join(DIST_DIR, f"world{world}"))
+        else:
+            store = os.path.join(DIST_DIR, "store-nccl")
+            rank_dev = _dist.init_world(0, 1, f"file://{store}")
+            try:
+                ranks = [_rank_full_width(0, 1, rank_dev, edges, n, k, with_hdrf)]
+            finally:
+                _dist.shutdown()
+        row, bad = _world_summary(ranks)
+        row["world_s"] = time.perf_counter() - t0
+        problems += bad
+        if with_hdrf:
+            hd = [r["hdrf"] for r in ranks]
+            row["hdrf"] = {"threads": threads, "shard_map": hd,
+                           "equal_threads": all(h["parts_hash"] == threads["parts_hash"]
+                                                and h["carry_hash"] == threads["carry_hash"]
+                                                for h in hd)}
+            if not row["hdrf"]["equal_threads"] or any(h["backend"] != "shard_map" for h in hd):
+                problems.append("hdrf at 4 ranks differs from the threads backend at S = 4")
+            for h in hd:
+                if h["launches"]["scoring_scan"] != h["lane_chunks"]:
+                    problems.append(f"hdrf: a rank launched K3 {h['launches']['scoring_scan']} "
+                                    f"times for its {h['lane_chunks']} chunks")
+            if sum(h["lane_chunks"] for h in hd) != threads["plan_chunks"]:
+                problems.append("hdrf: the ranks' chunks are not the plan's")
+        emit({"phase": "distributed", "step": f"S={world}", **row})
+        worlds[world] = row
+    info["worlds"] = worlds
+
+    # ---- the parity sequence: a world of 2 ranks sharing the card under
+    # gloo, each running it on the card, then on the CPU ----
+    t0 = time.perf_counter()
+    ranks = _dist.spawn_world(_rank_parity, 2, work_dir=os.path.join(DIST_DIR, "parity"))
+    # every rank returns the same results but for the resize, which
+    # differs by rank (inside or outside the new mesh): cuda against cpu
+    # rank by rank, and the ranks against rank 0
+    res = [r[side]["results"] for r in ranks for side in ("cuda", "cpu")]
+    differing = [key for key in res[0] if any(
+        not _same_value(res[i][key], res[j][key])
+        for i, j in ([(0, 1), (2, 3)] if key == "elastic 2 -> 1" else [(0, 1), (0, 2), (0, 3)]))]
+    parity = {"graph": DIST_PARITY, "k": 8, "world_s": time.perf_counter() - t0,
+              "cuda_cpu_s": [r["cuda_cpu_s"] for r in ranks],
+              "steps": list(res[0]), "differing": differing,
+              "elastic_equals_state": [r["elastic_equals_state"] for r in res],
+              "launches_cuda": [r["cuda"]["launches"] for r in ranks]}
+    parity["same"] = not parity["differing"] and all(parity["elastic_equals_state"])
+    emit({"phase": "distributed", "step": "parity", **parity})
+    info["parity"] = parity
+    if not parity["same"]:
+        problems.append(f"the parity sequence differs, cuda vs cpu: {parity['differing']}")
+    totals: dict = {}
+    for counts in ([c for w in worlds.values() for c in w["launches"]] +
+                   [h["launches"] for h in worlds[DIST_WORLD]["hdrf"]["shard_map"]] +
+                   parity["launches_cuda"]):
+        for key, v in counts.items():
+            totals[key] = totals.get(key, 0) + v
+    info["launches"] = totals
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    info["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "distributed", "step": "done", "phase_s": info["phase_s"], "launches": totals})
+    if problems:
+        raise SystemExit("chip_smoke distributed phase failed: " + "; ".join(problems))
+    return info
+
+
 def phase_lm(prompt_len: int = 4096, batch: int = 4, gen_tokens: int = 32,
              f32_layers: int = 2) -> dict:
     """The LM serving path at full width (llama3-8b), then the float32
@@ -4028,12 +4408,21 @@ def check_k7(recsys, build) -> list[dict]:
     return rows
 
 
+def _write_results(results: dict) -> None:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(results, f, indent=1, default=str)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
                     help="R-MAT scale of the main path (default 20)")
     ap.add_argument("--products-scale", type=float, default=1.0,
                     help="scale of the served ogbn_products_like graph (default 1.0)")
+    ap.add_argument("--only", choices=["distributed"], default=None,
+                    help="run phases device, build and main, then this phase alone "
+                         "(a quick check; prints no kernels line)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -4047,7 +4436,19 @@ def main(argv=None) -> int:
     dev = phase_device()
     build = phase_build()
     results = {"device": dev, "build": build}
-    main_run = phase_main(args.scale)
+    later = {"distributed": (DIST_SCALE, 0)} if args.scale > DIST_SCALE else {}
+    if args.only is None:
+        later["seed1"] = (args.scale, 1)  # phase incremental's 10 % delta
+        if args.scale > CLUGP_SCALE:
+            later["clugp"] = (CLUGP_SCALE, 0)
+    main_run = phase_main(args.scale, later)
+    if args.only == "distributed":
+        results["distributed"] = phase_distributed(main_run, args.scale)
+        _write_results(results)
+        print(nvidia_smi_line(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
+                                     "count": dev["count"]}})
+        return 0
     compare = phase_compare(main_run)
     t0 = time.perf_counter()
     parallel = phase_parallel(main_run)
@@ -4074,11 +4475,14 @@ def main(argv=None) -> int:
                    hybrid=hybrid, serve=serve["info"])
     del serve
     results["parity"] = phase_parity()
+    distributed = phase_distributed(main_run, args.scale)
+    for r in summary:  # the launches of phase distributed's worlds, all ranks
+        r["launches_distributed"] = distributed["launches"].get(
+            _COUNTERS.get(r["name"].split()[0]), 0)
     results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], recsys=recsys["info"],
-                   kernels=all_rows, total_s=time.perf_counter() - t_start)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(results, f, indent=1)
+                   distributed=distributed, kernels=all_rows,
+                   total_s=time.perf_counter() - t_start)
+    _write_results(results)
     emit({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in summary]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

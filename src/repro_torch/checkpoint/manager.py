@@ -16,8 +16,8 @@ other's files:
   thread and serialized on a worker thread;
 - **integrity check**: a CRC32 per array, verified on restore.
 
-Leaves may be torch tensors (on any device), numpy arrays or Python
-scalars.  bfloat16 tensors are stored as their ``uint16`` bits with the
+Leaves may be torch tensors (on any device; a ``DTensor`` is saved whole),
+numpy arrays or Python scalars.  bfloat16 tensors are stored as their ``uint16`` bits with the
 dtype ``bfloat16`` in the manifest and come back as ``torch.bfloat16``
 (the reference's ``ml_dtypes`` is not needed).  Restore returns numpy
 leaves, or with ``like`` each leaf in the dtype and on the device of the
@@ -55,9 +55,17 @@ def to_host(tree):
     return tree_unflatten(spec, [_host_leaf(x) for x in leaves])
 
 
+def _whole(x):
+    """A ``DTensor``'s whole value (a collective over its mesh, so every
+    rank of the mesh saves), any other leaf as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def _host_leaf(x):
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = _whole(x).detach().cpu()
         return x.clone() if x.dtype == torch.bfloat16 else x.numpy().copy()
     return x
 
@@ -65,7 +73,7 @@ def _host_leaf(x):
 def _array(leaf) -> tuple[np.ndarray, str]:
     """The array written for a leaf and the dtype the manifest names."""
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu()
+        leaf = _whole(leaf).detach().cpu()
         if leaf.dtype == torch.bfloat16:
             return leaf.contiguous().view(torch.int16).numpy().view(np.uint16), "bfloat16"
         leaf = leaf.numpy()

@@ -58,18 +58,30 @@ caps the resident core; ``--hybrid`` sizes the budget as
 ``--budget-fraction`` of the host's available memory (``/proc/meminfo``
 MemAvailable, else ``os.sysconf``).  ``--save-carry DIR`` persists the
 hybrid run's warm bundle like a cold run's.
+
+Several ranks (``torchrun``; ``WORLD_SIZE > 1`` brings the process group
+up: NCCL when each rank has a card of its own, gloo when ranks share one):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.partition --graph rmat:14 --k 8 \
+      --num-streams 4
+
+``--num-streams`` equal to the world size runs one lane a rank
+(``run_parallel``'s ``shard_map`` backend); rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import inspect
+import os
 import time
 
 import numpy as np
 import torch
 
+from .. import _dist
 from .._device import resolve_device
 from ..core.baselines import PARTITIONERS, S5P_BASED
 from ..core.metrics import gas_comm_bytes, load_balance, replication_factor
@@ -707,20 +719,39 @@ def main(argv=None):
     a = ap.parse_args(argv)
     if a.append and not a.write_shards:
         ap.error("--append only makes sense with --write-shards DIR")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return _main(a, a.device)
+    # under torchrun: every rank runs the same rows (--num-streams equal to
+    # the world size resolves run_parallel to one lane a rank); rank 0
+    # alone prints and writes
+    rank = int(os.environ["RANK"])
+    dev = _dist.init_world(rank, world, "env://", a.device)
+    try:
+        if rank == 0:
+            return _main(a, dev)
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            return _main(a, dev, writes=False)
+    finally:
+        _dist.shutdown()
+
+
+def _main(a, device, writes: bool = True):
     if a.write_shards:
-        write_shards_cli(a.graph, a.write_shards, a.shard_edges, a.seed,
-                         append=a.append)
-        return
-    run(a.graph, a.k, a.partitioner, seed=a.seed, compare=a.compare,
+        if writes:
+            write_shards_cli(a.graph, a.write_shards, a.shard_edges, a.seed,
+                             append=a.append)
+        return None
+    return run(a.graph, a.k, a.partitioner, seed=a.seed, compare=a.compare,
         chunk_size=a.chunk_size, ordering=a.ordering, window=a.window,
         num_streams=a.num_streams, super_chunk=a.super_chunk,
-        shard=a.shard_mode, save_carry=a.save_carry,
+        shard=a.shard_mode, save_carry=a.save_carry if writes else None,
         resume_carry=a.resume_carry, delta=a.delta, delete=a.delete,
         drift_threshold=a.drift_threshold, refine_rounds=a.refine_rounds,
         xi_refresh_threshold=a.xi_refresh_threshold,
         window_edges=a.window_edges, window_step=a.window_step,
         resize_k=a.resize_k, host_budget=a.host_budget, hybrid=a.hybrid,
-        budget_fraction=a.budget_fraction, device=a.device)
+        budget_fraction=a.budget_fraction, device=device)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,11 @@ The flow on a resize: checkpoint (host arrays, placement-independent),
 build the new device set, restore the checkpoint and place it, and, when
 the job is graph-shaped, re-home its S5P bundle with bounded migration
 (:func:`repro_torch.elastic.reshard_bundle`) instead of re-partitioning
-cold.  On one card ``make_mesh(n)`` returns a ``torch.device`` and the
-state is placed through
-:func:`~repro_torch.checkpoint.reshard.reshard_state`; placement onto a
-mesh or a sharding tree raises (ROADMAP Queue 1 item 7).
+cold.  ``make_mesh(n)`` returns a ``torch.device`` (one card) or a
+``DeviceMesh`` over the world's first n ranks, and the state is placed
+through :func:`~repro_torch.checkpoint.reshard.reshard_state`: onto the
+device, or as ``DTensor`` leaves laid out by ``make_shardings(mesh)`` (a
+tree of ``(mesh, placements)``; replicated over the mesh without one).
 """
 
 from __future__ import annotations
@@ -83,7 +84,14 @@ class ElasticController:
     def resize(self, state, step: int, new_size: int):
         """Returns ``(new_state, mesh, parts, step)``: the state restored
         from the checkpoint and placed by ``make_shardings(mesh)`` (a
-        device, or a tree of them) or else onto ``mesh`` itself;
+        device, a ``(DeviceMesh, placements)`` pair, or a tree of them) or
+        else onto ``mesh`` itself (a device, or a ``DeviceMesh``: every leaf
+        replicated).  With a mesh, every rank of the world calls ``resize``
+        (building a mesh, and saving ``DTensor`` leaves, are collective),
+        each with a manager of its own directory; a rank inside the new
+        mesh gets ``DTensor`` leaves whose ``full_tensor()`` is the
+        checkpoint bit for bit, a rank outside it ``DTensor`` leaves with
+        empty local tensors;
         ``parts`` is the warm reshard's ``ReshardResult`` with a
         ``partition``, the ``repartition`` hook's value otherwise (``None``
         with neither)."""

@@ -37,9 +37,9 @@ negate` and :meth:`~PartitionerCarry.apply_delta` invert bit for bit.
 
 The port's carries may update their tensors in place (K1–K3 write through
 the tensors they are handed), so the merges here always build new tensors
-and never write into the carries they read.  ``merge_collective`` (the
-reference's ``shard_map`` merge) waits for multi-device S5P (ROADMAP Queue 1
-item 7).
+and never write into the carries they read.  ``merge_collective`` is the
+reference's ``shard_map`` merge over a ``torch.distributed`` group: every
+rank holds one lane's carry and gets the merged one back.
 """
 
 from __future__ import annotations
@@ -349,10 +349,42 @@ class PartitionerCarry:
                 return got[0] / max(got[1], 1)
         return 0.0
 
-    def merge_collective(self, local, base, axis: str):
-        raise NotImplementedError(
-            "merge_collective (the shard_map merge) waits for multi-device "
-            "S5P, ROADMAP Queue 1 item 7")
+    def merge_collective(self, local, base, axis=None):
+        """The collective form of :meth:`merge`, called on every rank of
+        ``axis`` (a group as :func:`repro_torch._dist.group_of` reads it:
+        ``None`` for the default group, a ``ProcessGroup``, a 1-D
+        ``DeviceMesh`` or ``(mesh, dim name)``) with the rank's ``local``
+        carry and the common ``base``: one collective a leaf, ``b + Σ(x −
+        b)`` for SUM and COUNTED (wrapping at the leaf's width),
+        ``pick_first`` through a MIN over the rank of each changed cell, MAX
+        for OR and MAX, the base for REPLICATED.  Every rank returns the
+        same new carry, equal bit for bit to :meth:`merge` of the ranks'
+        carries (rank order = lane order)."""
+        from .. import _dist
+
+        spec, (flat, base_flat) = self._zip(local, base)
+        me, n = _dist.rank(axis), _dist.world_size(axis)
+        out = []
+        for i, op in enumerate(self.merge_ops):
+            x, b = flat[i], base_flat[i]
+            if not isinstance(x, torch.Tensor) or op == REPLICATED:
+                out.append(b)
+            elif op in GROUP_OPS:
+                b = b.to(x.dtype)
+                exact = not x.dtype.is_floating_point  # integer deltas ride int64
+                d = x.to(torch.int64) - b.to(torch.int64) if exact else x - b
+                if i in self.pick_first:
+                    changed = x != b
+                    rank = torch.full(x.shape, me, dtype=torch.int64, device=x.device)
+                    winner = _dist.all_reduce(torch.where(changed, rank, rank.new_full((), n)),
+                                              _dist.MIN, axis)
+                    d = torch.where(changed & (winner == me), d, torch.zeros_like(d))
+                total = _dist.all_reduce(d, _dist.SUM, axis)
+                out.append(_dist.wrap(b.to(torch.int64) + total, x.dtype) if exact
+                           else b + total)
+            else:  # OR, MAX (bools travel as int32)
+                out.append(_dist.all_reduce(x, _dist.MAX, axis))
+        return tree_unflatten(spec, out)
 
 
 class FnCarry(PartitionerCarry):

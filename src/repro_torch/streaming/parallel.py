@@ -23,7 +23,7 @@ contested and back off geometrically; state-only carries fold in
 isolation and merge once).  :func:`last_ingest_stats` returns what the
 last drive did (schedule, per-lane chunks, edges and seconds).
 
-:func:`run_parallel` has two backends, equal bit for bit on one plan:
+:func:`run_parallel` has three backends, equal bit for bit on one plan:
 
 - ``"threads"`` (default) — one host thread a lane.  On the card each lane
   issues on its own ``torch.cuda.Stream``, so the lanes' one-block serial
@@ -35,10 +35,18 @@ last drive did (schedule, per-lane chunks, edges and seconds).
   update in place), and the merge waits for every lane's stream.
 - ``"vmap"`` — the reference's batched lanes: the carry stacked ``(S, …)``,
   each active lane stepped on its row, then one ``merge_stacked``.
+- ``"shard_map"`` (the reference's name) — one lane a rank of a
+  ``torch.distributed`` world (SPMD: every rank calls ``run_parallel`` with
+  the same arguments): a rank stages and folds only its lane's chunks, the
+  lanes merge through ``merge_collective`` at every super-chunk, and the
+  parts are all-gathered, so every rank returns the same parts and carry.
+  ``mesh`` is a one-dimensional ``DeviceMesh`` S ranks wide; without one,
+  the default group must be S ranks wide.  It is the default when a
+  process group is up and S ranks wide (the reference's rule, ranks for
+  devices), ``threads`` otherwise.
 
 ``num_streams=1`` (or a one-chunk stream) runs the sequential driver and
-is bit-identical to it in every shard mode.  ``shard_map`` waits for
-multi-device S5P (ROADMAP Queue 1 item 7) and raises.
+is bit-identical to it in every shard mode.
 ``on_lane_failure="replay"`` re-folds a failed lane's super-chunk from the
 merge base: the in-memory one, or with a ``carry_store``
 (:class:`~repro_torch.incremental.CarryStore`) the one checkpointed at
@@ -76,7 +84,7 @@ log = logging.getLogger(__name__)
 SHARD_MODES = ("range", "round-robin", "hub")
 _SHARD_ALIASES = {"rr": "round-robin"}
 LANE_FAILURE_MODES = ("raise", "replay")
-BACKENDS = ("threads", "vmap")
+BACKENDS = ("threads", "vmap", "shard_map")
 
 #: adaptive cadence: merge every chunk while the per-merge occupancy delta
 #: exceeds WARM, then back off 1 → 2 → 4 → … up to CAP chunks
@@ -601,10 +609,8 @@ def run_parallel(
     if on_lane_failure not in LANE_FAILURE_MODES:
         raise ValueError(f"unknown on_lane_failure {on_lane_failure!r}; "
                          f"one of {LANE_FAILURE_MODES}")
-    if backend == "shard_map" or mesh is not None:
-        raise NotImplementedError(
-            "the shard_map backend (one lane a device, a mesh) waits for "
-            "multi-device S5P, ROADMAP Queue 1 item 7")
+    if mesh is not None and backend not in (None, "shard_map"):
+        raise ValueError(f"a mesh runs the shard_map backend, not {backend!r}")
     if backend is not None and backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if num_streams == 1 or stream.n_chunks <= 1:
@@ -621,7 +627,7 @@ def run_parallel(
     ps = ParallelEdgeStream(stream, num_streams, shard=shard,
                             hub_threshold=hub_threshold)
     S = ps.num_streams
-    backend = backend or "threads"
+    backend = _resolve_backend("shard_map" if mesh is not None else backend, S)
     if (lane_injector is not None or straggler is not None or carry_store is not None
             or on_lane_failure != "raise") and backend != "threads":
         raise ValueError("lane fault handling, straggler handoff and carry "
@@ -656,6 +662,13 @@ def run_parallel(
             base = pc.merge_stacked(local, prev)
             ctl.observe(prev, base)
             r0 += sc
+        wall = time.perf_counter() - t_run
+        for s in range(S):
+            lane_chunks[s] = len(ps.lanes[s])
+            lane_edges[s] = sum(ps.chunk_n_valid(c) for c in ps.lanes[s])
+            lane_wall[s] = wall
+    elif backend == "shard_map":
+        base = _shard_map_drive(ps, pc, extras, mesh, base, ctl, parts_by_chunk)
         wall = time.perf_counter() - t_run
         for s in range(S):
             lane_chunks[s] = len(ps.lanes[s])
@@ -800,6 +813,70 @@ def run_parallel(
             for cid in range(stream.n_chunks)]
     parts = outs[0] if len(outs) == 1 else torch.cat(outs)
     return stream.scatter_back(parts), result
+
+
+def _resolve_backend(backend, S: int) -> str:
+    """The reference's rule with ranks for devices: ``shard_map`` when a
+    process group is up and S ranks wide, else ``threads``."""
+    if backend is not None:
+        return backend
+    from .. import _dist
+
+    return "shard_map" if _dist.is_up() and _dist.world_size() == S else "threads"
+
+
+def _shard_map_drive(ps, pc, extras, mesh, base, ctl, parts_by_chunk):
+    """One lane a rank of a one-dimensional mesh (default: over the default
+    group): each rank stages and folds only its lane's chunks, from its own
+    copy of the merge base, and the lanes merge through
+    :meth:`~repro_torch.streaming.carry.PartitionerCarry.merge_collective`
+    at every super-chunk.  The lanes' parts are all-gathered at the end, so
+    every rank fills ``parts_by_chunk`` with every chunk.  Returns the last
+    merge base, the same on every rank."""
+    from .. import _dist
+
+    S = ps.num_streams
+    if mesh is None:
+        if not _dist.is_up() or _dist.world_size() != S:
+            raise ValueError(
+                f"the shard_map backend runs one lane a rank: it needs a process group "
+                f"of {S} ranks, got world size "
+                f"{_dist.world_size() if _dist.is_up() else 1} (use backend='threads' "
+                f"or 'vmap', or start {S} ranks)")
+        dev = _carry_device(base) or ps.stream.device
+        mesh = _dist.world_mesh(dev.type, "streams")
+    if mesh.ndim != 1 or mesh.size() != S:
+        raise ValueError(f"shard_map backend needs a {S}-wide mesh axis, got "
+                         f"{tuple(mesh.shape)} (use backend='threads' or 'vmap')")
+    me = mesh.get_local_rank()
+    lane = ps.lanes[me]
+    mine: dict[int, torch.Tensor] = {}
+    r0 = 0
+    while r0 < ps.n_rounds:
+        sc = ctl.next()
+        local = _lane_copy(pc, base)
+        for cid in lane[r0:r0 + sc]:
+            ch = ps.chunk_for(cid, *extras)
+            local, parts = pc.step_chunk(local, ch.src, ch.dst, ch.n_valid, *ch.extras)
+            if parts is not None:
+                mine[cid] = parts[: ch.n_valid]
+        prev = base
+        base = pc.merge_collective(local, prev, mesh)
+        local = None
+        ctl.observe(prev, base)
+        r0 += sc
+    if not pc.emits_parts:
+        return base
+    flat = (torch.cat([mine[c] for c in lane]) if lane else torch.zeros(0, dtype=torch.int32))
+    got = _dist.all_gather_arrays(flat.cpu().numpy(), mesh)
+    dev = ps.stream.device
+    for s, arr in enumerate(got):
+        at = 0
+        for cid in ps.lanes[s]:
+            nv = ps.chunk_n_valid(cid)
+            parts_by_chunk[cid] = torch.from_numpy(arr[at:at + nv].copy()).to(dev)
+            at += nv
+    return base
 
 
 def _handoff_lanes(ps, lanes, pos, straggler):

@@ -249,8 +249,9 @@ def test_merge_validates_op_declaration():
     g.merge_ops = ("or", "max")
     with pytest.raises(ValueError, match="monotone"):
         g.signed_delta(g.init(), g.init())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        DegreeCarry(4, device="cpu").merge_collective(None, None, "streams")
+    d = DegreeCarry(4, device="cpu")
+    with pytest.raises(ValueError, match="no process group is up"):
+        d.merge_collective(d.init(), d.init(), None)
 
 
 def test_monotone_ops_match_the_reference():

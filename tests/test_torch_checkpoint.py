@@ -213,5 +213,5 @@ def test_reshard_state_places_leaves():
     assert same["a"] is tree["a"]
     per_leaf = reshard_state(tree, {"a": "cpu", "b": ("cpu", "cpu")})
     assert per_leaf["b"][0].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="a placement is a device, a DeviceMesh"):
         reshard_state(tree, object())

@@ -416,7 +416,7 @@ def test_elastic_controller_warm_resize_roundtrip(tmp_path):
     assert part.k == 12
     for a, b in zip(_leaves(state), _leaves(new_state)):
         assert a.dtype == b.dtype and b.device == dev and torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="a placement is a device, a DeviceMesh"):
         ElasticController(CheckpointManager(tmp_path / "m", async_write=False),
                           make_mesh=lambda size: object()).resize(state, 1, 2)
 

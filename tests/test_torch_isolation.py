@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.runtime.straggler", "repro_torch.runtime.elastic",
             "repro_torch.serving.controller", "repro_torch.hybrid",
             "repro_torch.hybrid.planner", "repro_torch.hybrid.refiner",
-            "repro_torch.hybrid.driver"} <= set(mods)
+            "repro_torch.hybrid.driver", "repro_torch._dist", "repro_torch.launch.mesh",
+            "repro_torch.core.distributed"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -53,6 +54,27 @@ def test_every_module_imports_without_jax_or_repro():
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": SRC}, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_rank_worker_module_imports_without_jax_or_repro():
+    """Spawned ranks import the test's rank functions in a fresh process:
+    that module must stand on ``repro_torch`` alone."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch_dist_ranks\n"
+        "bad = [m for m, mod in sys.modules.items() if mod is not None"
+        " and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": os.pathsep.join([SRC, tests])},
+                         timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
 
@@ -83,6 +105,9 @@ def _entry_points():
     from repro_torch.launch.serve import serve_graph
 
     from repro_torch import hybrid
+
+    from repro_torch.core.distributed import distributed_partition
+    from repro_torch.launch.mesh import make_test_mesh
 
     cfg = GCNConfig(n_layers=2, d_hidden=2, d_feat=2, n_classes=2)
     lm_cfg = get_arch("llama3-8b").smoke_config
@@ -124,6 +149,9 @@ def _entry_points():
         "place_core": lambda: hybrid.place_core(None, z, 2, 2, 3),
         "hybrid_chain": lambda: hybrid.HybridServingChain(None, S5PConfig(k=2), src, dst, 3),
         "cli_host_budget": lambda: run("toy", 2, host_budget=1 << 20),
+        "distributed_partition": lambda: distributed_partition(src, dst, 3, S5PConfig(k=2),
+                                                               None),
+        "make_test_mesh": lambda: make_test_mesh(1),
     }
 
 
@@ -137,7 +165,8 @@ def _entry_points():
                                   "s5p_apply_deletion", "compact_bundle", "window_chain",
                                   "reshard_bundle", "serve_graph", "run_hybrid",
                                   "plan_budget", "place_core", "hybrid_chain",
-                                  "cli_host_budget"])
+                                  "cli_host_budget", "distributed_partition",
+                                  "make_test_mesh"])
 def test_entry_points_need_a_device(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

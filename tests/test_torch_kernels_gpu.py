@@ -6,7 +6,8 @@ their plain versions within stated tolerances, the GCN, the LM and xDeepFM on
 cuda against cpu, streams paged from disk shards onto the card, and incremental
 re-partitioning (``cluster_retract_chunk``; a delta, its rollback, a deletion
 and window steps; a bundle saved from the card), PageRank's K5 gather, the
-hybrid partitioner and its carries on cuda against cpu.  Needs a
+hybrid partitioner and its carries on cuda against cpu, and
+``distributed_partition`` in worlds of ranks on the card against the CPU.  Needs a
 CUDA device and ``nvcc``; run on a machine with a card:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -1688,3 +1689,27 @@ def test_tail_and_degree_sketch_carries_cuda_equal_cpu(cuda):
         outs.append((parts.cpu(), load.cpu(), *sk, back.table.cpu()))
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_distributed_partition_on_the_card_equals_cpu(cuda, world, tmp_path):
+    """``distributed_partition`` in a world of ranks on the card (NCCL alone,
+    gloo when two ranks share it) against the same world on the CPU: the
+    parts, ``info`` and the collective bytes equal, CMS and exact Θ."""
+    import torch_dist_ranks as R
+
+    from repro_torch import _dist
+    from repro_torch.graphs import community_graph
+
+    src, dst, n = community_graph(300, n_communities=8, avg_degree=6, seed=1)
+    cases = [(True, False), (False, False)]
+    card = _dist.spawn_world(R.partition, world, (src, dst, n, cases), work_dir=tmp_path / "card")
+    host = _dist.spawn_world(R.partition, world, (src, dst, n, cases), work_dir=tmp_path / "cpu",
+                             device="cpu")
+    for ranks in (card, host):
+        for r in ranks[1:]:
+            for a, b in zip(r, ranks[0]):
+                np.testing.assert_array_equal(a["parts"], b["parts"])
+    for c, h in zip(card[0], host[0]):
+        np.testing.assert_array_equal(c["parts"], h["parts"])
+        assert c["info"] == h["info"] and c["bytes"] == h["bytes"]

@@ -336,7 +336,7 @@ def test_knobs_validate_and_unported_paths_raise(tmp_path):
             (dict(num_streams=2, backend="gpus"), ValueError, "backend"),
             (dict(num_streams=2, backend="vmap", on_lane_failure="replay"),
              ValueError, "threads"),
-            (dict(num_streams=2, backend="shard_map"), NotImplementedError, "item 7"),
+            (dict(num_streams=2, backend="shard_map"), ValueError, "world size 1"),
             (dict(num_streams=2, backend="vmap", straggler=object()), ValueError,
              "threads"),
             (dict(num_streams=2, backend="vmap", carry_store=object()),
