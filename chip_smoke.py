@@ -20,8 +20,7 @@ Phases, each printing one JSON line:
               statistics pass's three cluster-size sums under 2^24 terms,
               and the game's δ on the card with the CPU's bits;
 4. compare  — every other entry of ``PARTITIONERS`` on the main path's
-              graph and k (the S5P row is the main run's; CLUGP's runs on the
-              same R-MAT cut to scale 17, ``CLUGP_SCALE``), each with the
+              graph and k (the S5P row is the main run's), each with the
               launch counters set to 0 just before and read just after:
               parts must lie in [0, k), K3 must launch once per chunk for
               Greedy and HDRF, G1 once per chunk for grid; the rows that
@@ -285,12 +284,11 @@ Phases, each printing one JSON line:
               (``distributed_partition`` at S = 2, S5P at 2 hub lanes with auto
               cadence, Greedy and grid at 2 range lanes,
               ``ElasticController`` resizing a state on both ranks onto the
-              first): every result equal on both.  ``--only distributed``
-              runs phases 1–3 and this one alone.
+              first): every result equal on both.
 
-The R-MATs of phases 4 (CLUGP's), 5c (its 10 % delta, seed 1) and 5f are
-made by worker processes while phase main makes its own graph, before
-anything is timed.
+The R-MATs of phases 5c (its 10 % delta, seed 1) and 5f are made by
+worker processes while the script makes phase main's graph, before
+anything is timed (``make_graphs``).
 The kernel checks of phase 7 run after phases 8 and 9.  Phase 6's
 features (one generator a vertex) are made in ranges by worker processes
 while the script makes the graph and runs nothing timed: no timed phase
@@ -658,8 +656,8 @@ def theta_capture(src, dst, out, cfg) -> dict:
 
 
 def _rmat_worker(scale: int, seed: int):
-    """The Graph500 R-MAT at ``scale`` from ``seed``, made in a worker
-    process; returns ``((src, dst, n), seconds)``."""
+    """The Graph500 R-MAT at ``scale`` from ``seed`` (edge factor 16) and
+    the seconds it took to make: ``((src, dst, n), seconds)``."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.graphs import rmat_graph
 
@@ -668,25 +666,27 @@ def _rmat_worker(scale: int, seed: int):
     return g, time.perf_counter() - t0
 
 
-def phase_main(scale: int, later: dict | None = None) -> dict:
-    """S5P on the R-MAT at ``scale``.  ``later`` names the other phases'
-    R-MATs, ``{name: (scale, seed)}``: worker processes make them while this
-    process makes its own, and all are done before anything is timed
-    (returned under ``"graphs"`` as ``((src, dst, n), seconds)``)."""
+def make_graphs(main: tuple[int, int], others: dict) -> dict:
+    """The script's R-MATs, each ``(scale, seed)``: phase main's made in this
+    process while worker processes make ``others`` (``{name: (scale,
+    seed)}``), all done before anything is timed.  Returns ``{"main": ...,
+    name: ...}``, each as :func:`_rmat_worker` returns it."""
+    with ProcessPoolExecutor(max_workers=max(len(others), 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {name: pool.submit(_rmat_worker, *args) for name, args in others.items()}
+        graphs = {"main": _rmat_worker(*main)}
+        graphs.update((name, job.result()) for name, job in jobs.items())
+    return graphs
+
+
+def phase_main(scale: int, graph) -> dict:
+    """S5P on ``graph``, the R-MAT at ``scale`` (:func:`make_graphs`)."""
     import torch
 
     from repro_torch.core.metrics import load_balance, partition_loads, replication_factor
     from repro_torch.core.s5p import S5PConfig, s5p_partition
-    from repro_torch.graphs import rmat_graph
 
-    later = later or {}
-    with ProcessPoolExecutor(max_workers=max(len(later), 1),
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        jobs = {name: pool.submit(_rmat_worker, *args) for name, args in later.items()}
-        t0 = time.perf_counter()
-        src, dst, n = rmat_graph(scale, edge_factor=16, a=0.57, b=0.19, c=0.19, seed=0)
-        gen_s = time.perf_counter() - t0
-        graphs = {name: job.result() for name, job in jobs.items()}
+    (src, dst, n), gen_s = graph
     dev = torch.device("cuda")
     cfg = S5PConfig(k=32)
     torch.cuda.synchronize()
@@ -742,7 +742,7 @@ def phase_main(scale: int, later: dict | None = None) -> dict:
     if problems:
         raise SystemExit("chip_smoke main path failed: " + "; ".join(problems))
     return {"info": info, "out": out, "src": src, "dst": dst, "n": n,
-            "launches": launches, "cfg": cfg, "graphs": graphs}
+            "launches": launches, "cfg": cfg}
 
 
 def first_diff(got, want, names) -> str | None:
@@ -1235,34 +1235,29 @@ def phase_compare(main) -> dict:
     rows, parts_of, problems = {}, {}, []
     for name, fn in PARTITIONERS.items():
         kw = {"full_output": True} if name in S5P_BASED else {}
-        g_src, g_dst, g_n, g_s, g_d = src, dst, n, s_t, d_t
-        if name == "clugp" and "clugp" in main["graphs"]:  # its graph cut (§ CLUGP_SCALE)
-            g_src, g_dst, g_n = main["graphs"]["clugp"][0]
-            g_s, g_d = torch.from_numpy(g_src).to(dev), torch.from_numpy(g_dst).to(dev)
         if name == "s5p":  # the main run, under the same arguments
             out, dt, launches = main["out"], main["info"]["wall_s"], main["launches"]
         else:
             torch.cuda.synchronize()
             reset_launch_counts()
             t0 = time.perf_counter()
-            out = fn(g_src, g_dst, g_n, k, 0, device=dev, **kw)
+            out = fn(src, dst, n, k, 0, device=dev, **kw)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = launch_counts()
         parts = out.parts if kw else out
         loads = partition_loads(parts, k=k)
         row = {"phase": "compare", "partitioner": name,
-               "graph": f"rmat:{int(round(math.log2(g_n)))} edge_factor=16 seed=0",
-               "rf": replication_factor(g_s, g_d, parts, n_vertices=g_n, k=k),
+               "rf": replication_factor(s_t, d_t, parts, n_vertices=n, k=k),
                "balance": load_balance(parts, k=k), "max_load": int(loads.max()),
-               "gas_comm_bytes": gas_comm_bytes(g_s, g_d, parts, n_vertices=g_n, k=k),
+               "gas_comm_bytes": gas_comm_bytes(s_t, d_t, parts, n_vertices=n, k=k),
                "seconds": dt, "launches": launches}
         if kw:
             row.update(clusters=out.n_clusters, head_clusters=out.n_head_clusters,
                        game_rounds=out.game_rounds, game_converged=out.game_converged,
                        seconds_by_phase=out.timings)
             if name != "s5p":  # the main run's audit is phase main's
-                row["game_audit"] = _game_audit(out, g_src, g_dst)
+                row["game_audit"] = _game_audit(out, src, dst)
                 problems += _audit_problems(name, row["game_audit"])
                 want_k5 = 2 + out.aux["game"]["ordered_sums"]
                 if launches["segment_agg"] != want_k5:
@@ -1271,7 +1266,7 @@ def phase_compare(main) -> dict:
         emit(row)
         rows[name] = row
         parts_of[name] = parts
-        if int(parts.min()) < 0 or int(parts.max()) >= k or parts.shape != (len(g_src),):
+        if int(parts.min()) < 0 or int(parts.max()) >= k or parts.shape != (E,):
             problems.append(f"{name}: a part outside [0, {k})")
     for name, kernel in (("greedy", "scoring_scan"), ("hdrf", "scoring_scan"),
                          ("grid", "grid_scan")):
@@ -1713,7 +1708,7 @@ def _game_k5(games) -> int:
     return sum(2 + g["ordered_sums"] for g in games if g["rounds"] > 0)
 
 
-def phase_incremental(main, compare) -> dict:
+def phase_incremental(main, compare, seed1) -> dict:
     """Dynamic re-partitioning at phase main's scale (``repro_torch.incremental``):
     the base bundle packed from phase main's own S5P output, a 10 % insertion
     (the first E/10 edges of R-MAT seed 1, appended) under the default drift
@@ -1738,7 +1733,6 @@ def phase_incremental(main, compare) -> dict:
     from repro_torch.incremental import (CarryStore, S5PWindowChain, cold_start,
                                          pack_warm_bundle, run_incremental, s5p_apply_delta,
                                          s5p_apply_deletion)
-    from repro_torch.graphs import rmat_graph
     from repro_torch.incremental.pipeline import last_games, theta_delta_pairs
     from repro_torch.launch.partition import _parse_delete
 
@@ -1794,7 +1788,7 @@ def phase_incremental(main, compare) -> dict:
 
     # ---- insertion: 10 % of the base, appended ----
     m = E // 10
-    (s1, d1, _), info["seed1_generate_s"] = main["graphs"]["seed1"]  # made beside phase main's
+    (s1, d1, _), info["seed1_generate_s"] = seed1  # made beside phase main's (make_graphs)
     full_src = np.concatenate([src, s1[:m]]).astype(np.int32)
     full_dst = np.concatenate([dst, d1[:m]]).astype(np.int32)
     E_full = int(full_src.size)
@@ -3480,10 +3474,6 @@ def _highest_f32() -> None:
 # ------------------------------------------------------- phase distributed
 
 DIST_WORLD = 4  # ranks sharing the card under gloo
-# phase compare's CLUGP row runs on the R-MAT cut from 20 to this scale:
-# at 20 its game (96 ordered rounds) took 185.7-325.6 s by host, and the
-# script 1,338.2 s on the slowest host (NVIDIA H100 80GB HBM3, 700 W)
-CLUGP_SCALE = 17
 # the worlds' R-MAT scale, cut from phase main's 20: there the world of 4
 # took 290.8 s, its replicated game 252.6 s over 2,192,371 raw cluster
 # ids; at 17 the phase took 101.6 s and the script 1,185.9 s, too near its
@@ -3671,7 +3661,7 @@ def _world_summary(ranks, n_chunk: int = 1 << 16) -> tuple[dict, list]:
     return row, problems
 
 
-def phase_distributed(main, main_scale: int) -> dict:
+def phase_distributed(main, graph, main_scale: int) -> dict:
     """Multi-device S5P over ``torch.distributed`` (``core/distributed.py``,
     ``run_parallel``'s ``shard_map``): a world of 4 ranks sharing the card
     under gloo, then a world of 1 under NCCL, at k = 32 under the default
@@ -3693,10 +3683,7 @@ def phase_distributed(main, main_scale: int) -> dict:
     t_phase = time.perf_counter()
     scale = min(main_scale, DIST_SCALE)
     k = main["cfg"].k
-    if scale == main_scale:
-        src, dst, n = main["src"], main["dst"], main["n"]
-    else:  # made beside phase main's graph
-        src, dst, n = main["graphs"]["distributed"][0]
+    (src, dst, n), _ = graph  # made beside phase main's (make_graphs)
     E = int(src.shape[0])
     os.makedirs(DIST_DIR, exist_ok=True)
     edges = os.path.join(DIST_DIR, "edges")
@@ -4408,21 +4395,12 @@ def check_k7(recsys, build) -> list[dict]:
     return rows
 
 
-def _write_results(results: dict) -> None:
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(results, f, indent=1, default=str)
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
                     help="R-MAT scale of the main path (default 20)")
     ap.add_argument("--products-scale", type=float, default=1.0,
                     help="scale of the served ogbn_products_like graph (default 1.0)")
-    ap.add_argument("--only", choices=["distributed"], default=None,
-                    help="run phases device, build and main, then this phase alone "
-                         "(a quick check; prints no kernels line)")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -4436,19 +4414,12 @@ def main(argv=None) -> int:
     dev = phase_device()
     build = phase_build()
     results = {"device": dev, "build": build}
-    later = {"distributed": (DIST_SCALE, 0)} if args.scale > DIST_SCALE else {}
-    if args.only is None:
-        later["seed1"] = (args.scale, 1)  # phase incremental's 10 % delta
-        if args.scale > CLUGP_SCALE:
-            later["clugp"] = (CLUGP_SCALE, 0)
-    main_run = phase_main(args.scale, later)
-    if args.only == "distributed":
-        results["distributed"] = phase_distributed(main_run, args.scale)
-        _write_results(results)
-        print(nvidia_smi_line(), flush=True)
-        emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
-                                     "count": dev["count"]}})
-        return 0
+    later = {"seed1": (args.scale, 1)}  # phase incremental's 10 % delta
+    if args.scale > DIST_SCALE:
+        later["distributed"] = (DIST_SCALE, 0)
+    graphs = make_graphs((args.scale, 0), later)
+    graphs.setdefault("distributed", graphs["main"])
+    main_run = phase_main(args.scale, graphs["main"])
     compare = phase_compare(main_run)
     t0 = time.perf_counter()
     parallel = phase_parallel(main_run)
@@ -4458,7 +4429,7 @@ def main(argv=None) -> int:
     ooc = phase_ooc(main_run)
     ooc["phase_s"] = time.perf_counter() - t0
     emit({"phase": "ooc", "step": "done", "phase_s": ooc["phase_s"]})
-    incremental = phase_incremental(main_run, compare)
+    incremental = phase_incremental(main_run, compare, graphs.pop("seed1"))
     elastic = phase_elastic(main_run, incremental)
     for key in ("base", "hdrf_cold"):
         incremental.pop(key, None)
@@ -4475,14 +4446,16 @@ def main(argv=None) -> int:
                    hybrid=hybrid, serve=serve["info"])
     del serve
     results["parity"] = phase_parity()
-    distributed = phase_distributed(main_run, args.scale)
+    distributed = phase_distributed(main_run, graphs.pop("distributed"), args.scale)
     for r in summary:  # the launches of phase distributed's worlds, all ranks
         r["launches_distributed"] = distributed["launches"].get(
             _COUNTERS.get(r["name"].split()[0]), 0)
     results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], recsys=recsys["info"],
                    distributed=distributed, kernels=all_rows,
                    total_s=time.perf_counter() - t_start)
-    _write_results(results)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(results, f, indent=1, default=str)
     emit({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in summary]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

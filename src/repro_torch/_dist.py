@@ -93,27 +93,34 @@ def world_size(group=None) -> int:
     return dist.get_world_size(group_of(group))
 
 
+def _local_rank(rank_: int) -> int:
+    """The rank's index on its host: ``LOCAL_RANK`` (torchrun), else the
+    global rank (every rank on one host, as :func:`spawn_world` starts them)."""
+    return int(os.environ.get("LOCAL_RANK", rank_))
+
+
 def rank_device(device=None) -> torch.device:
     """The rank's device: ``device`` when the caller names one, else its
-    card (``LOCAL_RANK``, else the rank, modulo the cards on the host), and
-    no card raises."""
+    card (the local rank modulo the cards on the host), and no card raises."""
     if device is not None:
         return torch.device(device)
     resolve_device(None)
-    local = int(os.environ.get("LOCAL_RANK", dist.get_rank() if is_up() else 0))
+    local = _local_rank(dist.get_rank() if is_up() else 0)
     return torch.device("cuda", local % torch.cuda.device_count())
 
 
 def init_world(rank_: int, world: int, init_method: str, device=None) -> torch.device:
     """Bring up the default group: NCCL when every rank has a card of its
-    own, gloo when ranks share one card or run on the CPU.  Returns the
-    rank's device (set current on the card)."""
+    own (the host's ranks, ``LOCAL_WORLD_SIZE`` or else the whole world,
+    no more than its cards), gloo when ranks share one card or run on the
+    CPU.  Returns the rank's device (set current on the card): its local
+    rank's card under NCCL, card 0 under gloo."""
     dev = torch.device(device) if device is not None else resolve_device(None)
     backend = "gloo"
     if dev.type == "cuda":
-        if torch.cuda.device_count() >= world:
+        if torch.cuda.device_count() >= int(os.environ.get("LOCAL_WORLD_SIZE", world)):
             backend = "nccl"
-            dev = torch.device("cuda", rank_ % torch.cuda.device_count())
+            dev = torch.device("cuda", _local_rank(rank_))
         else:
             dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)

@@ -289,6 +289,35 @@ def test_shard_map_without_a_process_group_names_the_world_size():
         _dist.world_size()
 
 
+@pytest.mark.parametrize("env,cards,want", [
+    ({"WORLD": 8, "RANK": 5, "LOCAL_WORLD_SIZE": "4", "LOCAL_RANK": "1"}, 4, ("nccl", 1)),
+    ({"WORLD": 4, "RANK": 3}, 4, ("nccl", 3)),
+    ({"WORLD": 4, "RANK": 3}, 1, ("gloo", 0)),
+    ({"WORLD": 8, "RANK": 6, "LOCAL_WORLD_SIZE": "4", "LOCAL_RANK": "2"}, 2, ("gloo", 0)),
+], ids=["two-hosts", "one-host", "shared-card", "shared-cards-two-hosts"])
+def test_init_world_picks_the_backend_from_the_hosts_ranks(monkeypatch, env, cards, want):
+    """NCCL when each of the host's ranks has a card of its own, on its
+    local rank's card, the card ``rank_device`` names; gloo on card 0 when
+    the host's ranks share its cards.  The group itself is not brought up."""
+    for key in ("LOCAL_WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+        if key in env:
+            monkeypatch.setenv(key, env[key])
+    got = {}
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: got.setdefault("current", d))
+    monkeypatch.setattr(_dist, "resolve_device", lambda d: torch.device("cuda"))
+    monkeypatch.setattr(_dist.dist, "init_process_group",
+                        lambda backend, **kw: got.update(backend=backend, **kw))
+    dev = _dist.init_world(env["RANK"], env["WORLD"], "file:///nowhere")
+    assert (got["backend"], dev.index) == want and got["current"] == dev
+    assert (got["rank"], got["world_size"]) == (env["RANK"], env["WORLD"])
+    if want[0] == "nccl":
+        monkeypatch.setattr(_dist.dist, "get_rank", lambda: env["RANK"])
+        monkeypatch.setattr(_dist, "is_up", lambda: True)
+        assert _dist.rank_device() == dev
+
+
 # ------------------------------------------------------------ merge_collective
 
 MERGE_NAMES = NAMES + ["degree_sketch"]
