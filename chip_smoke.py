@@ -20,8 +20,10 @@ Phases, each printing one JSON line:
               statistics pass's three cluster-size sums under 2^24 terms,
               and the game's δ on the card with the CPU's bits;
 4. compare  — every other entry of ``PARTITIONERS`` on the main path's
-              graph and k (the S5P row is the main run's), each with the
-              launch counters set to 0 just before and read just after:
+              graph and k (the S5P row is the main run's; CLUGP's runs on the
+              same R-MAT cut to scale 17, ``CLUGP_SCALE``, and each row names
+              its graph and scale), each with the launch counters set to 0
+              just before and read just after:
               parts must lie in [0, k), K3 must launch once per chunk for
               Greedy and HDRF, G1 once per chunk for grid; the rows that
               run S5P's pipeline report its per-phase seconds, and
@@ -210,6 +212,26 @@ Phases, each printing one JSON line:
               from the positions where not causal alone), and states the
               tile classes (``kv_tile_classes``) and the compiled kernel's
               registers, spills and shared memory;
+8b. moe     — Mixtral's MoE serving path at published width: ``serve_lm``
+              of ``mixtral-8x7b`` (d_model 4,096, 32 / 8 heads, d_ff 14,336,
+              8 experts, top-2, window 4,096, bf16, seed 0) cut to 16 of its
+              32 layers (``MOE_LAYERS``: 23.48 G parameters, 47 GB; the 32
+              layers' 93.4 GB pass the card), once phase lm's weights are
+              freed, over 2 prompts of 8,192 tokens (past the window: K6
+              masks by window, the rolling cache wraps), then 32 greedy
+              tokens, with the launch counters set to 0 just before and
+              read just after: device memory allocated at the start, init
+              seconds and peak memory, prefill seconds and tokens/s, decode
+              ms per token (mean, p99), each layer's dropped assignments
+              and per-expert load (cap 2,560 of 16,384 assignments a row),
+              K6 launched exactly once per layer of the prefill (16), the
+              logits finite; then the float32 check at full width, 2 layers
+              and capacity factor 4 (cap = T, nothing dropped) on 2 prompts
+              of 4,608 tokens: ``prefill(prompt[:S])`` against
+              ``prefill(prompt[:S-1])`` then ``decode_step`` within atol
+              2e-3, rtol 1e-3, K6 launched 2 × 2 times.  Phase ``kernels``
+              adds its K6 launches to phase lm's, and its Mixtral row runs
+              at this phase's shape (B = 2);
 9. recsys   — the recsys serving path at xDeepFM's published config (39
               fields, embed 10, CIN 200-200-200, MLP 400-400, float32,
               50,453,809 parameters, seed 0): ``serve_recsys`` (init and the
@@ -286,15 +308,16 @@ Phases, each printing one JSON line:
               ``ElasticController`` resizing a state on both ranks onto the
               first): every result equal on both.
 
-The R-MATs of phases 5c (its 10 % delta, seed 1) and 5f are made by
-worker processes while the script makes phase main's graph, before
+The R-MATs of phases 4 (CLUGP's), 5c (its 10 % delta, seed 1) and 5f are
+made by worker processes while the script makes phase main's graph, before
 anything is timed (``make_graphs``).
 The kernel checks of phase 7 run after phases 8 and 9.  Phase 6's
 features (one generator a vertex) are made in ranges by worker processes
 while the script makes the graph and runs nothing timed: no timed phase
 shares the host with them.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+Then one ``{"kernels": [...]}`` line, the script's ``total_s``, the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result.  It needs the rest of the repository
 (``src/repro_torch``) and a CUDA device.  Long outputs (the compiler's
@@ -1219,7 +1242,9 @@ def check_cms(main, serve, incremental) -> list[dict]:
     return rows
 
 
-def phase_compare(main) -> dict:
+def phase_compare(main, clugp_graph) -> dict:
+    """Every other partitioner on phase main's graph, CLUGP's on
+    ``clugp_graph`` (the R-MAT at ``CLUGP_SCALE``, :func:`make_graphs`)."""
     import torch
 
     from repro_torch.core.baselines import PARTITIONERS, S5P_BASED
@@ -1235,29 +1260,35 @@ def phase_compare(main) -> dict:
     rows, parts_of, problems = {}, {}, []
     for name, fn in PARTITIONERS.items():
         kw = {"full_output": True} if name in S5P_BASED else {}
+        g_src, g_dst, g_n, g_s, g_d = src, dst, n, s_t, d_t
+        if name == "clugp":  # its graph cut (CLUGP_SCALE)
+            g_src, g_dst, g_n = clugp_graph[0]
+            g_s, g_d = torch.from_numpy(g_src).to(dev), torch.from_numpy(g_dst).to(dev)
         if name == "s5p":  # the main run, under the same arguments
             out, dt, launches = main["out"], main["info"]["wall_s"], main["launches"]
         else:
             torch.cuda.synchronize()
             reset_launch_counts()
             t0 = time.perf_counter()
-            out = fn(src, dst, n, k, 0, device=dev, **kw)
+            out = fn(g_src, g_dst, g_n, k, 0, device=dev, **kw)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             launches = launch_counts()
         parts = out.parts if kw else out
         loads = partition_loads(parts, k=k)
         row = {"phase": "compare", "partitioner": name,
-               "rf": replication_factor(s_t, d_t, parts, n_vertices=n, k=k),
+               "graph": f"rmat:{int(round(math.log2(g_n)))} edge_factor=16 seed=0",
+               "scale": int(round(math.log2(g_n))), "edges": int(g_src.shape[0]),
+               "rf": replication_factor(g_s, g_d, parts, n_vertices=g_n, k=k),
                "balance": load_balance(parts, k=k), "max_load": int(loads.max()),
-               "gas_comm_bytes": gas_comm_bytes(s_t, d_t, parts, n_vertices=n, k=k),
+               "gas_comm_bytes": gas_comm_bytes(g_s, g_d, parts, n_vertices=g_n, k=k),
                "seconds": dt, "launches": launches}
         if kw:
             row.update(clusters=out.n_clusters, head_clusters=out.n_head_clusters,
                        game_rounds=out.game_rounds, game_converged=out.game_converged,
                        seconds_by_phase=out.timings)
             if name != "s5p":  # the main run's audit is phase main's
-                row["game_audit"] = _game_audit(out, src, dst)
+                row["game_audit"] = _game_audit(out, g_src, g_dst)
                 problems += _audit_problems(name, row["game_audit"])
                 want_k5 = 2 + out.aux["game"]["ordered_sums"]
                 if launches["segment_agg"] != want_k5:
@@ -1266,7 +1297,7 @@ def phase_compare(main) -> dict:
         emit(row)
         rows[name] = row
         parts_of[name] = parts
-        if int(parts.min()) < 0 or int(parts.max()) >= k or parts.shape != (E,):
+        if int(parts.min()) < 0 or int(parts.max()) >= k or parts.shape != (len(g_src),):
             problems.append(f"{name}: a part outside [0, {k})")
     for name, kernel in (("greedy", "scoring_scan"), ("hdrf", "scoring_scan"),
                          ("grid", "grid_scan")):
@@ -2763,7 +2794,7 @@ _COUNTERS = {"K1": "cluster_scan", "K2": "assign_scan", "K3": "scoring_scan",
              "K6": "flash_attention", "K7": "cin"}
 
 
-def phase_kernels(main, compare, serve, lm, recsys, build, incremental,
+def phase_kernels(main, compare, serve, lm, moe, recsys, build, incremental,
                   elastic, hybrid) -> list[dict]:
     from repro_torch.kernels.stream_scan.latency import measure_round_trips
 
@@ -2775,7 +2806,8 @@ def phase_kernels(main, compare, serve, lm, recsys, build, incremental,
     cms = check_cms(main, serve, incremental)
     k3_g1, k3_extra = check_k3_g1(main, compare, rt)
     k5 = check_k5(serve)
-    k6 = check_k6(lm, build)
+    k6 = check_k6(lm["launches"]["flash_attention"] + moe["launches"]["flash_attention"],
+                  build)
     k7 = check_k7(recsys, build)
     rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k6, *k7]
     _check_rows(rows)
@@ -3474,6 +3506,10 @@ def _highest_f32() -> None:
 # ------------------------------------------------------- phase distributed
 
 DIST_WORLD = 4  # ranks sharing the card under gloo
+# phase compare's CLUGP row runs on the R-MAT cut from 20 to this scale: at
+# 20 its game (96 ordered rounds) took 185.7-325.6 s by host, and the script
+# 1,072.0-1,338.2 s (NVIDIA H100 80GB HBM3, 700 W)
+CLUGP_SCALE = 17
 # the worlds' R-MAT scale, cut from phase main's 20: there the world of 4
 # took 290.8 s, its replicated game 252.6 s over 2,192,371 raw cluster
 # ids; at 17 the phase took 101.6 s and the script 1,185.9 s, too near its
@@ -3882,6 +3918,138 @@ def phase_lm(prompt_len: int = 4096, batch: int = 4, gen_tokens: int = 32,
     return {"info": info, "f32_check": check, "launches": launches}
 
 
+# phase moe serves mixtral-8x7b cut from 32 layers to this depth: the 32
+# layers are 46.70 G parameters (93.4 GB in bf16, past the card's 80 GB),
+# 16 are 23.48 G (47.0 GB)
+MOE_LAYERS = 16
+
+
+def phase_moe(prompt_len: int = 8192, batch: int = 2, gen_tokens: int = 32,
+              f32_layers: int = 2, f32_prompt_len: int = 4608) -> dict:
+    """Mixtral's MoE serving path at published width (``mixtral-8x7b`` cut
+    to ``MOE_LAYERS`` layers), then the float32 prefill-against-decode check
+    at full width, ``f32_layers`` layers and capacity factor 4 (cap = T:
+    nothing dropped, so a token's route does not depend on the others')."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import lm as LM
+
+    _highest_f32()
+    torch.cuda.empty_cache()  # phase lm's weights are freed
+    t_phase = time.perf_counter()
+    arch = "mixtral-8x7b"
+    published = get_arch(arch).config
+    cfg = dataclasses.replace(published, n_layers=MOE_LAYERS)
+    dev = torch.device("cuda")
+    problems = []
+    torch.cuda.synchronize()
+    allocated_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    seqs = serve_lm(arch, prompt_len=prompt_len, gen_tokens=gen_tokens, batch=batch,
+                    smoke=False, seed=0, device=dev, stats=stats, n_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_ms = np.asarray(stats["decode_s"]) * 1e3
+    first, last = stats.pop("prefill_logits"), stats.pop("last_logits")
+    finite = bool(torch.isfinite(first).all()) and bool(torch.isfinite(last).all())
+    toks = seqs.cpu().numpy()
+    E, K = cfg.n_experts, cfg.top_k
+    cap = max(8, min(int(cfg.capacity_factor * K * prompt_len / E), prompt_len))
+    layers = stats["moe"]
+    load = np.asarray([layer["load"] for layer in layers])  # (L, B, E)
+    dropped = np.asarray([layer["dropped"] for layer in layers])  # (L, B)
+    info = {
+        "phase": "moe", "arch": arch, "layers": cfg.n_layers,
+        "published_layers": published.n_layers, "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+        "n_experts": E, "top_k": K, "window": cfg.sliding_window,
+        "params": LM.count_params(cfg), "published_params": LM.count_params(published),
+        "dtype": str(cfg.dtype), "seed": 0, "batch": batch, "prompt_len": prompt_len,
+        "gen_tokens": gen_tokens, "capacity_factor": cfg.capacity_factor,
+        "cap_per_row": cap, "assignments_per_row": prompt_len * K,
+        "allocated_at_start_bytes": allocated_at_start,
+        "init_s": stats["init_s"], "init_peak_bytes": stats["init_peak_bytes"],
+        "prefill_s": stats["prefill_s"],
+        "prefill_tokens_per_s": batch * prompt_len / stats["prefill_s"],
+        "decode_ms_per_token": {"n": int(decode_ms.size), "mean": float(decode_ms.mean()),
+                                "p99": float(np.percentile(decode_ms, 99))},
+        "decode_tokens_per_s": batch / float(decode_ms.mean()) * 1e3,
+        "dropped_per_layer": dropped.sum(axis=1).tolist(),
+        "dropped_per_layer_row": dropped.tolist(),
+        "expert_load_per_layer": load.sum(axis=1).tolist(),
+        "expert_load_per_layer_row": load.tolist(),
+        "dropped_share": float(dropped.sum() / (cfg.n_layers * batch * prompt_len * K)),
+        "wall_s": wall, "max_memory_allocated": peak, "launches": launches,
+        "logits_finite": finite, "logits_abs_max": float(first.float().abs().max()),
+        "tokens_head": toks[:, :8].tolist(),
+    }
+    emit(info)
+    if launches["flash_attention"] != cfg.n_layers:
+        problems.append(f"K6 launched {launches['flash_attention']} times in the prefill, "
+                        f"not once per layer ({cfg.n_layers})")
+    if toks.shape != (batch, gen_tokens) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        problems.append(f"tokens of shape {toks.shape} or outside the vocabulary")
+    if not finite:
+        problems.append("logits not finite")
+    if load.shape != (cfg.n_layers, batch, E) or (load.sum(axis=2) != prompt_len * K).any():
+        problems.append(f"expert loads of shape {load.shape} do not sum to T·K a row")
+    if not np.array_equal(dropped, np.maximum(load - cap, 0).sum(axis=2)):
+        problems.append("dropped assignments are not the loads past capacity")
+
+    # float32 at full width, f32_layers layers, drop-free: K6 (prefill) against
+    # the plain decode path on the same card
+    cfg32 = dataclasses.replace(published, n_layers=f32_layers, dtype=torch.float32,
+                                capacity_factor=4.0)
+    key = trandom.PRNGKey(0)
+    torch.cuda.reset_peak_memory_stats()
+    S = f32_prompt_len
+    params = LM.init_params(cfg32, key, device=dev)
+    prompts = trandom.randint(key, (batch, S), 0, cfg32.vocab, device=dev)
+    reset_launch_counts()
+    routes = []
+    with torch.inference_mode():
+        want, _ = LM.prefill(params, prompts, cfg32, max_seq=S, device=dev, routes=routes)
+        _, cache = LM.prefill(params, prompts[:, :-1], cfg32, max_seq=S, device=dev,
+                              routes=routes)
+        pos = torch.full((batch,), S - 1, dtype=torch.int32, device=dev)
+        got, _ = LM.decode_step(params, cache, prompts[:, -1], pos, cfg32, device=dev)
+    torch.cuda.synchronize()
+    k6_f32 = launch_counts()["flash_attention"]
+    drops = sum(int((~r["keep"]).sum()) for r in routes)
+    err = float((got - want).abs().max())
+    close = bool(torch.allclose(got, want, atol=2e-3, rtol=1e-3))
+    check = {"phase": "moe", "step": "float32 prefill against decode",
+             "layers": f32_layers, "d_model": cfg32.d_model, "capacity_factor": 4.0,
+             "batch": batch, "prompt_len": S, "window": cfg32.sliding_window,
+             "prefill_dropped": drops, "max_abs_err": err,
+             "logits_abs_max": float(want.abs().max()), "within_atol_2e-3_rtol_1e-3": close,
+             "k6_launches": k6_f32, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del params, cache, prompts, routes
+    check["phase_s"] = time.perf_counter() - t_phase
+    emit(check)
+    if not close or not math.isfinite(err):
+        problems.append(f"float32 prefill and decode logits differ by {err}")
+    if drops:
+        problems.append(f"{drops} assignments dropped at capacity factor 4")
+    if k6_f32 != 2 * f32_layers:
+        problems.append(f"K6 launched {k6_f32} times in two float32 prefills of "
+                        f"{f32_layers} layers")
+    if problems:
+        raise SystemExit("chip_smoke moe phase failed: " + "; ".join(problems))
+    return {"info": info, "f32_check": check, "launches": launches}
+
+
 def _visible_pairs(q_pos, kv_pos, causal, window) -> int:
     """Visible (query, key) pairs per head, summed over the batch rows: for
     each query, the keys with ``kv_pos >= 0`` and ``q − window < kv_pos <= q``
@@ -3928,7 +4096,7 @@ K6_CASES = [  # name, B, S, T, H, KV, dtype, window, padded keys
      "bfloat16", None, 0),
     ("K6 flash_attention qwen3-14b groups G=5 (bf16, causal)", 1, 4096, 4096, 40, 8,
      "bfloat16", None, 0),
-    ("K6 flash_attention Mixtral window 4096 over 8192 (bf16)", 1, 8192, 8192, 32, 8,
+    ("K6 flash_attention Mixtral window 4096 over 8192 (bf16)", 2, 8192, 8192, 32, 8,
      "bfloat16", 4096, 0),
     ("K6 flash_attention ragged, padded keys (f32, causal)", 2, 1000, 1100, 32, 8,
      "float32", None, 37),
@@ -3970,7 +4138,7 @@ def k6_tile_classes(case, qp, kp) -> dict:
             "full": int((cls == fa_ref.FULL).sum())}
 
 
-def check_k6(lm, build) -> list[dict]:
+def check_k6(launches: int, build) -> list[dict]:
     """K6 at the LM's shapes against ``flash_attention_ref`` on the same
     card tensors (float32 products in full float32), within ``K6_LIMITS``.
     The plain version runs over K6's key tiles (``KEY_TILE``), so each
@@ -4052,7 +4220,7 @@ def check_k6(lm, build) -> list[dict]:
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                      "replaces": "src/repro/kernels/flash_attention/kernel.py:36",
-                     "launches": lm["launches"]["flash_attention"],
+                     "launches": launches,
                      "max_abs_err": errs["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      "library_ms": lib_ms,
@@ -4067,7 +4235,8 @@ def check_k6(lm, build) -> list[dict]:
                                "plain": f"flash_attention_ref(block_q=1024, "
                                         f"block_k={fa_k.KEY_TILE[dt]}), on the card, TF32 off",
                                "library": library,
-                               "launches_on": "llama3-8b prefill (phase lm)"}})
+                               "launches_on": "llama3-8b prefill (phase lm) and "
+                                              "mixtral-8x7b prefill (phase moe)"}})
         del q, k, v, ql, got, out
     return rows
 
@@ -4415,12 +4584,14 @@ def main(argv=None) -> int:
     build = phase_build()
     results = {"device": dev, "build": build}
     later = {"seed1": (args.scale, 1)}  # phase incremental's 10 % delta
-    if args.scale > DIST_SCALE:
-        later["distributed"] = (DIST_SCALE, 0)
+    for name, scale in (("distributed", DIST_SCALE), ("clugp", CLUGP_SCALE)):
+        if args.scale > scale:
+            later[name] = (scale, 0)
     graphs = make_graphs((args.scale, 0), later)
     graphs.setdefault("distributed", graphs["main"])
+    graphs.setdefault("clugp", graphs["main"])
     main_run = phase_main(args.scale, graphs["main"])
-    compare = phase_compare(main_run)
+    compare = phase_compare(main_run, graphs.pop("clugp"))
     t0 = time.perf_counter()
     parallel = phase_parallel(main_run)
     parallel["phase_s"] = time.perf_counter() - t0
@@ -4436,8 +4607,9 @@ def main(argv=None) -> int:
     hybrid = phase_hybrid(main_run)
     serve = phase_serve(args.products_scale)
     lm = phase_lm()
+    moe = phase_moe()
     recsys = phase_recsys()
-    summary, all_rows = phase_kernels(main_run, compare, serve, lm, recsys, build,
+    summary, all_rows = phase_kernels(main_run, compare, serve, lm, moe, recsys, build,
                                       incremental, elastic, hybrid)
     results.update(main=main_run["info"], compare=compare["rows"],
                    pagerank=compare["pagerank"], parallel=parallel, ooc=ooc,
@@ -4450,13 +4622,15 @@ def main(argv=None) -> int:
     for r in summary:  # the launches of phase distributed's worlds, all ranks
         r["launches_distributed"] = distributed["launches"].get(
             _COUNTERS.get(r["name"].split()[0]), 0)
-    results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], recsys=recsys["info"],
+    results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], moe=moe["info"],
+                   moe_f32_check=moe["f32_check"], recsys=recsys["info"],
                    distributed=distributed, kernels=all_rows,
                    total_s=time.perf_counter() - t_start)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1, default=str)
     emit({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in summary]})
+    emit({"phase": "total", "total_s": results["total_s"]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

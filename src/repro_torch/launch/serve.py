@@ -1,7 +1,9 @@
-"""Serving entry point of the port: batched greedy decoding of a dense LM,
-batched scoring of the recsys model, and live partition serving of a graph.
+"""Serving entry point of the port: batched greedy decoding of an LM (dense
+or Mixtral's MoE), batched scoring of the recsys model, and live partition
+serving of a graph.
 
   python -m repro_torch.launch.serve --arch llama3-8b --tokens 16 --device cpu
+  python -m repro_torch.launch.serve --arch mixtral-8x7b --tokens 32 --device cpu
   python -m repro_torch.launch.serve --arch llama3-8b --full --batch 4 --prompt-len 4096 --tokens 32
   python -m repro_torch.launch.serve --arch xdeepfm --device cpu
   python -m repro_torch.launch.serve --arch xdeepfm --full --batch 512
@@ -27,6 +29,7 @@ versions (:mod:`repro_torch.serving`).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -46,20 +49,27 @@ def _sync(dev) -> None:
 
 
 def serve_lm(arch: str, prompt_len: int = 32, gen_tokens: int = 16, batch: int = 2,
-             smoke: bool = True, seed: int = 0, device=None, stats: dict | None = None):
+             smoke: bool = True, seed: int = 0, device=None, stats: dict | None = None,
+             n_layers: int | None = None):
     """Greedy decoding of ``gen_tokens`` tokens after ``batch`` random
     prompts of ``prompt_len`` tokens; returns the (batch, gen_tokens) int32
     tokens.  Parameters and prompts come from ``PRNGKey(seed)`` as in the
     reference (``randint`` over the vocabulary for the prompts).
+    ``n_layers`` cuts the config's depth (default: the config's).
 
     With a ``stats`` dict the run also records, on the host clock around
     work that ends in a device synchronise: ``init_s``, ``prefill_s``,
     ``decode_s`` (one entry per decode step), the first and last logits
-    (``prefill_logits``, ``last_logits``) and, on the card, the peak device
-    memory after the parameters are drawn (``init_peak_bytes``)."""
+    (``prefill_logits``, ``last_logits``), on the card the peak device
+    memory after the parameters are drawn (``init_peak_bytes``), and for
+    an MoE model ``moe``: per layer of the prefill, the ``dropped``
+    assignments and each expert's ``load`` (assignments given it), per
+    batch row, read from the block's own routing."""
     dev = resolve_device(device)
     spec = get_arch(arch)
     cfg = spec.smoke_config if smoke else spec.config
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     key = jrandom.PRNGKey(seed)
     timed = stats is not None
     t0 = time.perf_counter()
@@ -72,9 +82,11 @@ def serve_lm(arch: str, prompt_len: int = 32, gen_tokens: int = 16, batch: int =
         if dev.type == "cuda":
             stats["init_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         stats["decode_s"] = []
+    routes = [] if timed and cfg.is_moe else None
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = LM.prefill(params, prompts, cfg, max_seq=max_seq, device=dev)
+        logits, cache = LM.prefill(params, prompts, cfg, max_seq=max_seq, device=dev,
+                                   routes=routes)
         toks = torch.argmax(logits, dim=-1)
         out = [toks]
         if timed:
@@ -95,6 +107,9 @@ def serve_lm(arch: str, prompt_len: int = 32, gen_tokens: int = 16, batch: int =
     dt = time.perf_counter() - t0
     if timed:
         stats["last_logits"] = logits
+        if routes is not None:
+            stats["moe"] = [{"dropped": (~r["keep"]).sum(dim=-1).tolist(),
+                             "load": r["load"].tolist()} for r in routes]
     print(f"[serve] {arch}: {batch}×{gen_tokens} tokens in {dt:.2f}s "
           f"({dt / gen_tokens * 1e3:.1f} ms/token)")
     return seqs

@@ -1,18 +1,19 @@
-"""Decoder-only LM, dense path: Llama-3 / Qwen2.5 / Qwen3 (port of
-``repro.models.lm``).
+"""Decoder-only LM: Llama-3 / Qwen2.5 / Qwen3 (dense) and Mixtral (MoE)
+(port of ``repro.models.lm``).
 
 One implementation parameterized by :class:`LMConfig`: GQA attention with
 RoPE, optional QKV bias (Qwen2.5), optional qk-norm (Qwen3), optional
-sliding window; a SwiGLU MLP.  Parameters are a dict with the reference's
-keys and stacked (L, …) leaves; a Python loop over layers takes the place of
-``lax.scan`` (``remat`` and the sharding constraints have no effect on one
-device).  The full-sequence attention of ``forward`` and ``prefill`` is
-:func:`.attention.flash_attention`, which on the card *is* K6; there is no
-switch to a plain version on the card.  ``use_flash_kernel`` stays for
-parity with the reference's config and is read nowhere, as there.
-
-Mixtral's MoE block (``n_experts > 0``) waits for the MoE slice.  Every
-entry point runs on ``device`` (default ``cuda``, raising without a card).
+sliding window; a SwiGLU MLP, or Mixtral's top-k MoE block with the
+reference's sort-based capacity dispatch (each batch row its own dispatch
+group; plain torch, as the reference's is plain ``jnp``).  Parameters are a
+dict with the reference's keys and stacked (L, …) leaves; a Python loop
+over layers takes the place of ``lax.scan`` (``remat`` and the sharding
+constraints have no effect on one device).  The full-sequence attention of
+``forward`` and ``prefill`` is :func:`.attention.flash_attention`, which on
+the card *is* K6; there is no switch to a plain version on the card.
+``use_flash_kernel`` stays for parity with the reference's config and is
+read nowhere, as there.  Every entry point runs on ``device`` (default
+``cuda``, raising without a card).
 """
 
 from __future__ import annotations
@@ -59,11 +60,6 @@ class LMConfig:
         return self.n_experts > 0
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("the MoE block (Mixtral) is ported with the MoE slice")
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -73,7 +69,6 @@ def init_params(cfg: LMConfig, key, device=None) -> dict:
     """The reference's parameter tree from the same key: each weight is a
     truncated-normal draw, made slice by slice into ``cfg.dtype`` on the
     device (``fan_in`` = the first axis, L for the stacked weights)."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     L, D, H, KV, hd, F_, V = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                               cfg.n_kv_heads, cfg.d_head, cfg.d_ff, cfg.vocab)
@@ -99,11 +94,20 @@ def init_params(cfg: LMConfig, key, device=None) -> dict:
     if cfg.qk_norm:
         attn["q_norm"] = full((L, hd), 1.0)
         attn["k_norm"] = full((L, hd), 1.0)
-    mlp = {
-        "w_gate": w(ks[5], L, D, F_),
-        "w_up": w(ks[6], L, D, F_),
-        "w_down": w(ks[7], L, F_, D),
-    }
+    if cfg.is_moe:
+        E = cfg.n_experts
+        mlp = {
+            "router": w(ks[4], L, D, E, scale=0.02),
+            "w_gate": w(ks[5], L, E, D, F_),
+            "w_up": w(ks[6], L, E, D, F_),
+            "w_down": w(ks[7], L, E, F_, D),
+        }
+    else:
+        mlp = {
+            "w_gate": w(ks[5], L, D, F_),
+            "w_up": w(ks[6], L, D, F_),
+            "w_down": w(ks[7], L, F_, D),
+        }
     return {
         "embed": w(ks[8], V, D, scale=0.02),
         "layers": {"attn": attn, "mlp": mlp, "ln1": full((L, D), 1.0),
@@ -159,6 +163,90 @@ def _rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# MoE (sort-based capacity dispatch: Mixtral top-2)
+# ---------------------------------------------------------------------------
+
+
+def _moe_block(x_bsd, mp, cfg: LMConfig, route: dict | None = None):
+    """x_bsd: (B, S, D) → (B, S, D), the aux load-balance loss averaged over
+    the rows.  Each batch row is its own dispatch group, as in the
+    reference (which ``vmap``s :func:`_moe_dispatch_group` over the rows):
+    capacity and drops are per row, never over the flattened batch."""
+    out, aux = _moe_dispatch_group(x_bsd, mp, cfg, route=route)
+    return out, aux.mean()
+
+
+def _moe_dispatch_group(x, mp, cfg: LMConfig, route: dict | None = None):
+    """One dispatch group ``x`` (T, D) → (T, D), aux; or a stack of groups
+    (G, T, D) → (G, T, D), (G,) aux, each routed on its own.
+
+    Within a group the tokens go to their top-K experts (ties to the lower
+    expert index, as ``lax.top_k``); the T·K assignments, in ``t·K + k``
+    order, are ranked within each expert by a stable sort, and each expert
+    serves the first ``cap = max(8, min(int(capacity_factor·K·T/E), T))``
+    of them: slot ``e·cap + pos``, or the sink ``E·cap`` (dropped, adds 0).
+    The experts run as (E, G·cap, D) × (E, D, F) products over the groups'
+    slots, and the outputs are scatter-added back with their gate weights
+    in x's type.  ``route``, a dict, receives the routing (in sorted order
+    where the reference's is): ``gate_w``, ``gate_e`` (…, T, K), ``order``,
+    ``slot``, ``keep`` (…, T·K) and ``load`` (…, E), the assignments each
+    expert was given."""
+    lead = x.shape[:-2]
+    xb = x.reshape(-1, *x.shape[-2:])
+    G, T, D = xb.shape
+    E, K = cfg.n_experts, cfg.top_k
+    cap = max(8, min(int(cfg.capacity_factor * K * T / E), T))
+    dev = x.device
+
+    logits = xb @ mp["router"].to(xb.dtype)  # (G, T, E)
+    probs = torch.softmax(logits.float(), dim=-1)
+    ranked, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_e = ranked[..., :K], experts[..., :K]
+    gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
+
+    # aux load-balance loss (Switch): E · Σ_e f_e · p_e
+    me = probs.mean(dim=1)
+    ce = F.one_hot(gate_e, E).float().sum(dim=2).mean(dim=1) / K
+    aux = E * (me * ce).sum(dim=-1)
+
+    # rank the assignments within each expert by a stable (expert, arrival) sort
+    flat_e = gate_e.reshape(G, T * K)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    e_sorted = flat_e.gather(1, order)
+    experts_e = torch.arange(E, device=dev).expand(G, E).contiguous()
+    starts = torch.searchsorted(e_sorted, experts_e)  # left side
+    pos_in_e = torch.arange(T * K, device=dev) - starts.gather(1, e_sorted)
+    keep = pos_in_e < cap
+    slot = torch.where(keep, e_sorted * cap + pos_in_e, E * cap)  # E·cap: the sink
+    tok = order // K  # the token of each sorted assignment
+
+    # dispatch: (G, E·cap + 1, D), the sink row last
+    gidx = torch.arange(G, device=dev)[:, None]
+    buf = xb.new_zeros((G, E * cap + 1, D))
+    buf[gidx, slot] = xb[gidx, tok]
+    xe = buf[:, :E * cap].reshape(G, E, cap, D).transpose(0, 1).reshape(E, G * cap, D)
+    del buf
+    # the experts' products over every group's slots at once
+    h = torch.bmm(xe, mp["w_gate"])
+    h = F.silu(h).mul_(torch.bmm(xe, mp["w_up"]))
+    del xe
+    ye = torch.bmm(h, mp["w_down"])
+    del h
+    yflat = ye.reshape(E, G, cap, D).transpose(0, 1).reshape(G, E * cap, D)
+    # combine: a weighted scatter-add back to the tokens, in x's type
+    contrib = torch.where(keep[..., None], yflat[gidx, slot.clamp(max=E * cap - 1)], 0)
+    w = gate_w.reshape(G, T * K).gather(1, order).to(xb.dtype)
+    out = xb.new_zeros((G * T, D))
+    out.index_add_(0, (gidx * T + tok).reshape(-1), (contrib * w[..., None]).reshape(-1, D))
+    if route is not None:
+        counts = torch.diff(starts, dim=1, append=torch.full((G, 1), T * K, device=dev))
+        for name, v in (("gate_w", gate_w), ("gate_e", gate_e), ("order", order),
+                        ("slot", slot), ("keep", keep), ("load", counts)):
+            route[name] = v.reshape(*lead, *v.shape[1:])
+    return out.reshape(x.shape), aux.reshape(lead)
+
+
 def _attention_block(x, ap, cfg: LMConfig, positions, layer_cache=None):
     """Full sequence when ``layer_cache`` is None (returns this layer's k, v);
     else one-token decode, writing the token into the layer's cache in place
@@ -201,13 +289,20 @@ def _attention_block(x, ap, cfg: LMConfig, positions, layer_cache=None):
     return out, new_cache
 
 
-def _layer(x, lp, cfg: LMConfig, positions, layer_cache=None):
+def _layer(x, lp, cfg: LMConfig, positions, layer_cache=None, route=None):
+    """One layer: (x, aux, cache); aux is the MoE block's (0 for the dense
+    MLP), ``route`` receives its routing (see :func:`_moe_dispatch_group`)."""
     h, new_cache = _attention_block(rms_norm(x, lp["ln1"]), lp["attn"], cfg, positions,
                                     layer_cache=layer_cache)
     x = x + h
     y = rms_norm(x, lp["ln2"])
-    hmid = F.silu(y @ lp["mlp"]["w_gate"]) * (y @ lp["mlp"]["w_up"])
-    return x + hmid @ lp["mlp"]["w_down"], new_cache
+    if cfg.is_moe:
+        out, aux = _moe_block(y, lp["mlp"], cfg, route=route)
+    else:
+        hmid = F.silu(y @ lp["mlp"]["w_gate"]) * (y @ lp["mlp"]["w_up"])
+        out = hmid @ lp["mlp"]["w_down"]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux, new_cache
 
 
 def _layer_params(params, i: int) -> dict:
@@ -235,8 +330,9 @@ def _check_params(params, dev) -> None:
 
 
 def forward(params, tokens, cfg: LMConfig, positions=None, device=None):
-    """Prefill forward: (B, S) → logits (B, S, V), aux (0 for the dense MLP)."""
-    _dense_only(cfg)
+    """Prefill forward: (B, S) → logits (B, S, V), and aux: the layers' MoE
+    load-balance losses summed over the layers / ``n_layers`` (0 for the
+    dense MLP)."""
     dev = resolve_device(device)
     _check_params(params, dev)
     tokens = _tokens(tokens, dev)
@@ -245,10 +341,12 @@ def forward(params, tokens, cfg: LMConfig, positions=None, device=None):
         positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
     positions = _tokens(positions, dev).to(torch.int32)
     x = _embed(params, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(cfg.n_layers):
-        x, _ = _layer(x, _layer_params(params, i), cfg, positions)
+        x, a, _ = _layer(x, _layer_params(params, i), cfg, positions)
+        aux = aux + a
     x = rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"], torch.zeros((), dtype=torch.float32, device=dev)
+    return x @ params["lm_head"], aux / cfg.n_layers
 
 
 def loss_fn(params, batch, cfg: LMConfig, device=None):
@@ -278,13 +376,15 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int, device=None) -> dict:
     }
 
 
-def prefill(params, tokens, cfg: LMConfig, max_seq: int, device=None):
+def prefill(params, tokens, cfg: LMConfig, max_seq: int, device=None,
+            routes: list | None = None):
     """Forward the prompt, returning last-position logits and a filled cache.
 
     Each layer's trailing window of k and v is written into the rolling
     cache (slot ``position % W``) as the layer runs, so the (L, B, S, …)
-    stack of the reference is never held whole; the values are the same."""
-    _dense_only(cfg)
+    stack of the reference is never held whole; the values are the same.
+    ``routes``, a list, receives each MoE layer's routing as a dict (see
+    :func:`_moe_dispatch_group`)."""
     dev = resolve_device(device)
     _check_params(params, dev)
     tokens = _tokens(tokens, dev)
@@ -297,7 +397,10 @@ def prefill(params, tokens, cfg: LMConfig, max_seq: int, device=None):
     slots = (positions[0, sl] % W).long()  # the same for every row
     x = _embed(params, tokens, cfg)
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer(x, _layer_params(params, i), cfg, positions)
+        route = {} if routes is not None and cfg.is_moe else None
+        x, _, (k, v) = _layer(x, _layer_params(params, i), cfg, positions, route=route)
+        if route is not None:
+            routes.append(route)
         cache["k"][i][:, slots] = k[:, sl]
         cache["v"][i][:, slots] = v[:, sl]
         cache["pos"][i][:, slots] = positions[:, sl]
@@ -311,7 +414,6 @@ def decode_step(params, cache, tokens, pos, cfg: LMConfig, device=None):
 
     The token's k, v and position are written into ``cache`` in place (the
     rolling slot ``pos % W``); the returned cache is the same dict."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     _check_params(params, dev)
     tokens = _tokens(tokens, dev)
@@ -319,6 +421,6 @@ def decode_step(params, cache, tokens, pos, cfg: LMConfig, device=None):
     x = _embed(params, tokens[:, None], cfg)
     for i in range(cfg.n_layers):
         layer_cache = (cache["k"][i], cache["v"][i], cache["pos"][i])
-        x, _ = _layer(x, _layer_params(params, i), cfg, positions, layer_cache=layer_cache)
+        x, _, _ = _layer(x, _layer_params(params, i), cfg, positions, layer_cache=layer_cache)
     x = rms_norm(x, params["final_norm"])
     return x[:, 0] @ params["lm_head"], cache

@@ -3,9 +3,10 @@
 Covers ``PRNGKey``, ``fold_in``, ``split``, ``uniform``, ``randint``,
 ``normal`` and ``truncated_normal`` of the threefry-2x32 implementation in
 the ``jax_threefry_partitionable=True`` mode (JAX 0.9's default), where
-element ``i`` of a draw of shape ``s`` is ``threefry2x32(key, (hi(i),
-lo(i)))`` of the flat index ``i`` — so any slice of a draw can be computed
-on its own: :func:`random_bits` takes a flat-index range ``[start, stop)``
+element ``i`` of a draw of shape ``s`` is ``threefry2x32(key, (i >> 32,
+i & 0xFFFFFFFF))`` of the flat index ``i`` (draws of up to 2^64
+elements) — so any slice of a draw can be computed on its own:
+:func:`random_bits` takes a flat-index range ``[start, stop)``
 and :func:`truncated_normal` can fill a preallocated output slice by slice,
 bitwise equal to the whole draw (a draw of 10^9 elements would otherwise
 keep several int64 arrays of that size alive at once).
@@ -122,8 +123,7 @@ def bits_at(k0, k1, n: int, idx):
     k1)``, in the current mode; ``idx`` (and the key words) may be Python
     ints or int64 tensors."""
     if partitionable():
-        y0, y1 = threefry2x32(k0, k1, 0, idx)
-        return y0 ^ y1
+        return _hashed(k0, k1, idx >> 32, idx & M32)
     if n > 2**32 - 1:  # the reference splits such draws into blocks
         raise NotImplementedError("draws of 2**32 - 1 elements or more")
     m = (n + 1) // 2
@@ -140,10 +140,18 @@ def bits_at(k0, k1, n: int, idx):
     return torch.where(lo, y0, y1)
 
 
+def _hashed(k0, k1, hi, lo):
+    """The partitionable mode's word for the counter pair ``(hi, lo)``."""
+    y0, y1 = threefry2x32(k0, k1, hi, lo)
+    return y0 ^ y1
+
+
 def _counters(start: int, stop: int, device):
-    if stop > 2**32:
-        raise NotImplementedError("draws of more than 2**32 elements")
-    return torch.arange(start, stop, dtype=torch.int64, device=device)
+    """The flat indices ``[start, stop)`` as their ``(hi, lo)`` 32-bit
+    words, without an index past int64 (``stop`` may reach 2**64)."""
+    base_lo = start & M32
+    lo = torch.arange(base_lo, base_lo + stop - start, dtype=torch.int64, device=device)
+    return (start >> 32) + (lo >> 32), lo & M32
 
 
 def random_bits(key, shape, device="cpu", start: int = 0,
@@ -155,11 +163,17 @@ def random_bits(key, shape, device="cpu", start: int = 0,
     alone, so the slice is bitwise the whole draw's ``reshape(-1)[start:stop]``.
     """
     n = math.prod(shape)
+    if n > 2**64:  # as JAX
+        raise NotImplementedError("random bits array of size exceeding 2 ** 64")
     whole = start == 0 and stop is None
     stop = n if stop is None else stop
     if not 0 <= start <= stop <= n:
         raise ValueError(f"range [{start}, {stop}) outside a draw of {n} elements")
-    bits = bits_at(key[0], key[1], n, _counters(start, stop, device))
+    if partitionable():
+        bits = _hashed(key[0], key[1], *_counters(start, stop, device))
+    else:
+        idx = torch.arange(start, stop, dtype=torch.int64, device=device)
+        bits = bits_at(key[0], key[1], n, idx)
     return bits.reshape(shape) if whole else bits
 
 
@@ -222,6 +236,7 @@ def truncated_normal(key, lower: float, upper: float, shape, device="cpu", *,
 
 
 def _truncated_normal_slice(key, lower, upper, shape, device, start, stop, scale):
+    """The flat elements ``[start, stop)`` of the draw (see :func:`random_bits`)."""
     lower32 = torch.tensor(lower, dtype=torch.float32)
     upper32 = torch.tensor(upper, dtype=torch.float32)
     a = torch.erf(lower32 / _SQRT2)

@@ -27,7 +27,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.configs.gcn_cora", "repro_torch.models.lm",
             "repro_torch.models.attention", "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.flash_attention.kernel", "repro_torch.launch.serve",
-            "repro_torch.configs.llama3_8b", "repro_torch.models.recsys",
+            "repro_torch.configs.llama3_8b", "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.mixtral_8x22b", "repro_torch.models.recsys",
             "repro_torch.kernels.cin.kernel", "repro_torch.kernels.cin.ops",
             "repro_torch.kernels.cin.ref", "repro_torch.configs.xdeepfm",
             "repro_torch.streaming.oocstream", "repro_torch.streaming.window",

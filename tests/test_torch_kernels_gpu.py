@@ -921,6 +921,46 @@ def test_lm_prefill_and_decode_cuda_equal_cpu(cuda, highest_f32, arch):
     torch.testing.assert_close(got2.cpu(), want2, rtol=1e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mixtral-8x22b"])
+def test_moe_prefill_and_decode_cuda_equal_cpu(cuda, highest_f32, arch):
+    """Mixtral's smoke configs in float32, prompts of 40 tokens past the
+    32-token window: the prefill (K6 once a layer) and two decode steps on
+    cuda against cpu, each MoE layer's routing (``gate_e``, slots, ``keep``,
+    loads) bitwise and the logits within atol 2e-3, rtol 1e-3."""
+    import dataclasses
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import launch_counts
+    from repro_torch.models import lm as LM
+
+    cfg = dataclasses.replace(get_arch(arch).smoke_config, dtype=torch.float32)
+    params = LM.init_params(cfg, trandom.PRNGKey(0), device="cpu")
+    toks = trandom.randint(trandom.PRNGKey(1), (2, 40), 0, cfg.vocab)
+    want_routes, got_routes = [], []
+    want, cache = LM.prefill(params, toks, cfg, max_seq=48, device="cpu", routes=want_routes)
+    gparams = _to(params, cuda)
+    before = launch_counts()["flash_attention"]
+    got, gcache = LM.prefill(gparams, toks.to(cuda), cfg, max_seq=48, device=cuda,
+                             routes=got_routes)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + cfg.n_layers
+    assert len(got_routes) == len(want_routes) == cfg.n_layers
+    for g, w in zip(got_routes, want_routes):
+        for name in ("gate_e", "order", "slot", "keep", "load"):
+            assert torch.equal(g[name].cpu(), w[name]), name
+    assert any(bool((~w["keep"]).any()) for w in want_routes)  # capacity binds
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=2e-3)
+    nxt = torch.argmax(want, -1).to(torch.int32)
+    for i in (40, 41):
+        pos = torch.full((2,), i, dtype=torch.int32)
+        want, cache = LM.decode_step(params, cache, nxt, pos, cfg, device="cpu")
+        got, gcache = LM.decode_step(gparams, gcache, nxt.to(cuda), pos.to(cuda), cfg,
+                                     device=cuda)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=2e-3)
+        nxt = torch.argmax(want, -1).to(torch.int32)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

@@ -123,15 +123,7 @@ def test_configs_are_the_references():
         assert LM.model_flops(ours.config, 4096, False) == JLM.model_flops(ref.config, 4096, False)
     assert LM.count_params(get_arch("llama3-8b").config) == 8_030_261_248
     with pytest.raises(KeyError):
-        get_arch("mixtral-8x7b")
-
-
-def test_moe_waits_for_its_slice():
-    cfg = dataclasses.replace(get_arch("llama3-8b").smoke_config, n_experts=4)
-    assert LM.active_params(cfg) == JLM.active_params(
-        dataclasses.replace(jget_arch("llama3-8b").smoke_config, n_experts=4))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        LM.init_params(cfg, trandom.PRNGKey(0), device="cpu")
+        get_arch("schnet")  # an architecture the port has not taken over yet
 
 
 # ---------------------------------------------------------- the parameters

@@ -66,3 +66,66 @@ def test_randint(seed, lo, hi, n):
     want = np.asarray(jax.random.randint(key, (n,), lo, hi, dtype=jnp.int32))
     got = trandom.randint(_key(key), (n,), lo, hi).numpy()
     np.testing.assert_array_equal(want, got)
+
+
+# ------------------------------------------------- draws past 2**32 elements
+
+
+def _threefry_words(key, hi: int, lo):
+    """JAX's partitionable word for the counter pairs ``(hi, lo)``: its
+    threefry primitive, hashed as ``_threefry_random_bits_partitionable``
+    hashes the flat index ``hi·2**32 + lo``."""
+    from jax._src import prng
+
+    b1, b2 = prng.threefry2x32_p.bind(np.uint32(key[0]), np.uint32(key[1]),
+                                      np.full(lo.shape, hi, np.uint32), lo.astype(np.uint32))
+    return np.asarray(b1 ^ b2).astype(np.int64)
+
+
+@pytest.mark.parametrize("hi", [1, 3, 2**32 - 1])
+@pytest.mark.parametrize("seed", [0, 42])
+def test_bits_at_past_2_32_is_jaxs_counter_pair(seed, hi):
+    import torch
+
+    key = trandom.fold_in(trandom.PRNGKey(seed), 7)
+    j = np.arange(0, 4096, 37, dtype=np.int64)
+    want = _threefry_words(key, hi, j)
+    n = 2**64
+    if hi < 2**31:  # int64 indices
+        got = trandom.bits_at(key[0], key[1], n, torch.from_numpy(j) + hi * 2**32)
+        assert np.array_equal(got.numpy(), want)
+    assert [trandom.bits_at(key[0], key[1], n, hi * 2**32 + int(i)) for i in j[:5]] == \
+        want[:5].tolist()
+    sl = trandom.random_bits(key, (2**32, 2**32), "cpu", hi * 2**32, hi * 2**32 + 4096)
+    assert np.array_equal(sl.numpy()[j], want)
+
+
+def test_random_bits_range_straddles_2_32():
+    key = trandom.PRNGKey(3)
+    shape = (5, 2**31)
+    got = trandom.random_bits(key, shape, "cpu", 2**32 - 6, 2**32 + 6).numpy()
+    lo = np.arange(2**32 - 6, 2**32 + 6, dtype=np.int64)
+    want = np.concatenate([_threefry_words(key, 0, lo[:6]), _threefry_words(key, 1, lo[6:] - 2**32)])
+    assert np.array_equal(got, want)
+    with pytest.raises(NotImplementedError, match="2 \\*\\* 64"):
+        trandom.random_bits(key, (2**33, 2**32), "cpu", 0, 1)
+
+
+def test_truncated_normal_slice_straddling_2_32_is_its_halves():
+    import torch
+
+    key = trandom.fold_in(trandom.PRNGKey(1), 2)
+    shape = (3, 2**31)  # 3·2**31 elements
+    a, mid, b = 2**32 - 1000, 2**32, 2**32 + 777
+
+    def draw(start, stop):  # the slice truncated_normal(out=...) fills
+        return trandom._truncated_normal_slice(key, -2.0, 2.0, shape, "cpu", start, stop, None)
+
+    whole = draw(a, b)
+    assert whole.shape == (b - a,) and torch.equal(whole, torch.cat([draw(a, mid), draw(mid, b)]))
+    assert bool(((whole > -2.0) & (whole < 2.0)).all())
+
+
+def test_non_partitionable_mode_still_refuses_2_32():
+    with trandom.threefry_partitionable(False), pytest.raises(NotImplementedError):
+        trandom.random_bits(trandom.PRNGKey(0), (2**32,), "cpu", 0, 4)
