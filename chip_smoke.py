@@ -145,6 +145,21 @@ Phases, each printing one JSON line:
               on ``device="cpu"`` (rtol 1e-4, atol 1e-5: only ``x @ W``
               differs); one line each for the graph, S5P, GAS, latency,
               GCN and device numbers;
+6b. gnn3d   — SchNet, EGNN and DimeNet at their published configs
+              (``phase_gnn3d``): ``molecule`` (``molecule_batch(128, 30, 64,
+              seed=0)``, V 4,096, E 8,192, T 32,768), ``minibatch_lg`` (one
+              15-10 ``NeighborSampler`` batch of 1,024 seeds from
+              ``build_csr`` of phase serve's graph on the card: V 169,984, E
+              168,960, T 337,920) and ``ogb_products`` (phase serve's whole
+              graph; SchNet and EGNN), each call with the launch counters
+              set to 0 just before and read just after: forward and loss
+              seconds, loss and MAE, peak memory, K5 launches against the
+              models' stated counts, and at the first two shapes the card's
+              energies against the CPU forward (per node at
+              ``minibatch_lg``) within ``GNN3D_TOL``; phase ``kernels`` then
+              adds K5's identity-source message sums at ``minibatch_lg`` (d
+              = 64, 128 twice, 3) and at ``ogb_products`` (d = 64, the plain
+              check over its first ``K5_SLICE_ROWS`` rows);
 7. kernels  — each kernel's wrapper on card tensors at the main path's
               shapes against its plain PyTorch version on the same inputs:
               K1–K5 bitwise equal (tolerance 0), K6 within the tolerance
@@ -2794,7 +2809,7 @@ _COUNTERS = {"K1": "cluster_scan", "K2": "assign_scan", "K3": "scoring_scan",
              "K6": "flash_attention", "K7": "cin"}
 
 
-def phase_kernels(main, compare, serve, lm, moe, recsys, build, incremental,
+def phase_kernels(main, compare, serve, gnn3d, lm, moe, recsys, build, incremental,
                   elastic, hybrid) -> list[dict]:
     from repro_torch.kernels.stream_scan.latency import measure_round_trips
 
@@ -2806,22 +2821,24 @@ def phase_kernels(main, compare, serve, lm, moe, recsys, build, incremental,
     cms = check_cms(main, serve, incremental)
     k3_g1, k3_extra = check_k3_g1(main, compare, rt)
     k5 = check_k5(serve)
+    k5_gnn3d = check_k5_gnn3d(serve, gnn3d)
     k6 = check_k6(lm["launches"]["flash_attention"] + moe["launches"]["flash_attention"],
                   build)
     k7 = check_k7(recsys, build)
-    rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k6, *k7]
+    rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k5_gnn3d, *k6, *k7]
     _check_rows(rows)
     main_k2 = k2[1]  # the main path's middle chunk
     main_k4 = [r for r in cms if r["name"] in ("K4a cms_update", "K4b cms_query")
                or "negative counts" in r["name"]]
-    summary = [k1[0], main_k2, *main_k4, *k3_g1, *k5, k6[0], k7[1]]
+    summary = [k1[0], main_k2, *main_k4, *k3_g1, *k5, *k5_gnn3d, k6[0], k7[1]]
     for r in summary:  # a latency bound for the serial scans, none for the rest
         r.setdefault("latency_bound_ms", None)
-        # the launches of phases incremental's, elastic's and hybrid's
-        # paths (K3: inserts, and retracts apart)
+        # the launches of phases incremental's, elastic's, hybrid's and
+        # gnn3d's paths (K3: inserts, and retracts apart)
         for phase, totals in (("incremental", incremental["launches"]),
                               ("elastic", elastic["launches"]),
-                              ("hybrid", hybrid["launches"])):
+                              ("hybrid", hybrid["launches"]),
+                              ("gnn3d", gnn3d["launches"])):
             r[f"launches_{phase}"] = totals.get(_COUNTERS.get(r["name"].split()[0]), 0)
             if r["name"].startswith("K3"):
                 r[f"launches_{phase}_retract"] = totals.get("scoring_retract", 0)
@@ -3046,7 +3063,6 @@ def check_k5(serve) -> list[dict]:
     """K5 at the serve phase's shapes against the plain version on the CPU."""
     import torch
 
-    from repro_torch.kernels.segment_agg import kernel_attributes, segment_agg
     from repro_torch.models.gnn import gcn_layer, gcn_norm
 
     bundle, params, feats = serve["bundle"], serve["params"], serve["feats"]
@@ -3055,64 +3071,337 @@ def check_k5(serve) -> list[dict]:
     lay = norm.fwd  # the forward direction's layout, the GCN's weights
     x1 = feats @ params["layers"][0]["w"]
     x2 = torch.relu(gcn_layer(x1, norm)) @ params["layers"][1]["w"]
-    E = int(lay.src.numel())
     unit = lay.with_weights(torch.ones(lay.n_edges, device="cuda"))
     cases = [("K5 segment_agg degrees (d=1, f32)", torch.ones(n, 1, device="cuda"), unit),
              ("K5 segment_agg layer 1 (d=16, f32)", x1, lay),
              ("K5 segment_agg layer 2 (d=7, f32)", x2, lay),
              ("K5 segment_agg features (d=100, bf16)", feats.to(torch.bfloat16), lay)]
+    return [_k5_row(name, x, layout, serve["launches"]["segment_agg"])
+            for name, x, layout in cases]
+
+
+def _k5_row(name, x, layout, launches: int, plain_rows: int | None = None) -> dict:
+    """K5 on ``x`` over ``layout`` against the plain version on the CPU over
+    the layout's first ``plain_rows`` rows (all by default; a slice is fed
+    its rows' inputs gathered in layout order, the same products in the
+    same order): bits, time, the bound and ``torch.sparse.mm`` on the same
+    CSR (bf16 weights for bf16 ``x``)."""
+    import torch
+
+    from repro_torch.kernels.segment_agg import kernel_attributes, segment_agg, segment_agg_ref
+
+    x = x.contiguous()
+    n_rows, E, n_src = layout.n_rows, int(layout.src.numel()), int(x.shape[0])
+    d, esize = int(x.shape[1]), x.element_size()
+    n_long = int(layout.long_rows.numel())
+    flags = torch.zeros(n_long, dtype=torch.int32, device=x.device)
+    segment_agg(x, layout, tree_flags=flags)
+    ms = cuda_time_ms(lambda: segment_agg(x, layout), reps=5)
+    got = segment_agg(x, layout)
+    torch.cuda.synchronize()
+    R = n_rows if plain_rows is None else min(plain_rows, n_rows)
+    cnt = int(layout.row_ptr[R])
+    if R == n_rows:
+        x_in, ids = x.cpu(), layout.src.cpu()
+    else:  # only the rows' inputs, gathered in layout order
+        x_in, ids = x[layout.src[:cnt].long()].cpu(), torch.arange(cnt, dtype=torch.int32)
+    dst, w = layout.dst[:cnt].cpu(), layout.w[:cnt].cpu()
+    want = {}
+    plain_ms = host_time_ms(lambda: want.__setitem__("out", segment_agg_ref(x_in, ids, dst, w,
+                                                                            R)))
+    g, w_out = got[:R].cpu(), want["out"]
+    if g.shape != w_out.shape or g.dtype != w_out.dtype:
+        raise SystemExit(f"chip_smoke: K5 gave {g.shape} {g.dtype}, not {w_out.shape} "
+                         f"{w_out.dtype}")
+    err = float((g.float() - w_out.float()).abs().max()) if g.numel() else 0.0
+    bits = torch.int32 if g.dtype == torch.float32 else torch.int16
+    bitwise = torch.equal(g.view(bits), w_out.view(bits))
+    # each input read once, each output written once
+    n_bytes = 8 * E + 8 * (n_rows + 1) + n_src * d * esize + n_rows * d * esize
+    b, by = bound_ms(n_bytes, 2 * E * d)
+    # no reuse of gathered rows: each costs at least one 32-byte sector
+    sectors = -(-d * esize // 32) * 32
+    no_reuse, _ = bound_ms(8 * E + 8 * (n_rows + 1) + E * sectors + n_rows * d * esize, 0)
+    csr = torch.sparse_csr_tensor(layout.row_ptr, layout.src.long(), layout.w.to(x.dtype),
+                                  size=(n_rows, n_src))
+    lib_ms, lib_error = None, None
+    try:
+        lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, x), reps=5)
+    except RuntimeError as e:  # a yardstick only: record why there is none
+        lib_error = str(e).splitlines()[0]
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/segment_agg/csrc/segment_agg.cu",
+            "replaces": "src/repro/kernels/segment_agg/kernel.py:61",
+            "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": lib_ms,
+            "shape": {"rows": n_rows, "V": n_src, "d": d, "dtype": str(x.dtype),
+                      "bitwise": bitwise, "edges": E, "plain_rows": R, "plain_edges": cnt,
+                      "max_row": int(layout.row_ptr.diff().max()),
+                      "long_row_edges": layout.long_row_edges, "n_long": n_long,
+                      "tree_rows": int(flags.sum()), "kernel": kernel_attributes(x),
+                      "no_reuse_bound_ms": no_reuse,
+                      "library": "torch.sparse.mm(CSR of the weights, x)",
+                      "library_error": lib_error}}
+
+
+# ------------------------------------------------------------- phase gnn3d
+
+GNN3D_MODELS = ("schnet", "egnn", "dimenet")
+# the card's energies against the port's CPU forward (plain K5): |Δ| over
+# the largest |energy|; the matmuls sum in other orders, exp/cos/softplus
+# differ by an ulp
+GNN3D_TOL = 1e-4
+K5_SLICE_ROWS = 1 << 16  # the ogb_products K5 row's plain check: its first rows
+F32_SQRT_MAX = 1.8446743e19  # ~√(float32 max): a larger error's square is inf
+
+
+def _pad512(n: int) -> int:
+    """``launch/cells.py``'s padding of a GNN batch's counts."""
+    return -(-n // 512) * 512
+
+
+def _molecule_inputs() -> dict:
+    """``molecule_batch(128, 30, 64, seed=0)`` flattened with ``graph_idx``
+    and padded as the reference's molecule cell pads it: V 4,096, E 8,192,
+    T = 4E from ``build_triplets``; masks on the padding."""
+    import numpy as np
+
+    from repro_torch.graphs import molecule_batch
+    from repro_torch.models.gnn import build_triplets
+
+    B, N, Em = 128, 30, 64
+    mb = molecule_batch(B, N, Em, seed=0)
+    V, E = _pad512(B * N), _pad512(B * Em)
+    off = (np.arange(B) * N)[:, None]
+    pos = np.zeros((V, 3), np.float32)
+    pos[:B * N] = mb.positions.reshape(-1, 3)
+    species = np.zeros(V, np.int32)
+    species[:B * N] = mb.species.reshape(-1)
+    es, ed = np.zeros(E, np.int32), np.zeros(E, np.int32)
+    es[:B * Em], ed[:B * Em] = (mb.edge_src + off).reshape(-1), (mb.edge_dst + off).reshape(-1)
+    graph_idx = np.zeros(V, np.int32)
+    graph_idx[:B * N] = np.repeat(np.arange(B), N)
+    kj, ji, tm = build_triplets(es, ed, 4 * E)
+    return {"species": species, "positions": pos, "edge_src": es, "edge_dst": ed,
+            "edge_mask": (np.arange(E) < B * Em).astype(np.float32),
+            "node_mask": (np.arange(V) < B * N).astype(np.float32),
+            "graph_idx": graph_idx, "n_graphs": B, "targets": mb.energies,
+            "tri_kj": kj, "tri_ji": ji, "tri_mask": tm}
+
+
+def _minibatch_inputs(sub, pos_all, species_all) -> dict:
+    """One ``NeighborSampler`` batch as the reference's ``minibatch_lg``
+    cell shapes it (no ``graph_idx``: one energy, target 0), T = 2E."""
+    import numpy as np
+
+    from repro_torch.models.gnn import build_triplets
+
+    E = sub.edge_src.size
+    kj, ji, tm = build_triplets(sub.edge_src, sub.edge_dst, 2 * E)
+    return {"species": species_all[sub.nodes], "positions": pos_all[sub.nodes],
+            "edge_src": sub.edge_src, "edge_dst": sub.edge_dst,
+            "edge_mask": sub.edge_mask.astype(np.float32),
+            "node_mask": sub.node_mask.astype(np.float32),
+            "targets": np.zeros(1, np.float32), "tri_kj": kj, "tri_ji": ji, "tri_mask": tm}
+
+
+def _to_device(batch: dict, dev) -> dict:
+    import torch
+
+    return {k: v if isinstance(v, int) else torch.as_tensor(v).to(dev)
+            for k, v in batch.items()}
+
+
+def _gnn3d_forward(name, params, b, cfg, dev, per_node: bool = False):
+    """The model's forward on batch ``b`` (the loss's arguments); with
+    ``per_node`` each node its own graph, so the result is ``e_atom``."""
+    import torch
+
+    from repro_torch.models import gnn
+
+    V = int(b["species"].shape[0])
+    kw = {"edge_mask": b.get("edge_mask"), "node_mask": b.get("node_mask"),
+          "graph_idx": b.get("graph_idx"), "n_graphs": b.get("n_graphs", 1), "device": dev}
+    if per_node:
+        kw.update(graph_idx=torch.arange(V, dtype=torch.int32, device=dev), n_graphs=V)
+    args = (params, b["species"], b["positions"], b["edge_src"], b["edge_dst"])
+    if name == "dimenet":
+        return gnn.dimenet_forward(*args, b["tri_kj"], b["tri_ji"], V, cfg,
+                                   tri_mask=b.get("tri_mask"), **kw)
+    fwd = gnn.schnet_forward if name == "schnet" else gnn.egnn_forward
+    return fwd(*args, V, cfg, **kw)
+
+
+def _gnn3d_k5_want(name, cfg, pooled: bool) -> int:
+    """K5 launches a forward: the models' docstrings' counts."""
+    if name == "schnet":
+        n = cfg.n_interactions
+    elif name == "egnn":
+        n = 1 + 2 * cfg.n_layers
+    else:
+        n = 2 * cfg.n_blocks
+    return n + int(pooled)
+
+
+def phase_gnn3d(serve) -> dict:
+    """SchNet, EGNN and DimeNet at their published configs (float32, seed 0)
+    at three of ``GNN_SHAPES``, each call with the launch counters set to 0
+    just before and read just after: ``molecule`` (``_molecule_inputs``),
+    ``minibatch_lg`` (one ``NeighborSampler(build_csr(products), (15, 10),
+    1,024, seed=0)`` batch of phase ``serve``'s graph: a cut, the shape's
+    own graph is Reddit-sized; positions (standard normal, as the
+    reference's cell draws them) and species in [0, 10) drawn from seed 0
+    for every global vertex) and ``ogb_products`` (the whole
+    graph, SchNet and EGNN: DimeNet's 2E triplets need ~70 GB for two
+    (T, 128) tensors alone).  For each: the forward's seconds and the
+    loss's (host clock ending in a synchronise), the loss and MAE, peak
+    memory, K5 launches against ``_gnn3d_k5_want``, the energies finite
+    (and the loss, unless an error's square passes float32's range, as
+    EGNN's does over the graph's 392,195-edge hub), and at the first two
+    shapes the greatest |Δ| from the port's CPU forward (plain K5) over the
+    largest |value| (per node at ``minibatch_lg``), within
+    :data:`GNN3D_TOL`."""
+    import numpy as np
+    import torch
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.graphs import NeighborSampler, build_csr
+    from repro_torch.models import gnn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    bundle = serve["bundle"]
+    n = bundle.n_vertices
+    problems, runs, k5_total, data_s = [], [], 0, {}
+
+    t0 = time.perf_counter()
+    mol = _molecule_inputs()
+    data_s["molecule"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = build_csr(bundle.edge_src, bundle.edge_dst, n, device=dev)
+    data_s["build_csr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(csr, (15, 10), 1024, seed=0)
+    sub = sampler.sample()
+    data_s["sample"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    pos_all = rng.standard_normal((n, 3)).astype(np.float32)
+    species_all = rng.integers(0, 10, n).astype(np.int32)
+    mini = _minibatch_inputs(sub, pos_all, species_all)
+    data_s["positions_and_triplets"] = time.perf_counter() - t0
+    if (sampler.max_nodes, sampler.max_edges) != (_pad512(169_984), _pad512(168_960)):
+        problems.append(f"minibatch_lg budget {sampler.max_nodes}, {sampler.max_edges}")
+    products = {"species": torch.from_numpy(species_all).to(dev),
+                "positions": torch.from_numpy(pos_all).to(dev),
+                "edge_src": bundle.edge_src, "edge_dst": bundle.edge_dst,
+                "targets": torch.zeros(1, device=dev)}
+    shapes = (("molecule", mol, GNN3D_MODELS, "graph"),
+              ("minibatch_lg", mini, GNN3D_MODELS, "node"),
+              ("ogb_products", products, ("schnet", "egnn"), None))
+    losses = {"schnet": gnn.schnet_loss, "egnn": gnn.egnn_loss, "dimenet": gnn.dimenet_loss}
+    for shape, batch, models, check in shapes:
+        b_dev = _to_device(batch, dev)
+        b_cpu = _to_device(batch, "cpu") if check else None
+        for name in models:
+            cfg = get_arch(name).config
+            params = {"schnet": gnn.schnet_init, "egnn": gnn.egnn_init,
+                      "dimenet": gnn.dimenet_init}[name](cfg, trandom.PRNGKey(0), device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            pred = _gnn3d_forward(name, params, b_dev, cfg, dev)
+            torch.cuda.synchronize()
+            forward_s = time.perf_counter() - t0
+            k5_fwd = launch_counts()["segment_agg"]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, aux = losses[name](params, b_dev, cfg, device=dev)
+            loss_v, mae = float(loss), float(aux["mae"])
+            loss_s = time.perf_counter() - t0
+            k5_loss = launch_counts()["segment_agg"]
+            peak = torch.cuda.max_memory_allocated()
+            k5_total += k5_fwd + k5_loss
+            want_k5 = _gnn3d_k5_want(name, cfg, "graph_idx" in batch)
+            row = {"phase": "gnn3d", "shape": shape, "model": name,
+                   "V": int(b_dev["species"].shape[0]), "E": int(b_dev["edge_src"].shape[0]),
+                   "T": int(b_dev["tri_kj"].shape[0]) if name == "dimenet" else None,
+                   "forward_s": forward_s, "loss_s": loss_s, "loss": loss_v, "mae": mae,
+                   "energies": int(pred.numel()), "max_memory_allocated": peak,
+                   "k5_forward": k5_fwd, "k5_loss": k5_loss, "k5_want": want_k5}
+            if k5_fwd != want_k5 or k5_loss != want_k5:
+                problems.append(f"{name} at {shape}: K5 {k5_fwd}, {k5_loss}, not {want_k5}")
+            # an error past √(float32 max) overflows the loss's square, in the
+            # reference too: the energies must be finite, the loss unless so
+            overflows = mae > F32_SQRT_MAX
+            row["loss_overflows_f32"] = overflows
+            if not (torch.isfinite(pred).all() and np.isfinite(mae)
+                    and (np.isfinite(loss_v) or overflows)):
+                problems.append(f"{name} at {shape}: not finite")
+            if check:  # comparison runs: not the path's launches
+                got = _gnn3d_forward(name, params, b_dev, cfg, dev, per_node=check == "node")
+                t0 = time.perf_counter()
+                want = _gnn3d_forward(name, _tree_to(params, "cpu"), b_cpu, cfg, "cpu",
+                                      per_node=check == "node")
+                row["cpu_forward_s"] = time.perf_counter() - t0
+                scale = float(want.abs().max())
+                err = float((got.cpu() - want).abs().max()) / max(scale, 1e-30)
+                row.update(compared=check, max_rel_err_vs_cpu=err, tolerance=GNN3D_TOL)
+                if not err <= GNN3D_TOL:
+                    problems.append(f"{name} at {shape}: {err} from the CPU forward")
+                del got, want
+            emit(row)
+            runs.append(row)
+            del params, pred, loss
+        del b_dev, b_cpu
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    info = {"phase_s": phase_s, "data_s": data_s, "runs": runs,
+            "skipped": {"dimenet@ogb_products": "2E = 58.7 M triplets: (T, 128) float32 "
+                        "tensors of 30 GB each, and a host triplet list of that size"},
+            "minibatch": {"nodes": int(sub.node_mask.sum()), "edges": int(sub.edge_mask.sum()),
+                          "triplets": int(mini["tri_mask"].sum())},
+            "launches": {"segment_agg": k5_total}}
+    emit({"phase": "gnn3d", "step": "done", **{k: v for k, v in info.items() if k != "runs"}})
+    if problems:
+        raise SystemExit("chip_smoke gnn3d phase failed: " + "; ".join(problems))
+    return {"info": info, "minibatch": mini, "launches": info["launches"]}
+
+
+def check_k5_gnn3d(serve, gnn3d) -> list[dict]:
+    """K5 at phase ``gnn3d``'s message sums: at ``minibatch_lg`` d = 64 into
+    the nodes, d = 128 triplets into the edges and edges into the nodes,
+    d = 3 (EGNN's ``dx``), bitwise against the plain version; at
+    ``ogb_products`` d = 64 into the nodes, the plain check over the first
+    :data:`K5_SLICE_ROWS` rows.  The messages are normal draws (seed 0)."""
+    import torch
+
+    from repro_torch.models.gnn import message_layout
+
+    dev = torch.device("cuda")
+    mini, launches = gnn3d["minibatch"], gnn3d["launches"]["segment_agg"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    E, T = mini["edge_src"].size, mini["tri_kj"].size
+    into_nodes = message_layout(mini["edge_dst"], mini["species"].size, device=dev)
+    into_edges = message_layout(mini["tri_ji"], E, device=dev)
     rows = []
-    for name, x, layout in cases:
-        x = x.contiguous()
-        cpu_lay = layout._replace(src=layout.src.cpu(), dst=layout.dst.cpu(),
-                                  w=layout.w.cpu(), row_ptr=layout.row_ptr.cpu(),
-                                  order=layout.order.cpu(), long_rows=layout.long_rows.cpu())
-        n_long = int(layout.long_rows.numel())
-        flags = torch.zeros(n_long, dtype=torch.int32, device="cuda")
-        segment_agg(x, layout, tree_flags=flags)
-        csr = torch.sparse_csr_tensor(layout.row_ptr, layout.src.long(), layout.w,
-                                      size=(n, n))
-        ms = cuda_time_ms(lambda: segment_agg(x, layout), reps=5)
-        got = segment_agg(x, layout)
-        torch.cuda.synchronize()
-        xc = x.cpu()
-        want = {}
-        plain_ms = host_time_ms(lambda: want.__setitem__("out", segment_agg(xc, cpu_lay)))
-        g, w = got.cpu(), want["out"]
-        if g.shape != w.shape or g.dtype != w.dtype:
-            raise SystemExit(f"chip_smoke: K5 gave {g.shape} {g.dtype}, not {w.shape} {w.dtype}")
-        err = float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
-        bits = torch.int32 if g.dtype == torch.float32 else torch.int16
-        bitwise = torch.equal(g.view(bits), w.view(bits))
-        d, esize = int(x.shape[1]), x.element_size()
-        # each input read once, each output written once
-        n_bytes = 8 * E + 8 * (n + 1) + n * d * esize + n * d * esize
-        b, by = bound_ms(n_bytes, 2 * E * d)
-        # no reuse of gathered rows: each costs at least one 32-byte sector
-        sectors = -(-d * esize // 32) * 32
-        no_reuse, _ = bound_ms(8 * E + 8 * (n + 1) + E * sectors + n * d * esize, 0)
-        lib_ms, lib_error = None, None
-        if x.dtype == torch.bfloat16:  # the same CSR with bf16 weights, as x's type
-            csr = torch.sparse_csr_tensor(layout.row_ptr, layout.src.long(),
-                                          layout.w.to(torch.bfloat16), size=(n, n))
-        try:
-            lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, x), reps=5)
-        except RuntimeError as e:  # a yardstick only: record why there is none
-            lib_error = str(e).splitlines()[0]
-        rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/segment_agg/csrc/segment_agg.cu",
-                     "replaces": "src/repro/kernels/segment_agg/kernel.py:61",
-                     "launches": serve["launches"]["segment_agg"], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": lib_ms,
-                     "shape": {"rows": n, "V": n, "d": d, "dtype": str(x.dtype),
-                               "bitwise": bitwise,
-                               "edges": E, "max_row": int(layout.row_ptr.diff().max()),
-                               "long_row_edges": layout.long_row_edges, "n_long": n_long,
-                               "tree_rows": int(flags.sum()), "kernel": kernel_attributes(x),
-                               "no_reuse_bound_ms": no_reuse,
-                               "library": "torch.sparse.mm(CSR of the weights, x)",
-                               "library_error": lib_error}})
+    for label, layout, n_msg, d in (("messages into nodes", into_nodes, E, 64),
+                                    ("triplets into edges", into_edges, T, 128),
+                                    ("edges into nodes", into_nodes, E, 128),
+                                    ("dx into nodes", into_nodes, E, 3)):
+        x = torch.randn(n_msg, d, generator=gen, device=dev)
+        rows.append(_k5_row(f"K5 segment_agg {label} (minibatch_lg, d={d}, f32)", x,
+                            layout, launches))
+    bundle = serve["bundle"]
+    layout = message_layout(bundle.edge_dst, bundle.n_vertices, device=dev)
+    x = torch.randn(int(bundle.edge_dst.numel()), 64, generator=gen, device=dev)
+    rows.append(_k5_row("K5 segment_agg messages into nodes (ogb_products, d=64, f32)", x,
+                        layout, launches, plain_rows=K5_SLICE_ROWS))
+    del x, layout
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -4606,17 +4895,18 @@ def main(argv=None) -> int:
         incremental.pop(key, None)
     hybrid = phase_hybrid(main_run)
     serve = phase_serve(args.products_scale)
+    gnn3d = phase_gnn3d(serve)
     lm = phase_lm()
     moe = phase_moe()
     recsys = phase_recsys()
-    summary, all_rows = phase_kernels(main_run, compare, serve, lm, moe, recsys, build,
-                                      incremental, elastic, hybrid)
+    summary, all_rows = phase_kernels(main_run, compare, serve, gnn3d, lm, moe, recsys,
+                                      build, incremental, elastic, hybrid)
     results.update(main=main_run["info"], compare=compare["rows"],
                    pagerank=compare["pagerank"], parallel=parallel, ooc=ooc,
                    incremental={key: v for key, v in incremental.items()
                                 if key != "retract_pairs"}, elastic=elastic,
-                   hybrid=hybrid, serve=serve["info"])
-    del serve
+                   hybrid=hybrid, serve=serve["info"], gnn3d=gnn3d["info"])
+    del serve, gnn3d
     results["parity"] = phase_parity()
     distributed = phase_distributed(main_run, graphs.pop("distributed"), args.scale)
     for r in summary:  # the launches of phase distributed's worlds, all ranks

@@ -1,4 +1,11 @@
-from .datasets import GraphData, cora_like, ogbn_products_like, products_features  # noqa: F401
+from .datasets import (  # noqa: F401
+    GraphData,
+    MoleculeBatch,
+    cora_like,
+    molecule_batch,
+    ogbn_products_like,
+    products_features,
+)
 from .generators import (  # noqa: F401
     block_rmat_graph,
     community_graph,
@@ -8,3 +15,4 @@ from .generators import (  # noqa: F401
     rmat_graph,
     toy_graph_fig3,
 )
+from .sampler import CSRGraph, NeighborSampler, SampledSubgraph, build_csr  # noqa: F401

@@ -6,8 +6,9 @@ the reference's).
 - ``ogbn_products_like``  — 2,449,029 nodes / up to 30,929,570 undirected edges
                             (Chung–Lu, after dedup) / 100 features made per
                             node by ``products_features``
-
-``molecule_batch`` waits for the SchNet/EGNN/DimeNet slice.
+- ``molecule_batch``      — batched small molecular graphs (30 nodes / 64
+                            edges each) with 3-D coordinates for
+                            SchNet/EGNN/DimeNet
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import numpy as np
 
 from .generators import powerlaw_graph
 
-__all__ = ["GraphData", "cora_like", "ogbn_products_like", "products_features"]
+__all__ = ["GraphData", "cora_like", "ogbn_products_like", "products_features",
+           "MoleculeBatch", "molecule_batch"]
 
 
 class GraphData(NamedTuple):
@@ -63,3 +65,35 @@ def products_features(nodes: np.ndarray, d_feat: int = 100, seed: int = 0) -> np
         r = np.random.default_rng(seed * 1_000_003 + int(v))
         out[i] = r.standard_normal(d_feat).astype(np.float32)
     return out
+
+
+class MoleculeBatch(NamedTuple):
+    positions: np.ndarray  # (B, N, 3)
+    species: np.ndarray  # (B, N) int32 atomic numbers
+    edge_src: np.ndarray  # (B, E) intra-molecule edges
+    edge_dst: np.ndarray  # (B, E)
+    energies: np.ndarray  # (B,) regression target
+
+
+def molecule_batch(batch: int = 128, n_atoms: int = 30, n_edges: int = 64,
+                   seed: int = 0) -> MoleculeBatch:
+    """``batch`` molecules of ``n_atoms`` Gaussian atoms, each joined by its
+    ``n_edges`` shortest directed pairs; the target is Σ exp(−d) over them."""
+    rng = np.random.default_rng(seed)
+    pos = rng.standard_normal((batch, n_atoms, 3)).astype(np.float32) * 2.0
+    species = rng.integers(1, 10, (batch, n_atoms)).astype(np.int32)
+    # connect nearest neighbors until n_edges per molecule
+    es = np.zeros((batch, n_edges), np.int32)
+    ed = np.zeros((batch, n_edges), np.int32)
+    for b in range(batch):
+        d = np.linalg.norm(pos[b][:, None] - pos[b][None, :], axis=-1)
+        np.fill_diagonal(d, np.inf)
+        flat = np.argsort(d, axis=None)[: n_edges]
+        es[b] = (flat // n_atoms).astype(np.int32)
+        ed[b] = (flat % n_atoms).astype(np.int32)
+    # synthetic smooth target: sum of pairwise Gaussians (learnable)
+    en = np.zeros(batch, np.float32)
+    for b in range(batch):
+        d = np.linalg.norm(pos[b][es[b]] - pos[b][ed[b]], axis=-1)
+        en[b] = np.exp(-d).sum()
+    return MoleculeBatch(pos, species, es, ed, en)

@@ -4,7 +4,7 @@ The port's "weights" are the states the reference computes: an Alg. 1
 ``ClusterState``, a ``CMSketch``, the game's ``GameInputs`` plus a start
 assignment, the ``c2p`` table with a load vector, and the scoring
 baselines' carries (Greedy, HDRF, grid), and model weights (the GCN's,
-the LM's and xDeepFM's parameter trees).  Each function
+SchNet's, EGNN's, DimeNet's, the LM's and xDeepFM's parameter trees).  Each function
 takes the reference structure (or anything with the same fields, as
 numpy-convertible arrays) and returns the port's structure on ``device``,
 as fresh copies, so both sides can compute from one state.  Nothing here
@@ -22,8 +22,8 @@ from .core.cms import CMSketch
 from .core.game import GameInputs
 
 __all__ = ["cluster_state", "sketch", "game_inputs", "placement",
-           "greedy_carry", "hdrf_carry", "grid_carry", "gcn_params", "lm_params",
-           "xdeepfm_params"]
+           "greedy_carry", "hdrf_carry", "grid_carry", "gcn_params", "gnn3d_params",
+           "lm_params", "xdeepfm_params"]
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -104,18 +104,28 @@ def gcn_params(params, device=None) -> dict:
     return {"layers": [{"w": _leaf(layer["w"], dev)} for layer in params["layers"]]}
 
 
+def _tree(tree, dev):
+    """Nested dicts and lists of reference arrays as the same nesting of
+    tensors on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, dev) for v in tree]
+    return _leaf(tree, dev)
+
+
+def gnn3d_params(params, device=None) -> dict:
+    """The reference's SchNet, EGNN or DimeNet tree (dicts and lists of
+    ``{"w", "b"}`` layers, arrays in float32) as the port's on ``device``,
+    leaf for leaf."""
+    return _tree(params, resolve_device(device))
+
+
 def lm_params(params, device=None) -> dict:
     """The reference's LM parameter tree (nested dicts of arrays, stacked
     (L, …) layer leaves, float32 or bfloat16) as the port's dict on
     ``device``, key for key."""
-    dev = resolve_device(device)
-
-    def convert(tree):
-        if isinstance(tree, dict):
-            return {k: convert(v) for k, v in tree.items()}
-        return _leaf(tree, dev)
-
-    return convert(params)
+    return _tree(params, resolve_device(device))
 
 
 def xdeepfm_params(params, device=None) -> dict:

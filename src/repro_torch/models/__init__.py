@@ -1,6 +1,5 @@
-"""Models of the port.  Ported so far: the shared primitives
-(``common``), the GCN of ``gnn``, the dense LM (``lm``, with
-``attention``) and xDeepFM (``recsys``); the MoE block, SchNet, EGNN and
-DimeNet are not."""
+"""Models of the port: the shared primitives (``common``), the GNNs of
+``gnn`` (GCN, SchNet, EGNN, DimeNet), the dense and MoE LM (``lm``, with
+``attention``) and xDeepFM (``recsys``)."""
 
 from . import attention, common, gnn, lm, recsys  # noqa: F401

@@ -175,4 +175,4 @@ def test_configs_registry():
         assert (a.n_layers, a.d_hidden, a.d_feat, a.n_classes) == \
             (b.n_layers, b.d_hidden, b.d_feat, b.n_classes)
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("schnet")  # an architecture the port has not taken over yet
+        get_arch("graphsage")  # a name neither registry has

@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.serving.controller", "repro_torch.hybrid",
             "repro_torch.hybrid.planner", "repro_torch.hybrid.refiner",
             "repro_torch.hybrid.driver", "repro_torch._dist", "repro_torch.launch.mesh",
-            "repro_torch.core.distributed"} <= set(mods)
+            "repro_torch.core.distributed", "repro_torch.graphs.sampler",
+            "repro_torch.configs.schnet", "repro_torch.configs.egnn",
+            "repro_torch.configs.dimenet"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

@@ -2,7 +2,8 @@
 versions (bitwise; K1, K2 and K3 also at the main path's 65,536-edge chunk,
 K2 with no room, room that runs out and the wrap guard, K3 on every rung,
 with equal bits on two launches; K4a with negative counts), K6 and K7 against
-their plain versions within stated tolerances, the GCN, the LM and xDeepFM on
+their plain versions within stated tolerances, the GCN, SchNet, EGNN,
+DimeNet (and their K5 message layouts, bitwise), the LM and xDeepFM on
 cuda against cpu, streams paged from disk shards onto the card, and incremental
 re-partitioning (``cluster_retract_chunk``; a delta, its rollback, a deletion
 and window steps; a bundle saved from the card), PageRank's K5 gather, the
@@ -805,6 +806,99 @@ def test_gcn_forward_cuda_equals_cpu(cuda, masked):
     assert launch_counts()["segment_agg"] == before + 6
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
 
+
+
+def _gnn3d_batch(n_mol, n_atoms, n_edges, pad_nodes=0):
+    """``molecule_batch`` flattened with ``graph_idx``, padded nodes masked,
+    triplets capped at 4E (as ``chip_smoke.py``'s molecule batch)."""
+    from repro_torch.graphs import molecule_batch
+    from repro_torch.models.gnn import build_triplets
+
+    mb = molecule_batch(n_mol, n_atoms, n_edges, seed=0)
+    V, E = n_mol * n_atoms + pad_nodes, n_mol * n_edges
+    off = (np.arange(n_mol) * n_atoms)[:, None]
+    pos = np.zeros((V, 3), np.float32)
+    pos[:n_mol * n_atoms] = mb.positions.reshape(-1, 3)
+    species = np.zeros(V, np.int32)
+    species[:n_mol * n_atoms] = mb.species.reshape(-1)
+    es, ed = (mb.edge_src + off).reshape(-1), (mb.edge_dst + off).reshape(-1)
+    graph_idx = np.zeros(V, np.int32)
+    graph_idx[:n_mol * n_atoms] = np.repeat(np.arange(n_mol), n_atoms)
+    kj, ji, tm = build_triplets(es, ed, 4 * E)
+    return {"species": species, "positions": pos, "edge_src": es.astype(np.int32),
+            "edge_dst": ed.astype(np.int32), "edge_mask": np.ones(E, np.float32),
+            "node_mask": (np.arange(V) < n_mol * n_atoms).astype(np.float32),
+            "graph_idx": graph_idx, "n_graphs": n_mol, "targets": mb.energies,
+            "tri_kj": kj, "tri_ji": ji, "tri_mask": tm}
+
+
+@pytest.mark.parametrize("which", ["smoke_config", "molecule"])
+@pytest.mark.parametrize("name", ["schnet", "egnn", "dimenet"])
+def test_gnn3d_forward_cuda_equals_cpu(cuda, name, which):
+    """Each model on the card against its CPU forward (plain K5): the smoke
+    config on 4 small molecules, the published config at the ``molecule``
+    shape (128 × 30 atoms padded to 4,096 nodes, 8,192 edges).  Energies
+    within 1e-4 of their largest magnitude (``chip_smoke.GNN3D_TOL``), the
+    loss within a relative 1e-4, K5 launched as the docstrings state."""
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.segment_agg import launch_counts
+    from repro_torch.models import gnn
+
+    cfg = get_arch(name).config if which == "molecule" else get_arch(name).smoke_config
+    b = _gnn3d_batch(128, 30, 64, pad_nodes=256) if which == "molecule" else \
+        _gnn3d_batch(4, 9, 16, pad_nodes=3)
+    init = {"schnet": gnn.schnet_init, "egnn": gnn.egnn_init, "dimenet": gnn.dimenet_init}
+    loss = {"schnet": gnn.schnet_loss, "egnn": gnn.egnn_loss, "dimenet": gnn.dimenet_loss}
+    params = init[name](cfg, trandom.PRNGKey(0), device="cpu")
+    want, want_aux = loss[name](params, b, cfg, device="cpu")
+    on_card = {k: v if isinstance(v, int) else torch.as_tensor(v).to(cuda) for k, v in b.items()}
+    params_card = torch.utils._pytree.tree_map(lambda t: t.to(cuda), params)
+    before = launch_counts()["segment_agg"]
+    got, got_aux = loss[name](params_card, on_card, cfg, device=cuda)
+    torch.cuda.synchronize()
+    n = {"schnet": lambda: cfg.n_interactions, "egnn": lambda: 1 + 2 * cfg.n_layers,
+         "dimenet": lambda: 2 * cfg.n_blocks}[name]()
+    assert launch_counts()["segment_agg"] - before == n + 1
+    assert float(got) == pytest.approx(float(want), rel=1e-4)
+    assert float(got_aux["mae"]) == pytest.approx(float(want_aux["mae"]), rel=1e-4)
+    fwd = {"schnet": gnn.schnet_forward, "egnn": gnn.egnn_forward}
+    kw = dict(edge_mask=b["edge_mask"], node_mask=b["node_mask"], graph_idx=b["graph_idx"],
+              n_graphs=b["n_graphs"])
+    args = (b["species"], b["positions"], b["edge_src"], b["edge_dst"])
+    if name == "dimenet":
+        e_cpu = gnn.dimenet_forward(params, *args, b["tri_kj"], b["tri_ji"],
+                                    b["species"].size, cfg, tri_mask=b["tri_mask"], **kw,
+                                    device="cpu")
+        e_card = gnn.dimenet_forward(params_card, *args, b["tri_kj"], b["tri_ji"],
+                                     b["species"].size, cfg, tri_mask=b["tri_mask"], **kw,
+                                     device=cuda)
+    else:
+        e_cpu = fwd[name](params, *args, b["species"].size, cfg, **kw, device="cpu")
+        e_card = fwd[name](params_card, *args, b["species"].size, cfg, **kw, device=cuda)
+    assert e_card.shape == e_cpu.shape == (b["n_graphs"],)
+    torch.testing.assert_close(e_card.cpu(), e_cpu, rtol=0,
+                               atol=1e-4 * float(e_cpu.abs().max()))
+
+
+@pytest.mark.parametrize("d", [3, 64, 128])
+def test_k5_message_layouts_bitwise(cuda, d):
+    """The models' identity-source layouts (message e into row idx[e],
+    weights 1) with a padded row of 5,000 masked zeros: K5 against the
+    plain version, bitwise."""
+    from repro_torch.kernels.segment_agg import segment_agg
+    from repro_torch.models.gnn import message_layout
+
+    rng = np.random.default_rng(d)
+    E, n = 20_000, 3_000
+    idx = rng.integers(0, n, E).astype(np.int32)
+    idx[-5_000:] = 0
+    x = (rng.standard_normal((E, d)) * 10.0 ** rng.integers(-3, 4, (E, 1))).astype(np.float32)
+    x[-5_000:] = 0.0
+    xt = torch.from_numpy(x)
+    want = segment_agg(xt, message_layout(idx, n, device="cpu"))
+    got = segment_agg(xt.to(cuda), message_layout(idx, n, device=cuda))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 def _k6_inputs(BK, S, T, G, hd, dtype, seed, *, rolling=False, pad_keys=0):
     rng = np.random.default_rng(seed)

@@ -123,7 +123,7 @@ def test_configs_are_the_references():
         assert LM.model_flops(ours.config, 4096, False) == JLM.model_flops(ref.config, 4096, False)
     assert LM.count_params(get_arch("llama3-8b").config) == 8_030_261_248
     with pytest.raises(KeyError):
-        get_arch("schnet")  # an architecture the port has not taken over yet
+        get_arch("graphsage")  # a name neither registry has
 
 
 # ---------------------------------------------------------- the parameters
