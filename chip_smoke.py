@@ -271,6 +271,25 @@ Phases, each printing one JSON line:
               limits; one ``torch.einsum`` is timed beside it where its
               intermediate fits the card, and the bound is stated on the
               tensor cores (``k7_bounds``) beside the scalar one;
+9b. train   — training through ``launch.train.train`` (``phase_train``),
+              each run with the launch counters set to 0 just before and
+              read just after: llama3-8b ``train_4k`` at published width cut
+              to 4 of 32 layers and B = 2 of 256 (``TRAIN_LM_LAYERS``,
+              ``TRAIN_LM_BATCH``), 3 steps (``TRAIN_LM_STEPS``; ms a step,
+              tokens/s, the loss a step, peak memory, the fault loop's entry
+              copy; K6 exactly 2 × 4 × 3 with remat and K6b 4 × 3; no
+              checkpoint written: ``_train_run(save=False)``);
+              the smoke LM 4 steps with ``fail_at=(2,)`` beside a clean run
+              (the same bits); xDeepFM ``train_batch`` (K7 and K7b 3 a step);
+              gcn-cora ``full_graph_sm`` and SchNet, EGNN, DimeNet at
+              ``molecule`` on the reference cells' batches (K5 and K5ᵀ both
+              launched); every loss and parameter finite; then K6b (bf16 at
+              the LM's shape, float32 ragged with a window), K7b (layers 1
+              and 2 at B = 65,536) and K5ᵀ (GCN's and a message layout)
+              against their plain versions, each twice with the same bits,
+              beside SDPA's backward, ``torch.einsum``'s and
+              ``torch.sparse.mm``; each family's smoke gradients on the card
+              against the CPU (``TRAIN_GRAD_TOL``);
 10. parity  — every partitioner on ``community_graph(2000, 32, 8,
               seed=5)``, k = 8, on ``cuda`` and on ``cpu``: the parts must be
               identical; then S5P (with its touch-up), HDRF, Greedy and
@@ -326,7 +345,7 @@ Phases, each printing one JSON line:
 The R-MATs of phases 4 (CLUGP's), 5c (its 10 % delta, seed 1) and 5f are
 made by worker processes while the script makes phase main's graph, before
 anything is timed (``make_graphs``).
-The kernel checks of phase 7 run after phases 8 and 9.  Phase 6's
+The kernel checks of phase 7 run after phases 8, 9 and 9b.  Phase 6's
 features (one generator a vertex) are made in ranges by worker processes
 while the script makes the graph and runs nothing timed: no timed phase
 shares the host with them.
@@ -2806,11 +2825,12 @@ def kernel_plan() -> dict:
 
 _COUNTERS = {"K1": "cluster_scan", "K2": "assign_scan", "K3": "scoring_scan",
              "G1": "grid_scan", "K4a": "cms_update", "K4b": "cms_query", "K5": "segment_agg",
-             "K6": "flash_attention", "K7": "cin"}
+             "K6": "flash_attention", "K7": "cin", "K6b": "flash_attention_bwd",
+             "K7b": "cin_bwd", "K5ᵀ": "segment_agg_transposed"}
 
 
 def phase_kernels(main, compare, serve, gnn3d, lm, moe, recsys, build, incremental,
-                  elastic, hybrid) -> list[dict]:
+                  elastic, hybrid, train) -> list[dict]:
     from repro_torch.kernels.stream_scan.latency import measure_round_trips
 
     rt = measure_round_trips()
@@ -2825,12 +2845,16 @@ def phase_kernels(main, compare, serve, gnn3d, lm, moe, recsys, build, increment
     k6 = check_k6(lm["launches"]["flash_attention"] + moe["launches"]["flash_attention"],
                   build)
     k7 = check_k7(recsys, build)
-    rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k5_gnn3d, *k6, *k7]
+    k6b = [r for r in train["rows"] if r["name"].startswith("K6b")]
+    k7b = [r for r in train["rows"] if r["name"].startswith("K7b")]
+    k5t = [r for r in train["rows"] if r["name"].startswith("K5ᵀ")]
+    rows = [*k1, *k2, *cms, *k3_g1, *k3_extra, *k5, *k5_gnn3d, *k6, *k7, *k6b, *k7b, *k5t]
     _check_rows(rows)
     main_k2 = k2[1]  # the main path's middle chunk
     main_k4 = [r for r in cms if r["name"] in ("K4a cms_update", "K4b cms_query")
                or "negative counts" in r["name"]]
-    summary = [k1[0], main_k2, *main_k4, *k3_g1, *k5, *k5_gnn3d, k6[0], k7[1]]
+    summary = [k1[0], main_k2, *main_k4, *k3_g1, *k5, *k5_gnn3d, k6[0], k7[1], k6b[0],
+               k7b[-1], k5t[0]]
     for r in summary:  # a latency bound for the serial scans, none for the rest
         r.setdefault("latency_bound_ms", None)
         # the launches of phases incremental's, elastic's, hybrid's and
@@ -4853,6 +4877,473 @@ def check_k7(recsys, build) -> list[dict]:
     return rows
 
 
+
+# ------------------------------------------------------------- phase train
+
+# phase train's cuts: llama3-8b at published width, its train_4k batch cut
+# from 256 sequences to 2 and its depth from 32 layers to 4 (1.92 G
+# parameters, about 23 GB of bf16 parameters and gradients and float32
+# moments; the full depth, 8.03 G, needs about 96 GB of state alone)
+TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_STEPS = 4, 2, 3
+TRAIN_STEPS = 3  # xDeepFM's and the GNNs' steps
+TRAIN_GNN_CELLS = (("gcn-cora", "full_graph_sm"), ("schnet", "molecule"),
+                   ("egnn", "molecule"), ("dimenet", "molecule"))
+# each backward kernel against its plain version on the same card tensors:
+# the largest error of each gradient over the gradient's largest magnitude
+# (float32: the products sum in another order; bf16: p and ds are rounded
+# to bf16 from scores summed in another order, and each result once)
+K6B_LIMITS = {"bfloat16": 2**-6, "float32": 1e-5}
+K7B_LIMIT = 1e-5
+# the card's gradients against the CPU's (one AdamW step's first moment,
+# 0.1 × the clipped gradient), per leaf over its largest magnitude: cuBLAS
+# and the CPU's BLAS sum in other orders, K6/K7 against their plain
+# versions; the smoke LM's weights (fan_in = L = 2) make its attention
+# nearly one-hot, which amplifies those ulps (tests/test_torch_train.py)
+TRAIN_GRAD_TOL = {"llama3-8b": 1e-3, "other": 1e-4}
+
+
+def _train_run(arch: str, shape: str, smoke: bool, ckpt_dir: str, save: bool = True,
+               **kw) -> dict:
+    """One ``launch.train.train`` call on the card with every launch counter
+    at 0 just before and read just after; its figures, state and peak.
+    ``save=False`` hands ``train`` a checkpoint manager that writes nothing:
+    with ``ckpt_every`` past the steps that skips only the run's final
+    checkpoint, tens of GB for the LM (scripts/profile_train.py --save
+    times it)."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as train_mod
+
+    class Unsaved(CheckpointManager):
+        def save(self, step, state):
+            pass
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    info: dict = {}
+    t0 = time.perf_counter()
+    with mock.patch.object(train_mod, "CheckpointManager",
+                           CheckpointManager if save else Unsaved):
+        state, metrics = train_mod.train(arch, shape, smoke=smoke, ckpt_dir=ckpt_dir,
+                                         device="cuda", info=info, **kw)
+    torch.cuda.synchronize()
+    return {"state": state, "metrics": metrics, "info": info, "launches": launch_counts(),
+            "wall_s": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated()}
+
+
+def _tree_finite(tree) -> bool:
+    import torch
+
+    from repro_torch.streaming.carry import tree_flatten
+
+    return all(bool(torch.isfinite(x).all()) for x in tree_flatten(tree)[0]
+               if x.is_floating_point())
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    from repro_torch.streaming.carry import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _rel_errs(got, want) -> list:
+    return [float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp(min=1e-30))
+            for g, w in zip(got, want)]
+
+
+def check_k6b(launches: int) -> list[dict]:
+    """K6b against ``flash_attention_bwd_ref`` at llama3-8b's training shape
+    in bf16 (B = 2: BK = 16, S = T = 4,096, G = 4, hd = 128, causal) and at a
+    small ragged float32 shape with Mixtral's kind of window, each launched
+    twice (the bits must repeat), with its time, its plain version's and
+    SDPA's backward (``enable_gqa``; forward and backward minus forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import _k6, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    dev = torch.device("cuda")
+    rows = []
+    for B, KV, S, G, hd, dt, window in ((2, 8, 4096, 4, 128, torch.bfloat16, None),
+                                        (2, 4, 1000, 4, 128, torch.float32, 256)):
+        BK, T = B * KV, S
+        gen = torch.Generator(dev).manual_seed(S)
+        q, dout = (torch.randn((BK, S, G * hd), generator=gen, device=dev).to(dt)
+                   for _ in range(2))
+        k, v = (torch.randn((BK, T, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+        pos = torch.arange(S, dtype=torch.int32, device=dev).expand(BK, S).contiguous()
+        out, lse = _k6(q, k, v, pos, pos, True, window, True)
+        args = (q, k, v, out, lse, dout, pos, pos)
+        got = flash_attention_bwd(*args, causal=True, window=window)
+        again = flash_attention_bwd(*args, causal=True, window=window)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        ms = cuda_time_ms(lambda: flash_attention_bwd(*args, causal=True, window=window), 3)
+        want = {}
+        plain_ms = cuda_time_ms(lambda: want.__setitem__("g", flash_attention_bwd_ref(
+            *args, causal=True, window=window, block_q=512, block_k=1024)), 1)
+        errs = _rel_errs(got, want["g"])
+        dtn = "bfloat16" if dt == torch.bfloat16 else "float32"
+        limit = K6B_LIMITS[dtn]
+        pairs = G * _visible_pairs(pos, pos, True, window)
+        n_ops = 5 * 2 * hd * pairs  # s, dp, dv, dk, dq over the visible pairs
+        elem = q.element_size()
+        n_bytes = 4 * BK * S * G * hd * elem + 4 * BK * T * hd * elem + 4 * BK * S * G
+        passes, rate = (1, BF16_TENSOR_OPS_PER_S) if dt == torch.bfloat16 else \
+            (3, TF32_TENSOR_OPS_PER_S)
+        b, by = bound_ms(n_bytes, passes * n_ops, rate)
+        # SDPA on the model layout: q (B, H, S, hd), k/v (B, KV, T, hd)
+        lib_ms, lib_err = None, None
+        try:
+            q4 = q.view(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
+            q4 = q4.detach().clone().requires_grad_()
+            k4 = k.view(B, KV, T, hd).detach().clone().requires_grad_()
+            v4 = v.view(B, KV, T, hd).detach().clone().requires_grad_()
+            d4 = dout.view(B, KV, S, G, hd).permute(0, 1, 3, 2, 4).reshape(B, KV * G, S, hd)
+            mask = None
+            if window is not None:
+                i = torch.arange(S, device=dev)
+                mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+
+            def fwd():
+                return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                      is_causal=mask is None, enable_gqa=True)
+
+            def fwd_bwd():
+                fwd().backward(d4)
+
+            lib_ms = cuda_time_ms(fwd_bwd, 3) - cuda_time_ms(fwd, 3)
+            del q4, k4, v4, d4
+        except RuntimeError as e:  # a yardstick only: record why there is none
+            lib_err = str(e).splitlines()[0]
+        rows.append({
+            "name": f"K6b flash_attention_bwd ({dtn}, BK={BK}, S={S}, G={G}, hd={hd}"
+                    + (f", window {window}" if window else "") + ")",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:128 (_fa_bwd, no Pallas kernel)",
+            "launches": launches, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+            "shape": {"BK": BK, "S": S, "T": T, "G": G, "hd": hd, "dtype": dtn,
+                      "window": window, "causal": True, "visible_pairs": pairs,
+                      "flops": n_ops, "bytes": n_bytes,
+                      "bound_scalar_ms": bound_ms(n_bytes, n_ops)[0],
+                      "errors": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
+                      "limits": {"dq": limit, "dk": limit, "dv": limit},
+                      "repeat_bitwise": repeat,
+                      "error_measure": "max |got - want| / max |want| per gradient",
+                      "plain": "flash_attention_bwd_ref(block_q=512, block_k=1024), TF32 off",
+                      "library": "SDPA forward+backward minus forward (enable_gqa; "
+                                 + ("is_causal)" if window is None else "a dense window mask)"),
+                      "library_error": lib_err}})
+        del got, want, args, q, k, v, out, lse, dout
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_k7b(launches: int) -> list[dict]:
+    """K7b against ``cin_layer_bwd_ref`` at ``train_batch``'s CIN layers 1
+    (Hk = 39) and 2 (Hk = 200) in float32, B = 65,536, each launched twice
+    (the bits must repeat); the library call is the autograd backward of
+    ``torch.einsum("bhd,bmd,hmn->bnd")``, or the first line of the error
+    it raises (out of memory) under ``library_error``."""
+    import torch
+
+    from repro_torch.kernels.cin.kernel import bwd_splits, cin_layer_bwd
+    from repro_torch.kernels.cin.ref import cin_layer_bwd_ref
+
+    dev = torch.device("cuda")
+    B, m, D, Hn = 65_536, 39, 10, 200
+    rows = []
+    for layer, Hk in ((1, 39), (2, 200)):
+        gen = torch.Generator(dev).manual_seed(Hk)
+        xk = torch.randn((B, Hk, D), generator=gen, device=dev)
+        x0 = torch.randn((B, m, D), generator=gen, device=dev)
+        w = 0.1 * torch.randn((Hk * m, Hn), generator=gen, device=dev)
+        g = torch.randn((B, Hn, D), generator=gen, device=dev)
+        got = cin_layer_bwd(xk, x0, w, g)
+        again = cin_layer_bwd(xk, x0, w, g)
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        ms = cuda_time_ms(lambda: cin_layer_bwd(xk, x0, w, g), 2)
+        want = {}
+        plain_ms = cuda_time_ms(lambda: want.__setitem__("g", cin_layer_bwd_ref(xk, x0, w, g)),
+                                1)
+        errs = _rel_errs(got, want["g"])
+        K = Hk * m
+        n_ops = 4 * B * D * K * Hn + 5 * B * D * K  # t and dw; z, dxk and dx0
+        n_bytes = 4 * 2 * (B * D * (Hk + m) + K * Hn) + 4 * B * Hn * D
+        b, by = bound_ms(n_bytes, 3 * n_ops, TF32_TENSOR_OPS_PER_S)
+        lib_ms, lib_err = None, None
+        xr, x0r = xk.detach().clone().requires_grad_(), x0.detach().clone().requires_grad_()
+        wr = w.view(Hk, m, Hn).detach().clone().requires_grad_()
+
+        def fwd_bwd():
+            torch.einsum("bhd,bmd,hmn->bnd", xr, x0r, wr).backward(g)
+
+        def fwd():
+            torch.einsum("bhd,bmd,hmn->bnd", xr, x0r, wr)
+
+        try:
+            lib_ms = cuda_time_ms(fwd_bwd, 2) - cuda_time_ms(fwd, 2)
+        except RuntimeError as e:
+            lib_err = str(e).splitlines()[0]
+        del xr, x0r, wr
+        torch.cuda.empty_cache()
+        rows.append({
+            "name": f"K7b cin_bwd (train_batch layer {layer}: B={B}, Hk={Hk}, m={m}, D={D}, "
+                    f"H'={Hn}, float32)",
+            "route": "cuda", "source": "src/repro_torch/kernels/cin/csrc/cin_bwd.cu",
+            "replaces": "src/repro/models/recsys.py:158 (_cin_layer, differentiated by XLA)",
+            "launches": launches, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+            "shape": {"B": B, "Hk": Hk, "m": m, "D": D, "H'": Hn, "dtype": "float32",
+                      "splits": bwd_splits(B, Hk, m, D, Hn), "flops": n_ops,
+                      "bytes": n_bytes, "bound_scalar_ms": bound_ms(n_bytes, n_ops)[0],
+                      "errors": {"dxk": errs[0], "dx0": errs[1], "dw": errs[2]},
+                      "limits": {"dxk": K7B_LIMIT, "dx0": K7B_LIMIT, "dw": K7B_LIMIT},
+                      "repeat_bitwise": repeat,
+                      "error_measure": "max |got - want| / max |want| per gradient",
+                      "plain": "cin_layer_bwd_ref, TF32 off",
+                      "library": 'autograd backward of torch.einsum("bhd,bmd,hmn->bnd") '
+                                 "(forward+backward minus forward)",
+                      "library_error": lib_err}})
+        del got, want, xk, x0, w, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_k5t(launches: int, gcn_batch: dict, mol_batch: dict) -> list[dict]:
+    """K5ᵀ (K5 over a transposed layout, the gradient of a sum) on phase
+    train's own layouts: GCN's by-destination layout of the gcn-cora
+    ``full_graph_sm`` batch (its transpose sums into the sources) and SchNet's
+    ``message_layout`` of the ``molecule`` batch (each transposed row one
+    edge); bitwise against the plain version, the bits repeated."""
+    import torch
+
+    from repro_torch.kernels.segment_agg import segment_agg
+    from repro_torch.models.gnn import gcn_norm, message_layout
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(5)
+    rows = []
+    V = int(gcn_batch["feats"].shape[0])
+    norm = gcn_norm(gcn_batch["edge_src"], gcn_batch["edge_dst"], V,
+                    edge_mask=gcn_batch["edge_mask"], device=dev)
+    Vm, E = int(mol_batch["species"].shape[0]), int(mol_batch["edge_src"].shape[0])
+    into_nodes = message_layout(mol_batch["edge_dst"], Vm, device=dev)
+    for label, fwd, n_x, d in (("gcn-cora full_graph_sm, d 16", norm.fwd, V, 16),
+                               ("schnet molecule message layout, d 64", into_nodes, E, 64)):
+        lay = fwd.transposed(n_x)
+        g = torch.randn((fwd.n_rows, d), generator=gen, device=dev)  # the sum's gradient
+        row = _k5_row(f"K5ᵀ segment_agg over the transposed layout ({label})", g, lay,
+                      launches)
+        first, second = segment_agg(g, lay), segment_agg(g, lay)
+        torch.cuda.synchronize()
+        row["shape"]["repeat_bitwise"] = bool(torch.equal(first, second))
+        row["shape"]["rows_of_x"] = n_x
+        row["replaces"] = ("src/repro/models/gnn.py:39 (the VJP of jax.ops.segment_sum: "
+                           "XLA's scatter-add)")
+        rows.append(row)
+    return rows
+
+
+def _grads_card_vs_cpu() -> dict:
+    """One AdamW step of each family's smoke training cell in float32 (the
+    LM cast from bf16) on the card and on the CPU from the same state and
+    batch: the first moment's largest error over its largest magnitude,
+    per leaf and the worst leaf of each family."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import random as trandom
+    from repro_torch.launch import cells
+    from repro_torch.streaming.carry import tree_flatten, tree_flatten_with_paths
+
+    key = trandom.PRNGKey(0)
+    out = {}
+    for arch, shape in (("llama3-8b", "train_4k"), ("xdeepfm", "train_batch"),
+                        ("gcn-cora", "full_graph_sm"), ("schnet", "molecule"),
+                        ("egnn", "molecule"), ("dimenet", "molecule")):
+        mus, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            if arch == "llama3-8b":
+                spec = cells.get_arch(arch)
+                cell = cells._lm_cell(spec, shape, dict(seq=64, batch=2, kind="lm_train"),
+                                      dataclasses.replace(spec.smoke_config,
+                                                          dtype=torch.float32),
+                                      torch.device(dev))
+            else:
+                cell = cells.build_cell(arch, shape, smoke=True, device=dev)
+            new, metrics = cell.step_fn(cell.init_state(key),
+                                        *cell.make_batch(trandom.fold_in(key, 0)))
+            mus[dev] = [t.cpu() for t in tree_flatten(new.mu)[0]]
+            losses[dev] = float(metrics["loss"])
+            paths = [p for p, _ in tree_flatten_with_paths(new.mu)]
+        errs = _rel_errs(mus["cuda"], mus["cpu"])
+        out[arch] = {"shape": shape, "leaves": len(errs), "max_rel_err": max(errs),
+                     "rel_err_per_leaf": dict(zip(paths, errs)),
+                     "loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+                     "finite": all(bool(torch.isfinite(t).all()) for t in mus["cuda"])}
+    return out
+
+
+def phase_train() -> dict:
+    """Training on the card through ``repro_torch.launch.train.train``:
+    llama3-8b ``train_4k`` at published width (4 of 32 layers, 2 of 256
+    sequences), the resume after a fault at the smoke config, xDeepFM
+    ``train_batch`` and the four GNNs at published widths; then K6b, K7b
+    and K5ᵀ against their plain versions, and each family's gradients on
+    the card against the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import cells
+    from repro_torch.models import lm as LM
+
+    t_phase = time.perf_counter()
+    _highest_f32()
+    torch.cuda.empty_cache()
+    problems = []
+    # remat's torch.utils.checkpoint imports torch._dynamo at its first call
+    # (seconds in a fresh process: scripts/profile_train.py times it), taken
+    # here, so that the LM's first step times the step
+    t0 = time.perf_counter()
+    import torch._dynamo  # noqa: F401
+
+    dynamo_import_s = time.perf_counter() - t0
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    runs = {}
+    try:
+        # llama3-8b at published width, cut in depth and batch
+        cfg = dataclasses.replace(get_arch("llama3-8b").config, n_layers=TRAIN_LM_LAYERS)
+        r = _train_run("llama3-8b", "train_4k", False, ckpt, steps=TRAIN_LM_STEPS,
+                       n_layers=TRAIN_LM_LAYERS, batch=TRAIN_LM_BATCH,
+                       ckpt_every=TRAIN_LM_STEPS + 1, save=False)
+        step_s = r["info"]["step_s"]
+        lm = {"phase": "train", "run": "llama3-8b train_4k", "layers": TRAIN_LM_LAYERS,
+              "batch": TRAIN_LM_BATCH, "seq": 4096, "cuts": r["info"]["cuts"],
+              "params": LM.count_params(cfg), "steps": r["info"]["steps"],
+              "ms_per_step": [s * 1e3 for s in step_s],
+              "tokens_per_s": [TRAIN_LM_BATCH * 4096 / s for s in step_s],
+              "losses": r["info"]["losses"], "entry_copy_s": r["info"]["entry_copy_s"],
+              "wall_s": r["wall_s"], "max_memory_allocated": r["peak"],
+              "launches": {k: r["launches"][k] for k in ("flash_attention",
+                                                         "flash_attention_bwd")},
+              "model_flops_per_step": r["info"]["model_flops"]}
+        lm["params_finite"] = _tree_finite(r["state"].params)
+        emit(lm)
+        runs["lm"] = lm
+        del r
+        torch.cuda.empty_cache()
+        want_k6 = 2 * TRAIN_LM_LAYERS * TRAIN_LM_STEPS  # remat: each layer's forward twice
+        if lm["launches"]["flash_attention"] != want_k6 or \
+                lm["launches"]["flash_attention_bwd"] != TRAIN_LM_LAYERS * TRAIN_LM_STEPS:
+            problems.append(f"the LM launched K6/K6b {lm['launches']}, not {want_k6}/"
+                            f"{TRAIN_LM_LAYERS * TRAIN_LM_STEPS}")
+        if not (lm["params_finite"] and all(math.isfinite(x) for x in lm["losses"])):
+            problems.append("the LM's losses or parameters are not finite")
+
+        # resume after a fault at the smoke config: the same bits as without it
+        clean = _train_run("llama3-8b", "train_4k", True, ckpt + "/clean", steps=4,
+                           ckpt_every=100)
+        faulty = _train_run("llama3-8b", "train_4k", True, ckpt + "/faulty", steps=4,
+                            ckpt_every=2, fail_at=(2,))
+        resume = {"phase": "train", "run": "llama3-8b smoke resume, fail_at=(2,)",
+                  "restarts": faulty["info"]["restarts"],
+                  "same_bits": _same_bits(clean["state"], faulty["state"]),
+                  "losses_clean": clean["info"]["losses"],
+                  "losses_faulty": faulty["info"]["losses"]}
+        emit(resume)
+        runs["resume"] = resume
+        if resume["restarts"] != 1 or not resume["same_bits"]:
+            problems.append(f"the resumed run is not the clean run's bits: {resume}")
+        del clean, faulty
+
+        # xDeepFM at published width
+        r = _train_run("xdeepfm", "train_batch", False, ckpt, steps=TRAIN_STEPS,
+                       ckpt_every=TRAIN_STEPS + 1, save=False)
+        rec = {"phase": "train", "run": "xdeepfm train_batch", "batch": 65_536,
+               "ms_per_step": [s * 1e3 for s in r["info"]["step_s"]],
+               "losses": r["info"]["losses"], "wall_s": r["wall_s"],
+               "max_memory_allocated": r["peak"],
+               "launches": {k: r["launches"][k] for k in ("cin", "cin_bwd")},
+               "params_finite": _tree_finite(r["state"].params)}
+        emit(rec)
+        runs["xdeepfm"] = rec
+        del r
+        if rec["launches"] != {"cin": 3 * TRAIN_STEPS, "cin_bwd": 3 * TRAIN_STEPS}:
+            problems.append(f"xDeepFM launched K7/K7b {rec['launches']}, not 3 each a step")
+        if not (rec["params_finite"] and all(math.isfinite(x) for x in rec["losses"])):
+            problems.append("xDeepFM's losses or parameters are not finite")
+
+        # the GNNs at published widths on the reference cells' batches
+        gnn_launches = 0
+        for arch, shape in TRAIN_GNN_CELLS:
+            r = _train_run(arch, shape, False, ckpt, steps=TRAIN_STEPS,
+                           ckpt_every=TRAIN_STEPS + 1)
+            row = {"phase": "train", "run": f"{arch} {shape}",
+                   "ms_per_step": [s * 1e3 for s in r["info"]["step_s"]],
+                   "losses": r["info"]["losses"], "wall_s": r["wall_s"],
+                   "max_memory_allocated": r["peak"],
+                   "k5_forward": r["launches"]["segment_agg"],
+                   "k5t_backward": r["launches"]["segment_agg_transposed"],
+                   "params_finite": _tree_finite(r["state"].params)}
+            emit(row)
+            runs[arch] = row
+            gnn_launches += row["k5t_backward"]
+            if row["k5_forward"] == 0 or row["k5t_backward"] == 0:
+                problems.append(f"{arch} launched K5 {row['k5_forward']} and K5ᵀ "
+                                f"{row['k5t_backward']} times")
+            if not (row["params_finite"] and all(math.isfinite(x) for x in row["losses"])):
+                problems.append(f"{arch}'s losses or parameters are not finite")
+            del r
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    main_s = time.perf_counter() - t_phase
+
+    # the backward kernels against their plain versions, on the path's shapes
+    key = trandom.fold_in(trandom.PRNGKey(0), 0)  # train()'s first batch
+    gcn_batch = cells.build_cell("gcn-cora", "full_graph_sm", device="cuda").make_batch(key)[0]
+    mol_batch = cells.build_cell("schnet", "molecule", device="cuda").make_batch(key)[0]
+    rows = [*check_k6b(runs["lm"]["launches"]["flash_attention_bwd"]),
+            *check_k7b(runs["xdeepfm"]["launches"]["cin_bwd"]),
+            *check_k5t(gnn_launches, gcn_batch, mol_batch)]
+    for r in rows:
+        if not r["shape"].get("repeat_bitwise", False):
+            problems.append(f"{r['name']}: two launches gave other bits")
+    grads = _grads_card_vs_cpu()
+    emit({"phase": "train", "step": "gradients, card against CPU", "families": grads,
+          "tolerance": TRAIN_GRAD_TOL})
+    for arch, v in grads.items():
+        if not v["finite"] or not v["max_rel_err"] <= TRAIN_GRAD_TOL.get(arch,
+                                                                         TRAIN_GRAD_TOL["other"]):
+            problems.append(f"{arch}'s gradient on the card is {v['max_rel_err']} from the "
+                            f"CPU's")
+    phase_s = time.perf_counter() - t_phase
+    info = {"phase": "train", "step": "done", "dynamo_import_s": dynamo_import_s,
+            "main_path_s": main_s, "phase_s": phase_s, "within_60_s": phase_s <= 60.0}
+    emit(info)
+    if problems:
+        raise SystemExit("chip_smoke train phase failed: " + "; ".join(problems))
+    return {"info": {**info, "runs": runs, "gradients": grads}, "rows": rows}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=20,
@@ -4899,8 +5390,9 @@ def main(argv=None) -> int:
     lm = phase_lm()
     moe = phase_moe()
     recsys = phase_recsys()
+    train = phase_train()
     summary, all_rows = phase_kernels(main_run, compare, serve, gnn3d, lm, moe, recsys,
-                                      build, incremental, elastic, hybrid)
+                                      build, incremental, elastic, hybrid, train)
     results.update(main=main_run["info"], compare=compare["rows"],
                    pagerank=compare["pagerank"], parallel=parallel, ooc=ooc,
                    incremental={key: v for key, v in incremental.items()
@@ -4914,6 +5406,7 @@ def main(argv=None) -> int:
             _COUNTERS.get(r["name"].split()[0]), 0)
     results.update(lm=lm["info"], lm_f32_check=lm["f32_check"], moe=moe["info"],
                    moe_f32_check=moe["f32_check"], recsys=recsys["info"],
+                   train=train["info"],
                    distributed=distributed, kernels=all_rows,
                    total_s=time.perf_counter() - t_start)
     os.makedirs(OUT_DIR, exist_ok=True)

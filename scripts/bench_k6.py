@@ -54,8 +54,10 @@ def _baseline_lib(src: str, tag: str, flags=()):
         raise SystemExit(f"bench_k6: the baseline does not build:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, ctypes.c_float,
-                                           I, I, I, I, P]
+    # sources since the training slice take an lse pointer (null: not written) after out
+    lib.has_lse = "void* lse" in open(src).read()
+    lib.flash_attention_launch.argtypes = [P, P, P, P, P, P, *([P] if lib.has_lse else []),
+                                           I, I, I, I, I, ctypes.c_float, I, I, I, I, P]
     lib.flash_attention_launch.restype = I
     return lib, proc.stdout + proc.stderr
 
@@ -69,8 +71,9 @@ def _launch(lib, q, k, v, qp, kp, out, case) -> None:
     hd = k.shape[2]
     _build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
-        q.shape[0], S, T, H // KV, hd, hd ** -0.5, int(q.dtype == torch.bfloat16), 1,
-        int(window is not None), int(window or 0), torch.cuda.current_stream().cuda_stream),
+        *([None] if lib.has_lse else []), q.shape[0], S, T, H // KV, hd, hd ** -0.5,
+        int(q.dtype == torch.bfloat16), 1, int(window is not None), int(window or 0),
+        torch.cuda.current_stream().cuda_stream),
         "K6")
 
 

@@ -4,7 +4,8 @@ The port's "weights" are the states the reference computes: an Alg. 1
 ``ClusterState``, a ``CMSketch``, the game's ``GameInputs`` plus a start
 assignment, the ``c2p`` table with a load vector, and the scoring
 baselines' carries (Greedy, HDRF, grid), and model weights (the GCN's,
-SchNet's, EGNN's, DimeNet's, the LM's and xDeepFM's parameter trees).  Each function
+SchNet's, EGNN's, DimeNet's, the LM's and xDeepFM's parameter trees), and
+the optimizer's ``TrainState``.  Each function
 takes the reference structure (or anything with the same fields, as
 numpy-convertible arrays) and returns the port's structure on ``device``,
 as fresh copies, so both sides can compute from one state.  Nothing here
@@ -23,7 +24,7 @@ from .core.game import GameInputs
 
 __all__ = ["cluster_state", "sketch", "game_inputs", "placement",
            "greedy_carry", "hdrf_carry", "grid_carry", "gcn_params", "gnn3d_params",
-           "lm_params", "xdeepfm_params"]
+           "lm_params", "xdeepfm_params", "train_params", "train_state"]
 
 
 def _tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -143,3 +144,22 @@ def xdeepfm_params(params, device=None) -> dict:
         "mlp_out": _leaf(params["mlp_out"], dev),
         "bias": _leaf(params["bias"], dev),
     }
+
+
+def train_params(tree, device=None):
+    """A tree of reference arrays (dicts, lists and tuples of float32 or
+    bfloat16 arrays) as the same tree of tensors on ``device``."""
+    return _tree(tree, resolve_device(device))
+
+
+def train_state(state, device=None):
+    """The reference's ``repro.optim.TrainState`` (``params``, ``mu``,
+    ``nu``: trees of arrays; ``step``: an int32 scalar) as the port's
+    :class:`repro_torch.optim.TrainState` on ``device``, leaf for leaf."""
+    from .optim import TrainState
+
+    dev = resolve_device(device)
+    return TrainState(params=_tree(state.params, dev), mu=_tree(state.mu, dev),
+                      nu=_tree(state.nu, dev),
+                      step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                                        device=dev))

@@ -32,7 +32,9 @@ SOURCES = {
     "cms_sketch": _PKG / "cms_sketch" / "csrc" / "cms_sketch.cu",
     "segment_agg": _PKG / "segment_agg" / "csrc" / "segment_agg.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd": _PKG / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
     "cin": _PKG / "cin" / "csrc" / "cin.cu",
+    "cin_bwd": _PKG / "cin" / "csrc" / "cin_bwd.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

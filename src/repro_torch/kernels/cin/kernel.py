@@ -1,4 +1,5 @@
-"""Wrapper of the Hopper kernel K7 (the xDeepFM CIN layer).
+"""Wrappers of the Hopper kernels K7 (the xDeepFM CIN layer) and K7b (its
+backward).
 
 ``cin_layer(xk, x0, w)`` takes ``xk`` (B, Hk, D), ``x0`` (B, m, D) and
 ``w`` (Hk·m, H'), contiguous, of one type (float32 or bfloat16), on one
@@ -8,8 +9,15 @@ device, and returns ``out`` (B, H', D) of that type with
 from ``csrc/cin.cu`` (the tensor-core kernel with its w copy and, when the
 K stages are split, the fixed-order sum of the splits) and counts one
 launch; on CPU tensors it runs :func:`.ref.cin_layer_ref`.  A CUDA tensor
-never takes the plain path: a failed build or launch raises.  K7 has no
-backward kernel (the Pallas kernel has none): a gradient through it raises.
+never takes the plain path: a failed build or launch raises.
+
+The layer is differentiable in ``xk``, ``x0`` and ``w`` on both devices
+(one ``torch.autograd.Function``): the backward is
+:func:`.ref.cin_layer_bwd_ref` on the CPU and K7b (``cin_bwd_launch`` from
+``csrc/cin_bwd.cu``: three CUDA launches, counted once as ``"cin_bwd"``)
+on the card.  K7b sums ``dw`` over the B·D rows in :func:`bwd_splits`
+fixed splits, each written apart and added in split order, so its bits do
+not depend on the card.
 
 :func:`plan` states how a call is cut: tiles of ``ROWS`` (b, d) rows and
 ``COLS`` channels, stages of ``STAGE_K`` k values, and the number of splits
@@ -28,10 +36,10 @@ import torch
 from .. import _build
 from . import ref
 
-__all__ = ["cin_layer", "launch", "launch_counts", "plan", "reset_launch_counts", "smem_bytes",
-           "ROWS", "COLS", "MAX_SPLITS", "SMEM_LIMIT"]
+__all__ = ["cin_layer", "cin_layer_bwd", "bwd_splits", "launch", "launch_counts", "plan",
+           "reset_launch_counts", "smem_bytes", "ROWS", "COLS", "MAX_SPLITS", "SMEM_LIMIT"]
 
-_LAUNCHES = {"cin": 0}
+_LAUNCHES = {"cin": 0, "cin_bwd": 0}
 SMEM_LIMIT = 232448  # opt-in shared memory of one H100 block
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +69,27 @@ def _lib():
         lib.cin_blocks_per_sm.restype = _I
         lib._typed = True
     return lib
+
+
+def _lib_bwd():
+    lib = _build.load("cin_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.cin_bwd_launch.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+        lib.cin_bwd_launch.restype = _I
+        lib._typed = True
+    return lib
+
+
+BWD_TILES = 1056  # cin_bwd_dw blocks aimed at: 8 waves of 132 SMs, fixed (not read off the card)
+MAX_BWD_SPLITS = 32
+
+
+def bwd_splits(B: int, Hk: int, m: int, D: int, Hn: int) -> int:
+    """The splits of the B·D rows over which K7b sums ``dw`` (64 × 64 tiles
+    of (k, n)): enough for ``BWD_TILES`` blocks, at most ``MAX_BWD_SPLITS``
+    and at least 1,024 rows a split.  A function of the shape alone."""
+    tiles = -(-(Hk * m) // 64) * -(-Hn // 64)
+    return max(1, min(MAX_BWD_SPLITS, -(-BWD_TILES // max(1, tiles)), (B * D) // 1024))
 
 
 _RING_BYTES = {torch.float32: 3 * 2 * COLS * 128, torch.bfloat16: 3 * COLS * 128}
@@ -189,33 +218,76 @@ def _check(xk, x0, w) -> tuple[int, int, int, int, int]:
     return B, Hk, m, D, int(w.shape[1])
 
 
-class _K7(torch.autograd.Function):
-    """The launch; a gradient through it raises instead of being dropped."""
+def _k7(xk, x0, w) -> torch.Tensor:
+    """One K7 launch on checked CUDA tensors."""
+    B, Hk, m, D, Hn = _check_kernel(xk, x0, w)
+    out = torch.empty((B, Hn, D), dtype=xk.dtype, device=xk.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    slots = _slots(lib, xk.device, m, int(xk.dtype == torch.bfloat16))
+    p = _plan(B, Hk, m, D, Hn, xk.dtype, slots, lib)  # refuses an m whose x0 does not fit
+    _LAUNCHES["cin"] += 1
+    _build.check(launch(lib, xk, x0, w, out, p["splits"], p["h_span"]), "cin")
+    return out
+
+
+def _check_kernel(xk, x0, w) -> tuple[int, int, int, int, int]:
+    B, Hk, m, D, Hn = _check(xk, x0, w)
+    if B * D * max(Hk, m, Hn) >= 2**31 or Hk * ref.pad_fields(m) * Hn >= 2**31:
+        raise ValueError("K7 indexes with int32: B·D·max(Hk, m, H') and Hk·m·H' "
+                         "must stay below 2**31")
+    for name, t in (("xk", xk), ("x0", x0), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"K7 takes contiguous tensors; {name} is not")
+    return B, Hk, m, D, Hn
+
+
+def cin_layer_bwd(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7b on CUDA tensors: ``(dxk, dx0, dw)`` for the output gradient ``g``
+    (B, H', D), counted as one launch.  The plain version is
+    :func:`.ref.cin_layer_bwd_ref`."""
+    if xk.device.type != "cuda":
+        raise ValueError(f"K7b runs on cuda, not {xk.device}")
+    B, Hk, m, D, Hn = _check_kernel(xk, x0, w)
+    if tuple(g.shape) != (B, Hn, D) or g.dtype != xk.dtype or g.device != xk.device \
+            or not g.is_contiguous():
+        raise ValueError(f"g must be a contiguous ({B}, {Hn}, {D}) tensor like xk")
+    if m > 64:
+        raise ValueError(f"K7b holds at most 64 fields a thread group, not {m}")
+    dxk, dx0, dw = torch.empty_like(xk), torch.empty_like(x0), torch.empty_like(w)
+    if B * D == 0 or Hk * m * Hn == 0:
+        return dxk.zero_(), dx0.zero_(), dw.zero_()
+    splits = bwd_splits(B, Hk, m, D, Hn)
+    part = torch.empty(splits * Hk * m * Hn, dtype=torch.float32, device=xk.device)
+    _LAUNCHES["cin_bwd"] += 1
+    code = _lib_bwd().cin_bwd_launch(
+        g.data_ptr(), xk.data_ptr(), x0.data_ptr(), w.data_ptr(), dxk.data_ptr(),
+        dx0.data_ptr(), dw.data_ptr(), part.data_ptr(), B, Hk, m, D, Hn,
+        int(xk.dtype == torch.bfloat16), splits, torch.cuda.current_stream(xk.device).cuda_stream)
+    _build.check(code, "cin_bwd")
+    return dxk, dx0, dw
+
+
+class _CinLayer(torch.autograd.Function):
+    """K7 / K7b on the card, the plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, xk, x0, w):
-        B, Hk, m, D, Hn = _check(xk, x0, w)
-        if B * D * max(Hk, m, Hn) >= 2**31 or Hk * ref.pad_fields(m) * Hn >= 2**31:
-            raise ValueError("K7 indexes with int32: B·D·max(Hk, m, H') and Hk·m·H' "
-                             "must stay below 2**31")
-        for name, t in (("xk", xk), ("x0", x0), ("w", w)):
-            if not t.is_contiguous():
-                raise ValueError(f"K7 takes contiguous tensors; {name} is not")
-        out = torch.empty((B, Hn, D), dtype=xk.dtype, device=xk.device)
-        if out.numel() == 0:
-            return out
-        lib = _lib()
-        slots = _slots(lib, xk.device, m, int(xk.dtype == torch.bfloat16))
-        p = _plan(B, Hk, m, D, Hn, xk.dtype, slots, lib)  # refuses an m whose x0 does not fit
-        _LAUNCHES["cin"] += 1
-        _build.check(launch(lib, xk, x0, w, out, p["splits"], p["h_span"]), "cin")
-        return out
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(xk, x0, w)
+        if xk.device.type == "cpu":
+            return ref.cin_layer_ref(xk, x0, w)
+        return _k7(xk, x0, w)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "K7 has no backward kernel: the CIN layer's gradient is ported with the "
-            "training slice")
+        xk, x0, w = ctx.saved_tensors
+        grad = grad.contiguous()
+        if xk.device.type == "cpu":
+            return ref.cin_layer_bwd_ref(xk, x0, w, grad)
+        return cin_layer_bwd(xk, x0, w, grad)
 
 
 def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -223,7 +295,6 @@ def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tens
     dev = xk.device
     if dev.type == "cpu":
         _check(xk, x0, w)
-        return ref.cin_layer_ref(xk, x0, w)
-    if dev.type != "cuda":
+    elif dev.type != "cuda":
         raise ValueError(f"the CIN layer runs on cuda or cpu, not {dev}")
-    return _K7.apply(xk, x0, w)
+    return _CinLayer.apply(xk, x0, w)

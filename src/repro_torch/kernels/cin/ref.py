@@ -10,6 +10,12 @@ type, as the Pallas kernel ``repro.kernels.cin.kernel._cin_kernel`` casts
 and the result is rounded once to ``xk``'s type.  ``z`` is formed ``chunk``
 samples at a time, so the plain version's memory stays bounded at any batch.
 
+:func:`cin_layer_bwd_ref` is the layer's gradient for an output gradient
+``g`` (B, H', D), the three einsums in float32 (``t = w·g`` per sample,
+then ``dxk = Σ_j t·x0``, ``dx0 = Σ_h t·xk``, ``dw = Σ_{b,d} z·g`` with
+``z`` the float32 outer product), each result rounded once to its input's
+type: the function K7b computes on the card.
+
 :func:`cin_split_partials` follows the tensor-core kernel (``csrc/cin.cu``)
 step by step, for the tests and ``chip_smoke.py`` (nothing on the main path
 calls it): the fields padded with zeros to ``pad_fields(m)``, the k order
@@ -27,8 +33,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cin_layer_ref", "cin_split_partials", "pad_fields", "stage_range", "tf32_rna",
-           "STAGE_K"]
+__all__ = ["cin_layer_ref", "cin_layer_bwd_ref", "cin_split_partials", "pad_fields",
+           "stage_range", "tf32_rna", "STAGE_K"]
 
 _Z_ELEMS = 1 << 26  # float32 elements of z alive at once
 _EMU_ELEMS = 1 << 24  # and in the emulation, which keeps four float64 copies
@@ -51,6 +57,29 @@ def cin_layer_ref(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.
         z = z.reshape(b1 - b0, Hk * m, D)
         out[b0:b1] = torch.einsum("bzd,zn->bnd", z, wf).to(xk.dtype)
     return out
+
+
+def cin_layer_bwd_ref(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dxk, dx0, dw)`` of :func:`cin_layer_ref` for the output gradient
+    ``g`` (B, H', D), each of its input's type."""
+    B, Hk, D = xk.shape
+    m = x0.shape[1]
+    wf = w.float().reshape(Hk, m, w.shape[1])
+    dxk = torch.empty_like(xk)
+    dx0 = torch.empty_like(x0)
+    dw = torch.zeros(wf.shape, dtype=torch.float32, device=w.device)
+    chunk = max(1, _Z_ELEMS // max(1, Hk * m * D))
+    for b0 in range(0, B, chunk):
+        b1 = min(B, b0 + chunk)
+        xkf, x0f, gf = xk[b0:b1].float(), x0[b0:b1].float(), g[b0:b1].float()
+        t = torch.einsum("hjn,bnd->bhjd", wf, gf)
+        dxk[b0:b1] = torch.einsum("bhjd,bjd->bhd", t, x0f).to(xk.dtype)
+        dx0[b0:b1] = torch.einsum("bhjd,bhd->bjd", t, xkf).to(x0.dtype)
+        del t
+        z = xkf[:, :, None, :] * x0f[:, None, :, :]
+        dw += torch.einsum("bhjd,bnd->hjn", z, gf)
+    return dxk, dx0, dw.reshape(w.shape).to(w.dtype)
 
 
 def pad_fields(m: int) -> int:

@@ -54,6 +54,11 @@
 // float32: plain FMAs (no TF32), 64 rows x 32 keys per tile, two threads per
 // row.  d_head 16, 32, 64 and 128.
 //
+// With an lse pointer (training: the backward, K6b in
+// flash_attention_bwd.cu, recomputes p from it) each row also writes its
+// float32 log-sum-exp m + log(max(l, 1e-30)), (BK, S*G); the output's bits
+// do not depend on it.
+//
 // Bound: operations.  At the prefill of llama3-8b (B = 4, S = T = 4096,
 // 32 q heads, 8 kv heads, hd = 128, causal) the visible pairs need
 // ~5.5e11 flops, 0.56 ms at the bf16 tensor-core peak, against 0.10 ms
@@ -554,7 +559,8 @@ __device__ __forceinline__ void online_softmax(float* s, const int* kp, bool par
 // Warpgroups 1 and 2: 64 rows each, the online softmax over the ring's tiles.
 template <int HD>
 __device__ __forceinline__ void fa_consumer(unsigned char* base, const int* __restrict__ qpos_b,
-                                            __nv_bfloat16* __restrict__ ob, int r0, int n_rows,
+                                            __nv_bfloat16* __restrict__ ob,
+                                            float* __restrict__ lse_b, int r0, int n_rows,
                                             int G, float scale, int causal, int has_window,
                                             int window) {
   using L = Hop<HD>;
@@ -642,6 +648,7 @@ __device__ __forceinline__ void fa_consumer(unsigned char* base, const int* __re
   for (int h = 0; h < 2; ++h) {
     const long long r = (long long)r0 + row0 + 8 * h;
     if (r >= n_rows) continue;
+    if (lse_b != nullptr && tq == 0) lse_b[r] = m[h] + logf(l[h]);
 #pragma unroll
     for (int d = 0; d < HD / 8; ++d) {
       const __nv_bfloat162 pair = __floats2bfloat162_rn(__fdiv_rn(o[4 * d + 2 * h], l[h]),
@@ -656,8 +663,9 @@ template <int HD>
 __global__ void __launch_bounds__(kBfThreads, 1)
 fa_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
             const __grid_constant__ CUtensorMap mv, const int* __restrict__ q_pos,
-            const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out, int S, int T,
-            int G, float scale, int causal, int has_window, int window) {
+            const int* __restrict__ kv_pos, __nv_bfloat16* __restrict__ out,
+            float* __restrict__ lse, int S, int T, int G, float scale, int causal,
+            int has_window, int window) {
   using L = Hop<HD>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -684,8 +692,9 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUte
                       G, T, causal, has_window, window);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    fa_consumer<HD>(base, qpos_b, out + (long long)bk * n_rows * HD, r0, n_rows, G, scale,
-                    causal, has_window, window);
+    fa_consumer<HD>(base, qpos_b, out + (long long)bk * n_rows * HD,
+                    lse == nullptr ? nullptr : lse + (long long)bk * n_rows, r0, n_rows, G,
+                    scale, causal, has_window, window);
   }
 }
 
@@ -705,8 +714,8 @@ template <int HD>
 __global__ void __launch_bounds__(kF32Threads)
 fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const int* __restrict__ q_pos,
-           const int* __restrict__ kv_pos, float* __restrict__ out, int S, int T, int G,
-           float scale, int causal, int has_window, int window) {
+           const int* __restrict__ kv_pos, float* __restrict__ out, float* __restrict__ lse,
+           int S, int T, int G, float scale, int causal, int has_window, int window) {
   using L = F32Smem<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -797,6 +806,7 @@ fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   if (r < n_rows) {
     const float inv = fmaxf(l, 1e-30f);
+    if (lse != nullptr && half == 0) lse[(long long)bk * n_rows + r] = m + logf(inv);
     float* orow = out + (long long)bk * n_rows * HD + r * HD + half * kHalfD;
 #pragma unroll
     for (int d = 0; d < kHalfD; ++d) orow[d] = acc[d] / inv;
@@ -856,7 +866,7 @@ int bf16_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int hd, long lo
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const int* qp, const int* kp,
-                void* out, int BK, int S, int T, int G, float scale, int causal, int has_window,
+                void* out, float* lse, int BK, int S, int T, int G, float scale, int causal, int has_window,
                 int window, cudaStream_t st) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -874,17 +884,17 @@ int launch_bf16(const void* q, const void* k, const void* v, const int* qp, cons
   if ((err = allow_smem(fa_fwd_bf16<HD>, smem))) return err;
   const dim3 grid((unsigned)((n_rows + kBfRows - 1) / kBfRows), (unsigned)BK);
   fa_fwd_bf16<HD><<<grid, kBfThreads, smem, st>>>(mq, mk, mv, qp, kp,
-                                                  static_cast<__nv_bfloat16*>(out), S, T, G,
+                                                  static_cast<__nv_bfloat16*>(out), lse, S, T, G,
                                                   scale, causal, has_window, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, const int* qp, const int* kp,
-              void* out, int BK, int S, int T, int G, float scale, int is_bf16, int causal,
+              void* out, float* lse, int BK, int S, int T, int G, float scale, int is_bf16, int causal,
               int has_window, int window, cudaStream_t st) {
   if (is_bf16)
-    return launch_bf16<HD>(q, k, v, qp, kp, out, BK, S, T, G, scale, causal, has_window, window,
+    return launch_bf16<HD>(q, k, v, qp, kp, out, lse, BK, S, T, G, scale, causal, has_window, window,
                            st);
   const long long n_rows = (long long)S * G;
   const dim3 grid((unsigned)((n_rows + kRows - 1) / kRows), (unsigned)BK);
@@ -893,7 +903,7 @@ int launch_hd(const void* q, const void* k, const void* v, const int* qp, const 
   if (err) return err;
   fa_fwd_f32<HD><<<grid, kF32Threads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      qp, kp, static_cast<float*>(out), S, T, G, scale, causal, has_window, window);
+      qp, kp, static_cast<float*>(out), lse, S, T, G, scale, causal, has_window, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -907,23 +917,25 @@ int smem_bytes(int is_bf16) {
 // q: (BK, S, G*hd), k/v: (BK, T, hd), both bfloat16 (is_bf16 = 1) or
 // float32, contiguous (bf16: 16-byte aligned, for the TMA maps); q_pos
 // (BK, S), kv_pos (BK, T) int32 in [-2^30, 2^30); out like q; scale =
-// hd^-0.5 rounded to float32.  hd in {16, 32, 64, 128}.  Returns a
+// hd^-0.5 rounded to float32; lse: (BK, S*G) float32 or null (not
+// written).  hd in {16, 32, 64, 128}.  Returns a
 // cudaError_t (0 on success) after the launch; 1 (cudaErrorInvalidValue)
 // for an hd the kernel does not take or a tensor map the driver refuses.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const void* q_pos, const void* kv_pos, void* out,
-                                      int BK, int S, int T, int G, int hd, float scale,
+                                      void* lse, int BK, int S, int T, int G, int hd, float scale,
                                       int is_bf16, int causal, int has_window, int window,
                                       void* stream) {
   if (BK <= 0 || S <= 0) return 0;
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
+  float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_hd<16>(q, k, v, qp, kp, out, BK, S, T, G, scale, is_bf16, causal, has_window, window, st);
-    case 32: return launch_hd<32>(q, k, v, qp, kp, out, BK, S, T, G, scale, is_bf16, causal, has_window, window, st);
-    case 64: return launch_hd<64>(q, k, v, qp, kp, out, BK, S, T, G, scale, is_bf16, causal, has_window, window, st);
-    case 128: return launch_hd<128>(q, k, v, qp, kp, out, BK, S, T, G, scale, is_bf16, causal, has_window, window, st);
+    case 16: return launch_hd<16>(q, k, v, qp, kp, out, l, BK, S, T, G, scale, is_bf16, causal, has_window, window, st);
+    case 32: return launch_hd<32>(q, k, v, qp, kp, out, l, BK, S, T, G, scale, is_bf16, causal, has_window, window, st);
+    case 64: return launch_hd<64>(q, k, v, qp, kp, out, l, BK, S, T, G, scale, is_bf16, causal, has_window, window, st);
+    case 128: return launch_hd<128>(q, k, v, qp, kp, out, l, BK, S, T, G, scale, is_bf16, causal, has_window, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -14,7 +14,21 @@ side by side in q's last axis.
   sentinel −1e30, not −inf: a row masked in every tile so far has
   ``m = −1e30`` and ``exp(s − m) = 1`` there, which the first visible key
   wipes with ``corr = exp(−1e30 − m) = 0``; a row that never sees a key
-  returns garbage.  K6 computes this function on the card.
+  returns garbage.  K6 computes this function on the card.  With
+  ``return_lse`` it also returns each row's float32 log-sum-exp
+  ``m + log(max(l, 1e-30))``, (BK, S·G), as ``_flash_fwd`` returns it.
+- :func:`flash_attention_bwd_ref` is the port of the reference's recompute
+  backward, ``repro.models.attention._fa_bwd`` (FlashAttention-2), in the
+  kernel layout: ``delta = Σ dO·O`` per row in float32; per block of
+  ``block_q`` queries × ``block_k`` keys, ``s = (q·k)·scale`` in float32
+  (masked to −1e30), ``p = exp(s − lse)``, ``dp = dO·v``,
+  ``ds = p·(dp − delta)·scale``; ``dv += p·dO`` with ``p`` rounded to dO's
+  type, ``dk += ds·q`` and ``dq += ds·k`` with ``ds`` rounded to the
+  inputs' type; float32 sums, each result rounded once to its input's
+  type.  The reference pads S and T to whole blocks (queries at position
+  −2^30 with ``lse`` 1.0 and zero ``dO``, keys at −2^30); a padded query
+  adds ``p·0 = 0`` and a padded key ``exp(−1e30 − lse) = 0``, so here the
+  last blocks are short instead.  K6b computes this function on the card.
 
 Masks are built from positions: a key is visible where ``kv_pos >= 0``,
 ``q_pos − kv_pos >= 0`` (causal) and ``q_pos − kv_pos < window`` (sliding
@@ -29,8 +43,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_ref", "flash_attention_ref", "kv_tile_classes", "NEG", "SKIP",
-           "PARTIAL", "FULL"]
+__all__ = ["attention_ref", "flash_attention_ref", "flash_attention_bwd_ref",
+           "kv_tile_classes", "NEG", "SKIP", "PARTIAL", "FULL"]
 
 NEG = -1e30
 SKIP, PARTIAL, FULL = 0, 1, 2  # csrc/flash_attention.cu kSkip, kPartial, kFull
@@ -63,9 +77,10 @@ def attention_ref(q, k, v, q_pos, kv_pos, *, causal=True, window=None) -> torch.
 
 
 def flash_attention_ref(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
-                        block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+                        block_q: int = 64, block_k: int = 64, return_lse: bool = False):
     """The online-softmax forward over ``block_q`` queries × ``block_k`` keys
-    at a time (any S and T: the last blocks may be short)."""
+    at a time (any S and T: the last blocks may be short); with
+    ``return_lse``, ``(out, lse)``."""
     BK, S, Ghd = q.shape
     T, hd = k.shape[1], k.shape[2]
     g = Ghd // hd
@@ -76,6 +91,7 @@ def flash_attention_ref(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
     qp = torch.repeat_interleave(q_pos, g, dim=1)
     kf, vf = k.float(), v.float()
     out = torch.empty((BK, S * g, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((BK, S * g), dtype=torch.float32, device=q.device) if return_lse else None
     for i0 in range(0, S, block_q):
         rows = slice(i0 * g, min(i0 + block_q, S) * g)
         qb, qpb = qs[:, rows], qp[:, rows]
@@ -95,7 +111,45 @@ def flash_attention_ref(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
             acc = acc * corr[..., None] + pv
             m = m_new
         out[:, rows] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
-    return out.reshape(BK, S, Ghd)
+        if return_lse:
+            lse[:, rows] = m + torch.log(torch.clamp(l, min=1e-30))
+    out = out.reshape(BK, S, Ghd)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, q_pos, kv_pos, *, causal=True,
+                            window=None, block_q: int = 64, block_k: int = 64):
+    """(dq, dk, dv) of :func:`flash_attention_ref` for the output gradient
+    ``dout`` (like q), from its ``out`` and float32 ``lse`` (BK, S·G); dq
+    like q, dk and dv like k and v."""
+    BK, S, Ghd = q.shape
+    T, hd = k.shape[1], k.shape[2]
+    g = Ghd // hd
+    scale = hd ** -0.5
+    rows_q = q.reshape(BK, S * g, hd)
+    rows_g = dout.reshape(BK, S * g, hd)
+    delta = torch.sum(rows_g.float() * out.reshape(BK, S * g, hd).float(), dim=-1)
+    qp = torch.repeat_interleave(q_pos, g, dim=1)
+    dq = torch.zeros((BK, S * g, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((BK, T, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((BK, T, hd), dtype=torch.float32, device=q.device)
+    for i0 in range(0, S, block_q):
+        rows = slice(i0 * g, min(i0 + block_q, S) * g)
+        qb, gb = rows_q[:, rows].float(), rows_g[:, rows].float()
+        lb, db, qpb = lse[:, rows], delta[:, rows], qp[:, rows]
+        for j0 in range(0, T, block_k):
+            keys = slice(j0, min(j0 + block_k, T))
+            kb, vb = k[:, keys].float(), v[:, keys].float()
+            s = torch.einsum("brh,bth->brt", qb, kb) * scale
+            s = torch.where(_visible(qpb, kv_pos[:, keys], causal, window), s, NEG)
+            p = torch.exp(s - lb[..., None])
+            dp = torch.einsum("brh,bth->brt", gb, vb)
+            ds = p * (dp - db[..., None]) * scale
+            ds_r = ds.to(k.dtype).float()
+            dq[:, rows] += torch.einsum("brt,bth->brh", ds_r, kb)
+            dk[:, keys] += torch.einsum("brt,brh->bth", ds.to(q.dtype).float(), qb)
+            dv[:, keys] += torch.einsum("brt,brh->bth", p.to(dout.dtype).float(), gb)
+    return (dq.reshape(BK, S, Ghd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def kv_tile_classes(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int, rows: int, keys: int,

@@ -8,6 +8,14 @@ destination order, ``row_ptr``; ``long_rows``, the rows of more than
 launch; on CPU tensors it runs the plain version in :mod:`.ref`.  A CUDA
 tensor never takes the plain path: a failed build or launch raises.
 
+The sum is differentiable in ``x`` on both devices (one
+``torch.autograd.Function``): the gradient is the same sum over the
+transposed layout (:meth:`~.ops.SegmentLayout.transposed`, each edge
+``dst → src`` with its weight, rows in the caller's edge order), so on
+the card the backward is K5 again, counted apart as
+``"segment_agg_transposed"`` (K5ᵀ).  The weights are constants of the
+layout: no gradient flows to them.
+
 :func:`tree_exact` is the plain statement of the rule by which K5 sums a
 long row's column as a tree instead of a chain: the tree gives the
 chain's bits only where no partial sum can round.
@@ -25,7 +33,7 @@ from . import ref
 __all__ = ["segment_agg", "launch_counts", "reset_launch_counts", "tree_exact",
            "kernel_attributes"]
 
-_LAUNCHES = {"segment_agg": 0}
+_LAUNCHES = {"segment_agg": 0, "segment_agg_transposed": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -59,6 +67,28 @@ def segment_agg(x: torch.Tensor, layout, *, tree_flags: torch.Tensor | None = No
     row (in ``layout.long_rows`` order) 1 where K5 summed every slice of
     its columns as a tree and 0 where a slice ran the chain (a diagnostic:
     both give the same bits)."""
+    return _SegmentAgg.apply(x, layout, tree_flags)
+
+
+class _SegmentAgg(torch.autograd.Function):
+    """The sum, and its gradient in ``x``: the sum over the transposed layout."""
+
+    @staticmethod
+    def forward(ctx, x, layout, tree_flags):
+        ctx.layout, ctx.n_x = layout, int(x.shape[0])
+        return _aggregate(x, layout, tree_flags, "segment_agg")
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        layout_t = ctx.layout.transposed(ctx.n_x)
+        return _aggregate(grad.contiguous(), layout_t, None, "segment_agg_transposed"), None, None
+
+
+def _aggregate(x: torch.Tensor, layout, tree_flags, counter: str) -> torch.Tensor:
+    """One sum: the plain version on the CPU, one K5 launch (counted under
+    ``counter``) on the card."""
     dev = x.device
     for t in (layout.src, layout.w, layout.row_ptr):
         if t.device != dev:
@@ -88,7 +118,7 @@ def segment_agg(x: torch.Tensor, layout, *, tree_flags: torch.Tensor | None = No
         return out
     if tree_flags is not None:
         tree_flags.fill_(1)  # a slice of a long row that runs the chain clears its row's flag
-    _LAUNCHES["segment_agg"] += 1
+    _LAUNCHES[counter] += 1
     code = _lib().segment_agg_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), layout.src.data_ptr(),
         layout.w.data_ptr(), layout.row_ptr.data_ptr(), n_rows, d,

@@ -9,7 +9,8 @@ runs K5 at any size, or raises.  The edges are laid out once
 layout can be reused for every aggregation over the same edges, with new
 weights through :meth:`SegmentLayout.with_weights`.  The layout also lists
 the rows of more than :data:`LONG_ROW_EDGES` edges, to which K5 gives a
-block each.
+block each.  :meth:`SegmentLayout.transposed` is the layout of the
+gradient: the same edges reversed, built once per layout and kept.
 """
 
 from __future__ import annotations
@@ -42,14 +43,37 @@ class SegmentLayout(NamedTuple):
     n_edges: int  # length of the caller's edge list, padding included
     long_rows: torch.Tensor  # (n_long,) int32: rows of more than T edges, longest first
     long_row_edges: int  # T
+    cache: dict | None = None  # transposed layouts, keyed by the leaves they were built from
 
     def with_weights(self, w) -> "SegmentLayout":
         """The same edges under new per-edge weights, given in the caller's
         edge order (a gather, no sort)."""
+        _constant(w)
         w = torch.as_tensor(w).to(self.w.device, torch.float32)
         if tuple(w.shape) != (self.n_edges,):
             raise ValueError(f"w must be an ({self.n_edges},) vector over the layout's edges")
-        return self._replace(w=w[self.order].contiguous())
+        return self._replace(w=w[self.order].contiguous(), cache={})
+
+    def transposed(self, n_rows: int) -> "SegmentLayout":
+        """The layout of the gradient of a sum over this one: every edge
+        ``src → dst`` as ``dst → src`` with its weight, into ``n_rows`` rows
+        (the rows of the summed ``x``), each row's edges in the caller's
+        edge order.  Built at the first call and kept with the layout."""
+        key = (int(n_rows), id(self.src), id(self.dst), id(self.w))
+        if self.cache is not None and key in self.cache:
+            return self.cache[key]
+        caller = torch.argsort(self.order)  # the kept edges back in the caller's order
+        lay = segment_layout(self.dst[caller], self.src[caller], n_rows, self.w[caller],
+                             device=self.w.device)
+        if self.cache is not None:
+            self.cache[key] = lay
+        return lay
+
+
+def _constant(w) -> None:
+    if isinstance(w, torch.Tensor) and w.requires_grad:
+        raise ValueError("a layout's weights are constants: K5 has no gradient for them, "
+                         "so w must not require one (detach it)")
 
 
 def segment_layout(src, dst, n_rows: int, w=None, *, device=None) -> SegmentLayout:
@@ -63,6 +87,7 @@ def segment_layout(src, dst, n_rows: int, w=None, *, device=None) -> SegmentLayo
         raise ValueError("src and dst must be (E,) vectors of one length")
     if w is None:
         w = torch.ones(src.shape, dtype=torch.float32, device=dev)
+    _constant(w)
     w = torch.as_tensor(w).to(dev, torch.float32)
     if w.shape != src.shape:
         raise ValueError("w must have the shape of src")
@@ -87,7 +112,8 @@ def segment_layout(src, dst, n_rows: int, w=None, *, device=None) -> SegmentLayo
     return SegmentLayout(src=src_sorted.contiguous(), dst=dst_sorted.contiguous(),
                          w=w[order].contiguous(), row_ptr=row_ptr, order=order,
                          n_rows=int(n_rows), n_src=n_src, n_edges=int(src.numel()),
-                         long_rows=long_rows.contiguous(), long_row_edges=LONG_ROW_EDGES)
+                         long_rows=long_rows.contiguous(), long_row_edges=LONG_ROW_EDGES,
+                         cache={})
 
 
 def segment_aggregate(x, src, dst, w=None, n_rows=None, *, device=None) -> torch.Tensor:

@@ -1,11 +1,13 @@
-"""Attention of the LM (port of ``repro.models.attention``, forward only).
+"""Attention of the LM (port of ``repro.models.attention``).
 
 - :func:`flash_attention`: the blocked online-softmax forward of
-  ``_flash_fwd``.  On the card it is K6 (``kernels.flash_attention``, one
-  launch per call); on the CPU it is K6's plain version,
-  ``flash_attention_ref``, blocked by ``q_chunk``/``kv_chunk`` as the
-  reference is.  The gradient (``_fa_bwd``) waits for the training slice:
-  on the card a backward through K6 raises.
+  ``_flash_fwd`` and its recompute gradient ``_fa_bwd`` (the reference's
+  ``jax.custom_vjp``), one ``torch.autograd.Function``.  On the card the
+  forward is K6 (``kernels.flash_attention``, one launch per call, writing
+  the log-sum-exp too when a gradient is wanted) and the backward K6b; on
+  the CPU they are the plain versions, ``flash_attention_ref`` and
+  ``flash_attention_bwd_ref``, blocked by ``q_chunk``/``kv_chunk`` as the
+  reference is.
 - :func:`decode_attention`: one query against a (possibly rolling) cache, a
   direct softmax in plain torch on both devices, as the reference computes
   it outside any kernel.
@@ -41,9 +43,9 @@ def _mask(q_pos_blk, kv_pos_blk, causal, window):
 def flash_attention(q, k, v, q_pos, kv_pos, causal=True, window=None,
                     q_chunk=512, kv_chunk=1024) -> torch.Tensor:
     """(B, S, H, hd) → (B, S, H, hd) of q's type, through
-    ``kernels.flash_attention.ops``: K6 on CUDA tensors (the chunks do not
-    apply: K6 tiles by itself), ``flash_attention_ref`` blocked by
-    ``q_chunk``/``kv_chunk`` on CPU tensors."""
+    ``kernels.flash_attention.ops``: K6 (backward K6b) on CUDA tensors (the
+    chunks do not apply: the kernels tile by themselves), the plain
+    versions blocked by ``q_chunk``/``kv_chunk`` on CPU tensors."""
     return fa_ops.flash_attention(q, k, v, q_pos, kv_pos, causal=causal, window=window,
                                   block_q=q_chunk, block_k=kv_chunk)
 
@@ -54,6 +56,7 @@ def decode_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None) -> tor
     q: (B, 1, H, hd); k/v: (B, T, KV, hd); a direct softmax over the (B, H, T)
     scores: q is scaled in its own type, scores and softmax are float32, p
     is rounded to v's type before ``p·v`` (float32 sums), as the reference.
+    Plain torch on both devices (serving never differentiates it).
     """
     B, S, H, hd = q.shape
     KV = k.shape[2]

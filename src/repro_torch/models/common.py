@@ -24,8 +24,12 @@ def dense_init(key, shape, scale: float | None = None, dtype=torch.float32,
     ``fan_in`` is ``shape[0]``, as in the reference: for the LM's stacked
     (L, D, F) weights that is the layer count L, not D.  The draw is made
     slice by slice straight into ``dtype`` on the device
-    (``truncated_normal(out=...)``), bitwise the whole draw's cast."""
+    (``truncated_normal(out=...)``), bitwise the whole draw's cast.  On the
+    ``meta`` device it draws nothing: the shape alone, as ``jax.eval_shape``
+    traces it."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=dev)
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = 1.0 / (fan_in ** 0.5)

@@ -3,7 +3,9 @@
 
 Message passing is a gather of source rows, a per-edge factor and a sum
 into destination rows over the same edge list S5P partitions; every such
-sum here is K5 (:func:`repro_torch.kernels.segment_agg.segment_agg`).
+sum here is K5 (:func:`repro_torch.kernels.segment_agg.segment_agg`), and
+its gradient K5 again over the transposed layout (K5ᵀ), so every loss
+trains on the card.
 
 **GCN** (``models/gnn.py:84-120`` of the reference): the degree counts (a
 ``(V, 1)`` table of ones, weights = the edge mask), the forward
@@ -64,8 +66,8 @@ from ..kernels.segment_agg import SegmentLayout, segment_agg, segment_layout
 from .common import dense_init, softmax_xent
 
 __all__ = ["GCNConfig", "GCNNorm", "gcn_init", "gcn_norm", "gcn_layer",
-           "gcn_forward", "gcn_loss", "SchNetConfig", "schnet_init", "schnet_forward",
-           "schnet_loss", "EGNNConfig", "egnn_init", "egnn_forward", "egnn_loss",
+           "gcn_forward", "gcn_loss", "gcn_molecule_loss", "SchNetConfig", "schnet_init",
+           "schnet_forward", "schnet_loss", "EGNNConfig", "egnn_init", "egnn_forward", "egnn_loss",
            "DimeNetConfig", "dimenet_init", "dimenet_forward", "dimenet_loss",
            "build_triplets", "message_layout"]
 
@@ -152,6 +154,22 @@ def gcn_loss(params, batch, cfg: GCNConfig, *, device=None):
     if mask is not None:
         mask = torch.as_tensor(mask).to(dev)
     return softmax_xent(logits, labels, mask), {}
+
+
+def gcn_molecule_loss(params, batch, cfg: GCNConfig, *, device=None):
+    """The GCN as a graph-level regressor (the reference's ``gnn_molecule``
+    cell, ``launch/cells.py``): node outputs masked by ``node_mask``, summed
+    per graph by ``graph_idx`` (K5), averaged over the classes; the mean
+    squared error against ``batch["labels"]`` (one a graph), and ``{}``."""
+    dev = resolve_device(device)
+    out = gcn_forward(params, batch["feats"], batch["edge_src"], batch["edge_dst"],
+                      int(batch["feats"].shape[0]), cfg, batch.get("edge_mask"), device=dev)
+    if batch.get("node_mask") is not None:
+        out = out * _floats(batch["node_mask"], dev, out.dtype)[:, None]
+    pooled = _seg_sum(out, message_layout(batch["graph_idx"], int(batch["n_graphs"]),
+                                          device=dev))
+    pred = torch.mean(pooled, dim=-1)
+    return torch.mean(torch.square(pred - _floats(batch["labels"], dev))), {}
 
 
 # ---------------------------------------------------------------------------
@@ -400,8 +418,7 @@ def egnn_forward(params, species, positions, edge_src, edge_dst, n_nodes: int,
         if mask is not None:
             m *= mask.to(m.dtype)[:, None]
         coef = _mlp_apply(blk["phi_x"], m)  # (E, 1)
-        diff *= coef.to(torch.float32)
-        dx = _seg_sum(diff, into_nodes)
+        dx = _seg_sum(diff * coef.to(torch.float32), into_nodes)  # diff is kept for d2's gradient
         del diff
         x = x + dx / cnt[:, None]
         agg = _seg_sum(m, into_nodes)

@@ -7,10 +7,17 @@ sliding window; a SwiGLU MLP, or Mixtral's top-k MoE block with the
 reference's sort-based capacity dispatch (each batch row its own dispatch
 group; plain torch, as the reference's is plain ``jnp``).  Parameters are a
 dict with the reference's keys and stacked (L, …) leaves; a Python loop
-over layers takes the place of ``lax.scan`` (``remat`` and the sharding
-constraints have no effect on one device).  The full-sequence attention of
-``forward`` and ``prefill`` is :func:`.attention.flash_attention`, which on
-the card *is* K6; there is no switch to a plain version on the card.
+over layers takes the place of ``lax.scan`` (the sharding constraints have
+no effect on one device).  The full-sequence attention of ``forward`` and
+``prefill`` is :func:`.attention.flash_attention`, which on the card *is*
+K6 (and K6b in a backward); there is no switch to a plain version on the
+card.  :func:`loss_fn` trains: with ``cfg.remat`` and a gradient to take,
+each layer of :func:`forward` runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+reference's ``jax.checkpoint(body)``: the backward recomputes the layer,
+K6's forward included, so a training step launches K6 twice a layer and
+K6b once.  The MoE block's backward is plain autograd through
+:func:`_moe_dispatch_group`, as the reference's is XLA's.
 ``use_flash_kernel`` stays for parity with the reference's config and is
 read nowhere, as there.  Every entry point runs on ``device`` (default
 ``cuda``, raising without a card).
@@ -52,7 +59,7 @@ class LMConfig:
     capacity_factor: float = 1.25
     dtype: Any = torch.bfloat16
     attn_chunk: int = 1024  # KV block of the CPU's online-softmax loop
-    remat: bool = True  # no effect in the port (inference only)
+    remat: bool = True  # recompute each layer in the backward (jax.checkpoint)
     use_flash_kernel: bool = False  # read nowhere, as in the reference
 
     @property
@@ -342,16 +349,26 @@ def forward(params, tokens, cfg: LMConfig, positions=None, device=None):
     positions = _tokens(positions, dev).to(torch.int32)
     x = _embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def body(x, lp):
+        x, a, _ = _layer(x, lp, cfg, positions)
+        return x, a
+
     for i in range(cfg.n_layers):
-        x, a, _ = _layer(x, _layer_params(params, i), cfg, positions)
+        lp = _layer_params(params, i)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x, a = body(x, lp)
         aux = aux + a
     x = rms_norm(x, params["final_norm"])
     return x @ params["lm_head"], aux / cfg.n_layers
 
 
 def loss_fn(params, batch, cfg: LMConfig, device=None):
-    """Mean cross-entropy of ``forward`` (evaluation only: the port has no
-    backward for K6 yet)."""
+    """Mean cross-entropy of ``forward`` plus 0.01 × the MoE aux loss, and
+    ``{"xent", "aux"}``; differentiable in ``params``."""
     logits, aux = forward(params, batch["tokens"], cfg, device=device)
     targets = _tokens(batch["targets"], logits.device)
     loss = softmax_xent(logits, targets)

@@ -4,14 +4,14 @@
 [Lian et al., arXiv:1803.05170]  Published config: 39 sparse fields,
 embed_dim 10, CIN 200-200-200, MLP 400-400.
 
-- :func:`embedding_lookup` — one row gather per field (``index_select``);
+- :func:`embedding_lookup` — one row gather per field (indexing);
 - :func:`embedding_bag` — multi-hot ragged bags (sum/mean) from
   ``searchsorted`` + ``index_add_``, ``torch.nn.EmbeddingBag``'s semantics;
 - :func:`s5p_row_placement` — S5P over the (sample × feature-row) access
   graph places embedding rows on shards, replicating the hot ones.
 
 Every CIN layer goes through :func:`repro_torch.kernels.cin.cin_layer_kernel`:
-on the card it *is* K7, on the CPU its plain version; there is no switch to
+on the card it *is* K7 (its gradient K7b), on the CPU its plain version; there is no switch to
 the plain version on the card.  The reference's ``sharding.constrain``
 calls have no counterpart: on one device they are no-ops
 (``repro/sharding.py:106-112``), and no sharding module is ported.
@@ -71,8 +71,10 @@ class XDeepFMConfig:
 
 
 def embedding_lookup(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """Row gather: ``table[indices]``."""
-    return torch.index_select(table, 0, indices)
+    """Row gather: ``table[indices]``.  An indexing gather, whose gradient
+    (``index_put_`` with accumulation) sums repeated rows in a fixed order
+    on the card; ``index_select``'s adds them with atomics."""
+    return table[indices.long()]
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor, offsets: torch.Tensor,
@@ -206,8 +208,9 @@ def xdeepfm_forward(params: dict, field_ids: torch.Tensor, cfg: XDeepFMConfig,
 
 
 def xdeepfm_loss(params: dict, batch: dict, cfg: XDeepFMConfig):
-    """Mean binary log-loss of the logits against ``batch["labels"]``
-    (evaluation only: K7 has no backward)."""
+    """Mean binary log-loss of the logits against ``batch["labels"]``, and
+    ``{"logloss"}``; differentiable in ``params`` (the CIN through K7 and
+    K7b on the card, the gathers and the MLP through autograd)."""
     logits = xdeepfm_forward(params, batch["field_ids"], cfg).float()
     y = batch["labels"].float()
     loss = torch.mean(torch.clamp(logits, min=0) - logits * y +

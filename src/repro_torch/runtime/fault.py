@@ -84,9 +84,12 @@ def _devices(tree) -> list:
 
 
 def _place(host_tree, devices: list):
-    """The host copy's leaves back on their devices, leaf by leaf."""
+    """A copy of the host copy's leaves on their devices, leaf by leaf (a
+    step may write into its state's tensors: the host copy stays as taken)."""
     leaves, spec = tree_flatten(host_tree)
-    return tree_unflatten(spec, [reshard_state(x, d) for x, d in zip(leaves, devices)])
+    placed = [reshard_state(x, d) for x, d in zip(leaves, devices)]
+    return tree_unflatten(spec, [y.clone() if y is x and isinstance(x, torch.Tensor) else y
+                                 for x, y in zip(leaves, placed)])
 
 
 def _synchronize(tree) -> None:
@@ -102,6 +105,8 @@ class FaultTolerantLoop:
     must be step-addressable (deterministic replay from any step).
     ``shard_fn(step) → shard`` attributes each step's time to a lane for
     the straggler monitor; without it every step is charged to shard 0.
+    ``entry_copy_s`` holds the seconds of the last run's host copy of its
+    entry state.
     """
 
     def __init__(self, step_fn: Callable, data_fn: Callable[[int], Any],
@@ -118,11 +123,14 @@ class FaultTolerantLoop:
         self.straggler_monitor = straggler_monitor
         self.shard_fn = shard_fn
         self.restarts = 0
+        self.entry_copy_s = 0.0
 
     def run(self, state, n_steps: int, start_step: int = 0):
         # the entry state: a failure before the first checkpoint replays
         # from here (the crashed attempt's state would double-apply steps)
+        t0 = time.perf_counter()
         init_state = _host_copy(state)
+        self.entry_copy_s = time.perf_counter() - t0
         init_devices = _devices(state)
         step = start_step
         metrics = {}

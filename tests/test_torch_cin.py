@@ -101,7 +101,7 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     # a transposed (non-contiguous) input is made contiguous by the entry point
     xt = xk.transpose(1, 2).contiguous().transpose(1, 2)
     assert torch.equal(cin_layer_kernel(xt, x0, w), got)
-    assert launch_counts() == {"cin": 0}
+    assert launch_counts() == {"cin": 0, "cin_bwd": 0}
 
 
 def test_wrapper_refuses_bad_inputs():
@@ -123,8 +123,8 @@ def test_wrapper_refuses_bad_inputs():
 
 
 def test_plain_version_has_a_gradient_on_the_cpu():
-    """On the CPU the plain version is differentiable torch; K7's gradient
-    raises (tests/test_torch_kernels_gpu.py)."""
+    """On the CPU the layer is differentiable through the plain versions of
+    K7 and K7b (the card's K7b: tests/test_torch_kernels_gpu.py)."""
     xk, x0, w = (torch.from_numpy(a) for a in _inputs(4, 3, 2, 5, 6, seed=2))
     w.requires_grad_(True)
     cin_layer(xk, x0, w).sum().backward()
@@ -292,3 +292,61 @@ def test_split_partials_add_up_and_a_dropped_split_is_seen(dtype):
     assert float((dropped - one).abs().max()) > 1e-2 * top
     with pytest.raises(ValueError, match="splits"):
         cin_split_partials(xk, x0, w, splits=50)
+
+
+# --- the backward: cin_layer_bwd_ref (K7b's plain version) ---------------------
+
+@pytest.mark.parametrize("B,Hk,m,D,Hn", [(64, 10, 6, 8, 12), (40, 39, 39, 10, 200),
+                                         (9, 200, 39, 10, 200), (5, 3, 2, 1, 41)])
+def test_cin_backward_matches_reference_vjp(B, Hk, m, D, Hn):
+    """``cin_layer_bwd_ref`` (through the autograd function on CPU tensors)
+    against ``jax.vjp`` of the reference's ``models.recsys._cin_layer``,
+    float32: dxk, dx0 and dw within 1e-5 of their largest magnitude (the
+    three contractions sum in other orders than XLA's)."""
+    import jax
+
+    from repro.models.recsys import _cin_layer
+
+    xk, x0, w = _inputs(B, Hk, m, D, Hn, seed=B + Hk)
+    g = np.random.default_rng(B).standard_normal((B, Hn, D)).astype(np.float32)
+    _, vjp = jax.vjp(_cin_layer, jnp.asarray(xk), jnp.asarray(x0), jnp.asarray(w))
+    want = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (xk, x0, w)]
+    cin_layer(*ts).backward(torch.from_numpy(g))
+    assert launch_counts()["cin_bwd"] == 0
+    for t, w_ in zip(ts, want):
+        w_ = np.asarray(w_)
+        assert np.abs(t.grad.numpy() - w_).max() <= REL_F32 * np.abs(w_).max()
+
+
+def test_cin_backward_first_layer_adds_both_paths():
+    """Layer 1 has xk = x0: autograd adds dxk and dx0 into one gradient,
+    as XLA does for the reference's ``_cin_layer(x0, x0, w)``."""
+    import jax
+
+    from repro.models.recsys import _cin_layer
+
+    _, x0, w = _inputs(16, 6, 6, 4, 8, seed=3)
+    g = np.random.default_rng(0).standard_normal((16, 8, 4)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, c: _cin_layer(a, a, c), jnp.asarray(x0), jnp.asarray(w))
+    want = vjp(jnp.asarray(g))
+    tx, tw = torch.from_numpy(x0).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    cin_layer(tx, tx, tw).backward(torch.from_numpy(g))
+    for t, w_ in zip((tx, tw), want):
+        w_ = np.asarray(w_)
+        assert np.abs(t.grad.numpy() - w_).max() <= REL_F32 * np.abs(w_).max()
+
+
+def test_cin_backward_bf16_rounds_once():
+    """In bf16 each gradient is the float32 gradient of the same inputs
+    rounded once (within one bf16 ulp)."""
+    from repro_torch.kernels.cin.ref import cin_layer_bwd_ref
+
+    xk, x0, w = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(20, 7, 5, 6, 9, 4))
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal((20, 9, 6), np.float32)
+                         ).to(torch.bfloat16)
+    got = cin_layer_bwd_ref(xk, x0, w, g)
+    want = cin_layer_bwd_ref(xk.float(), x0.float(), w.float(), g.float())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b.to(torch.bfloat16))

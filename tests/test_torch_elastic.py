@@ -9,8 +9,9 @@ integer or a float32 summed in the reference's order.  Each test of
 inputs through both packages, every bundle leaf, every ``ReshardResult``
 field, the game's assignment and rounds, Greedy's and HDRF's carries and
 parts equal, and the reference test's postconditions asserted on the
-port's output.  The controller's state is a plain tree of tensors (the
-reference's optimizer, ``repro.optim``, is not ported).
+port's output.  The controller's state is a plain tree of tensors, and in
+``test_elastic_resize_preserves_the_reference_train_state`` the optimizer's
+``TrainState`` taken from the reference through ``interop.train_state``.
 """
 
 from __future__ import annotations
@@ -432,3 +433,28 @@ def test_elastic_resize_preserves_state(tmp_path):
     for a, b in zip(_leaves(state), _leaves(new_state)):
         assert torch.equal(a, b)
     assert manager.steps() == [3]
+
+
+def test_elastic_resize_preserves_the_reference_train_state(tmp_path):
+    """A resize checkpoints and restores the reference's AdamW state (its
+    ``init_state`` after one ``adamw_update``, bf16 and float32 leaves) as
+    the port's ``TrainState``, leaf for leaf and bit for bit."""
+    from repro import optim as jopt
+    from repro_torch import interop, optim
+
+    rng = np.random.default_rng(1)
+    params = {"w": jnp.asarray(rng.standard_normal((5, 3)), jnp.bfloat16),
+              "b": jnp.asarray(rng.standard_normal((3,)), jnp.float32)}
+    jstate = jopt.adamw_update(jopt.init_state(params), jax.tree.map(jnp.ones_like, params),
+                               jopt.AdamWConfig())
+    state = interop.train_state(jstate, device=CPU)
+    assert state.params["w"].dtype == torch.bfloat16 and int(state.step) == 1
+    controller = ElasticController(CheckpointManager(tmp_path, keep=2, async_write=False),
+                                   make_mesh=lambda n: torch.device(CPU),
+                                   repartition=lambda k: k)
+    new_state, _, _, step = controller.resize(state, 1, 4)
+    assert step == 1 and isinstance(new_state, optim.TrainState)
+    for a, b in zip(_leaves(state), _leaves(new_state)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for w, b in zip(jax.tree.leaves(jstate), _leaves(new_state)):
+        np.testing.assert_array_equal(b.float().numpy(), np.asarray(w, np.float32))

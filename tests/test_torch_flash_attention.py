@@ -218,3 +218,71 @@ def test_kv_tile_classes_see_a_planted_wrong_rule():
     wrong[(kmax[:, None] <= qmin[:, :, None]) & (cls != fa_ref.SKIP)] = fa_ref.FULL
     assert not torch.equal(wrong, cls)
     assert _class_violations(wrong, q_pos, kv_pos, G, rows, keys, causal, window)
+
+
+# --- the backward: flash_attention_bwd_ref (K6b's plain version) -------------
+
+@pytest.mark.parametrize("case", ["causal", "window", "padded", "ragged", "noncausal"])
+def test_flash_backward_matches_reference_vjp(case):
+    """``flash_attention_bwd_ref`` (through the autograd function on CPU
+    tensors, with the forward's lse) against ``jax.vjp`` of the reference's
+    ``models.attention.flash_attention`` (its ``_fa_bwd``), float32: each
+    gradient within 1e-5 of its largest magnitude (measured ~4e-7: the
+    products sum in another order)."""
+    import jax
+
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+
+    B, S, T, H, KV, hd = {"ragged": (2, 37, 53, 6, 2, 32)}.get(case, (2, 64, 64, 4, 2, 16))
+    window = 9 if case == "window" else None
+    causal = case != "noncausal"
+    (q, k, v), (jq, jk, jv) = _inputs(B, S, T, H, KV, hd, "float32", seed=len(case))
+    g = np.random.default_rng(1).standard_normal((B, S, H, hd)).astype(np.float32)
+    qp = np.broadcast_to(np.arange(T - S, T, dtype=np.int32), (B, S)).copy()
+    kp = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    if case == "padded":
+        kp[:, :5] = -(2**30)
+    _, vjp = jax.vjp(lambda a, b, c: jattn.flash_attention(a, b, c, jnp.asarray(qp),
+                                                           jnp.asarray(kp), causal, window,
+                                                           16, 16), jq, jk, jv)
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv = (t.requires_grad_() for t in (q, k, v))
+    before = launch_counts()["flash_attention_bwd"]
+    out = tattn.flash_attention(tq, tk, tv, torch.from_numpy(qp), torch.from_numpy(kp), causal,
+                                window, 16, 16)
+    out.backward(torch.from_numpy(g))
+    assert launch_counts()["flash_attention_bwd"] == before  # the CPU never launches K6b
+    for w, t in zip(want, (tq, tk, tv)):
+        w = np.asarray(w)
+        assert np.abs(t.grad.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_lse_and_backward_blocks(dtype):
+    """The forward's lse is the log of each row's softmax denominator
+    (against the direct ``logsumexp`` of the same float32 scores, within
+    1e-5), ``out`` keeps its bits
+    with and without it, and the backward's blocking changes no gradient
+    beyond the float32 sums' order (1e-5 of the largest in float32, 2^-7 in
+    bf16, one rounding of the result)."""
+    (q, k, v), _ = _inputs(2, 70, 70, 6, 2, 32, dtype, seed=5)
+    qk, kk, vk = _grouped(q, k, v, 2)
+    pos = torch.arange(70, dtype=torch.int32).expand(4, 70).contiguous()
+    out, lse = flash_attention_ref(qk, kk, vk, pos, pos, window=20, return_lse=True)
+    assert torch.equal(out, flash_attention_ref(qk, kk, vk, pos, pos, window=20))
+    qs = (qk.float() * 32 ** -0.5).to(qk.dtype).float()  # q scaled, rounded to its type
+    s = torch.einsum("bqh,bth->bqt", qs.reshape(4, 70 * 3, 32), kk.float())
+    vis = fa_ref._visible(torch.repeat_interleave(pos, 3, dim=1), pos, True, 20)
+    want = torch.logsumexp(torch.where(vis, s, -torch.inf), dim=-1)
+    assert (lse - want).abs().max() <= 1e-5 * want.abs().max() + 1e-5
+    dout = torch.from_numpy(np.random.default_rng(2).standard_normal(qk.shape, np.float32)
+                            ).to(qk.dtype)
+    a = fa_ref.flash_attention_bwd_ref(qk, kk, vk, out, lse, dout, pos, pos, window=20,
+                                       block_q=16, block_k=16)
+    b = fa_ref.flash_attention_bwd_ref(qk, kk, vk, out, lse, dout, pos, pos, window=20,
+                                       block_q=70, block_k=70)
+    limit = 2**-7 if dtype == "bfloat16" else 1e-5
+    for x, y, ref_t in zip(a, b, (qk, kk, vk)):
+        assert x.dtype == ref_t.dtype and x.shape == ref_t.shape
+        assert (x.float() - y.float()).abs().max() <= limit * y.float().abs().max()

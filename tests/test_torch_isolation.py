@@ -43,7 +43,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.hybrid.driver", "repro_torch._dist", "repro_torch.launch.mesh",
             "repro_torch.core.distributed", "repro_torch.graphs.sampler",
             "repro_torch.configs.schnet", "repro_torch.configs.egnn",
-            "repro_torch.configs.dimenet"} <= set(mods)
+            "repro_torch.configs.dimenet", "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.schedules", "repro_torch.optim.grad_compress",
+            "repro_torch.launch.cells", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

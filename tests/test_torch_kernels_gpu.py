@@ -2,7 +2,11 @@
 versions (bitwise; K1, K2 and K3 also at the main path's 65,536-edge chunk,
 K2 with no room, room that runs out and the wrap guard, K3 on every rung,
 with equal bits on two launches; K4a with negative counts), K6 and K7 against
-their plain versions within stated tolerances, the GCN, SchNet, EGNN,
+their plain versions within stated tolerances, the backward kernels K6b and
+K7b within stated tolerances and K5ᵀ bitwise (each with equal bits on two
+launches), a training step of each family's smoke cell on cuda against cpu
+(and the GCN loss's gradient, which K5 dropped on the card before its
+autograd function), the GCN, SchNet, EGNN,
 DimeNet (and their K5 message layouts, bitwise), the LM and xDeepFM on
 cuda against cpu, streams paged from disk shards onto the card, and incremental
 re-partitioning (``cluster_retract_chunk``; a delta, its rollback, a deletion
@@ -807,6 +811,128 @@ def test_gcn_forward_cuda_equals_cpu(cuda, masked):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("layout", ["by_dst", "by_src", "message"])
+def test_k5_transposed_bitwise_and_repeats(cuda, layout):
+    """The gradient of a sum through K5 is K5 over the transposed layout
+    (K5ᵀ, counted apart): bitwise the CPU's gradient (the plain version over
+    the same transposed layout), equal bits on two backwards.  GCN's two
+    layouts (by destination, by source) carry weights made on the host, as
+    the CPU's and the card's ``rsqrt`` differ by an ulp."""
+    from repro_torch.graphs import ogbn_products_like
+    from repro_torch.kernels.segment_agg import launch_counts, segment_agg, segment_layout
+    from repro_torch.models.gnn import message_layout
+
+    g = ogbn_products_like(seed=0, scale=2e-3)
+    n, d = g.n_vertices, 16
+    rng = np.random.default_rng(4)
+    w = rng.random(g.src.size).astype(np.float32)
+    rows = g.src.size if layout == "message" else n
+    x = torch.from_numpy(rng.standard_normal((rows, d), np.float32))
+    dout = torch.from_numpy(rng.standard_normal((n, d), np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        if layout == "message":
+            lay = message_layout(g.dst, n, device=dev)
+        elif layout == "by_dst":
+            lay = segment_layout(g.src, g.dst, n, w, device=dev)
+        else:
+            lay = segment_layout(g.dst, g.src, n, w, device=dev)
+        outs = []
+        for _ in range(2):
+            xr = x.to(dev).detach().clone().requires_grad_()
+            before = launch_counts()["segment_agg_transposed"]
+            segment_agg(xr, lay).backward(dout.to(dev))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+                assert launch_counts()["segment_agg_transposed"] == before + 1
+            outs.append(xr.grad.cpu())
+        assert torch.equal(outs[0], outs[1])
+        grads[str(dev)] = outs[0]
+    assert torch.equal(grads["cuda"], grads["cpu"])
+
+
+def test_gcn_loss_gradient_cuda_equals_cpu(cuda, highest_f32):
+    """The K5 repair's pin: a GCN loss on the card has a gradient for every
+    weight (before the repair K5's output had no ``grad_fn`` on the card),
+    equal to the CPU's within rtol 1e-4, atol 1e-6 (``x @ W`` in cuBLAS
+    against the CPU's BLAS; the sums and their gradients are bitwise)."""
+    from repro_torch import random as trandom
+    from repro_torch.graphs import ogbn_products_like, products_features
+    from repro_torch.kernels.segment_agg import launch_counts
+    from repro_torch.models.gnn import GCNConfig, gcn_init, gcn_loss
+
+    g = ogbn_products_like(seed=0, scale=2e-3)
+    n = g.n_vertices
+    cfg = GCNConfig(n_layers=2, d_hidden=16, d_feat=100, n_classes=7)
+    batch = {"feats": products_features(np.arange(n), 100, seed=0), "edge_src": g.src,
+             "edge_dst": g.dst, "labels": np.random.default_rng(0).integers(0, 7, n)}
+    grads = {}
+    for dev in ("cpu", cuda):
+        params = gcn_init(cfg, trandom.PRNGKey(0), device=dev)
+        for layer in params["layers"]:
+            layer["w"].requires_grad_()
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        before = launch_counts()["segment_agg_transposed"]
+        loss, _ = gcn_loss(params, b, cfg, device=dev)
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert launch_counts()["segment_agg_transposed"] == before + 4
+        grads[str(dev)] = [layer["w"].grad.cpu() for layer in params["layers"]]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert torch.isfinite(a).all() and a.abs().max() > 0
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("gcn-cora", "full_graph_sm"), ("gcn-cora", "molecule"), ("schnet", "molecule"),
+    ("egnn", "molecule"), ("dimenet", "molecule"), ("xdeepfm", "train_batch"),
+    ("llama3-8b", "train_4k"),
+])
+def test_train_step_cuda_equals_cpu(cuda, highest_f32, arch, shape):
+    """One AdamW step of each family's smoke training cell, float32 (the LM
+    cast from bf16), on cuda against cpu from the same state and batch: the
+    first moment ``mu`` (0.1 × the clipped gradient) of every leaf within
+    1e-4 of its largest magnitude (1e-3 for the LM, whose smoke weights make
+    its attention nearly one-hot: tests/test_torch_train.py), the loss
+    within rtol 1e-5; two steps on
+    the card from the same state give the same bits.  (The MoE's combine
+    adds with ``index_add_``, atomics on the card: Mixtral's step is held
+    on the CPU only, tests/test_torch_train.py.)"""
+    import dataclasses
+
+    from repro_torch import random as trandom
+    from repro_torch.launch import cells
+    from repro_torch.streaming.carry import tree_flatten
+
+    def build(dev):
+        cell = cells.build_cell(arch, shape, smoke=True, device=dev)
+        if cell.arch == "llama3-8b":
+            spec = cells.get_arch(arch)
+            cfg = dataclasses.replace(spec.smoke_config, dtype=torch.float32)
+            cell = cells._lm_cell(spec, shape, dict(seq=64, batch=2, kind="lm_train"), cfg,
+                                  torch.device(dev))
+        return cell
+
+    key = trandom.PRNGKey(0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cell = build(dev)
+        runs = []
+        for _ in range(2 if dev == "cuda" else 1):
+            state = cell.init_state(key)
+            new, metrics = cell.step_fn(state, *cell.make_batch(trandom.fold_in(key, 0)))
+            runs.append(([t.cpu() for t in tree_flatten(new.mu)[0]],
+                         float(metrics["loss"])))
+        if dev == "cuda":
+            assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+            assert runs[0][1] == runs[1][1]
+        out[dev] = runs[0]
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-5)
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= (1e-3 if arch == "llama3-8b" else 1e-4) * b.abs().max()
+
 
 def _gnn3d_batch(n_mol, n_atoms, n_edges, pad_nodes=0):
     """``molecule_batch`` flattened with ``graph_idx``, padded nodes masked,
@@ -979,11 +1105,89 @@ def test_k6_model_layout_and_refusals(cuda, highest_f32):
     shifted.copy_(bq)
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention_fwd(shifted, bk_, bv, bqp, bkp)
+    # a gradient through K6 runs K6b (counted once), never a plain version
+    from repro_torch.kernels.flash_attention import launch_counts
+
     x = torch.ones(1, 16, 32, device=cuda, requires_grad=True)
     p16 = torch.arange(16, dtype=torch.int32, device=cuda)[None]
     out = flash_attention_fwd(x, x.detach(), x.detach(), p16, p16)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    before = launch_counts()["flash_attention_bwd"]
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_bwd"] == before + 1
+    assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("dtype,hd,G,S,T,window,causal,pad", [
+    (torch.float32, 32, 3, 77, 141, 48, True, 0), (torch.float32, 16, 2, 100, 100, None,
+                                                   False, 5),
+    (torch.float32, 128, 4, 130, 130, None, True, 0), (torch.float32, 64, 1, 65, 65, 17, True, 0),
+    (torch.bfloat16, 128, 4, 256, 256, None, True, 0), (torch.bfloat16, 64, 2, 200, 300, 64,
+                                                        True, 3),
+    (torch.bfloat16, 128, 4, 4096, 4096, None, True, 0), (torch.bfloat16, 32, 2, 64, 64, None,
+                                                          True, 0),
+    (torch.bfloat16, 16, 3, 77, 141, 48, True, 5),
+])
+def test_k6b_against_plain_version_and_repeats(cuda, highest_f32, dtype, hd, G, S, T, window,
+                                               causal, pad):
+    """K6b against ``flash_attention_bwd_ref`` on the same card tensors (q,
+    k, v, K6's out and lse, dout): the largest error of each gradient at
+    most 1e-5 (float32) or 2^-6 (bfloat16: p and ds are rounded to bf16
+    from scores summed in another order) of its largest magnitude; two
+    launches give the same bits."""
+    from repro_torch.kernels.flash_attention import launch_counts
+    from repro_torch.kernels.flash_attention.kernel import _k6, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    BK = 2 if S < 4096 else 4
+    q, k, v, qp, kp = (t.to(cuda) for t in _k6_inputs(BK, S, T, G, hd, dtype, seed=hd + S,
+                                                      pad_keys=pad))
+    out, lse = _k6(q, k, v, qp, kp, causal, window, True)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(1), device=cuda
+                       ).to(dtype)
+    before = launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, out, lse, dout, qp, kp, causal=causal, window=window)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, qp, kp, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_bwd"] == before + 2
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, qp, kp, causal=causal,
+                                   window=window, block_q=256, block_k=512)
+    limit = 2**-6 if dtype == torch.bfloat16 else 1e-5
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        err = (a.float() - c.float()).abs().max() / c.float().abs().max()
+        assert err <= limit, float(err)
+
+
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_k6_gradient_through_the_model_layout(cuda, highest_f32, model_layout):
+    """``models.attention.flash_attention`` trains on the card: float32
+    gradients of q, k and v within 1e-5 of their largest magnitude of the
+    CPU's (the plain versions), K6 once and K6b once."""
+    from repro_torch.kernels.flash_attention import launch_counts
+    from repro_torch.models.attention import flash_attention
+
+    rng = np.random.default_rng(3)
+    B, S, H, KV, hd = 2, 90, 8, 2, 32
+    arrays = [rng.standard_normal(s, np.float32) for s in
+              ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd))]
+    pos = torch.arange(S, dtype=torch.int32).expand(B, S)
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_() for a in arrays[:3])
+        p = pos.to(dev)
+        before = launch_counts()
+        out = flash_attention(q, k, v, p, p, True, 40 if model_layout else None, 32, 64)
+        out.backward(torch.from_numpy(arrays[3]).to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            after = launch_counts()
+            assert after["flash_attention"] == before["flash_attention"] + 1
+            assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+        grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "qwen2.5-14b", "qwen3-14b"])
@@ -1183,9 +1387,45 @@ def test_k7_refusals_and_backward(cuda):
     torch.testing.assert_close(cin_layer_kernel(xk.transpose(1, 2).contiguous()
                                                 .transpose(1, 2), x0, w),
                                cin_layer(xk, x0, w), rtol=0, atol=0)
+    # a gradient through K7 runs K7b (counted once), never a plain version
+    from repro_torch.kernels.cin import launch_counts
+
     w.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        cin_layer(xk, x0, w).sum().backward()
+    before = launch_counts()["cin_bwd"]
+    cin_layer(xk, x0, w).sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts()["cin_bwd"] == before + 1 and torch.isfinite(w.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hk,m,D,Hn", [
+    (5, 3, 2, 1, 41), (77, 8, 6, 4, 8), (64, 39, 39, 10, 200), (48, 200, 39, 10, 200),
+    (100, 20, 40, 10, 200), (2048, 200, 39, 10, 200),
+])
+def test_k7b_against_plain_version_and_repeats(cuda, highest_f32, dtype, B, Hk, m, D, Hn):
+    """K7b against ``cin_layer_bwd_ref`` on the same card tensors: the
+    largest error of each gradient at most 1e-5 (float32) or 2^-7 (bfloat16,
+    one rounding of the result) of its largest magnitude; two launches give
+    the same bits."""
+    from repro_torch.kernels.cin import launch_counts
+    from repro_torch.kernels.cin.kernel import cin_layer_bwd
+    from repro_torch.kernels.cin.ref import cin_layer_bwd_ref
+
+    xk, x0, w = (t.to(cuda) for t in _k7_inputs(B, Hk, m, D, Hn, dtype, seed=B + Hk))
+    g = torch.randn((B, Hn, D), generator=torch.Generator(cuda).manual_seed(2), device=cuda
+                    ).to(dtype)
+    before = launch_counts()["cin_bwd"]
+    got = cin_layer_bwd(xk, x0, w, g)
+    again = cin_layer_bwd(xk, x0, w, g)
+    torch.cuda.synchronize()
+    assert launch_counts()["cin_bwd"] == before + 2
+    want = cin_layer_bwd_ref(xk, x0, w, g)
+    limit = 2**-7 if dtype == torch.bfloat16 else 1e-5
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        err = (a.float() - c.float()).abs().max() / c.float().abs().max()
+        assert err <= limit, float(err)
 
 
 def _published_xdeepfm():

@@ -7,7 +7,11 @@ Tolerance: bitwise.  Parts, carries, lane plans and ``pin_map`` are
 integers; the loop's state is float32 updated op by op in the same order
 in both packages.  Each test of ``tests/test_fault.py`` and the straggler
 and loop tests of ``tests/test_substrate.py`` have a counterpart here; the
-loop's state is a plain tree (the reference's optimizer is not ported).
+loop's state is a plain tree, and in
+``test_loop_over_the_reference_train_state`` the optimizer's ``TrainState``,
+taken from the reference through ``interop.train_state`` and stepped by
+each package's AdamW (within rtol 1e-5 of each other: ``pow`` and the
+sums' order are other float32 routines; each package's resume bitwise).
 The handoff is driven by a monitor whose times are fixed (:class:`_Fixed`),
 so its plan does not depend on the host's timing.
 """
@@ -385,3 +389,74 @@ def test_fault_injector_fires_once():
         lane.check(1, 4)
     lane.check(1, 4)
     assert lane.fired == [(1, 4)]
+
+
+def test_loop_over_the_reference_train_state(tmp_path):
+    """The loop over AdamW: the reference's ``TrainState`` (its
+    ``init_state``) through ``interop.train_state`` into the port, a fault
+    before the first checkpoint and one after it; the port resumes to its
+    clean run's bits and stays within rtol 1e-5 of the reference's loop."""
+    from repro import optim as jopt
+    from repro_torch import interop, optim
+
+    rng = np.random.default_rng(0)
+    params = {"w": rng.standard_normal((4,)).astype(np.float32), "b": np.float32([0.5])}
+    xs = rng.standard_normal((16, 4)).astype(np.float32)
+
+    def t_loss(p, y, cfg):
+        return torch.mean((torch.from_numpy(xs) @ p["w"] + p["b"][0] - y) ** 2), {}
+
+    def j_loss(p, y, cfg):
+        return jnp.mean((xs @ p["w"] + p["b"][0] - y) ** 2), {}
+
+    def t_data(step):
+        return torch.from_numpy(np.sin(xs.sum(1) + step).astype(np.float32))
+
+    def j_data(step):
+        return jnp.asarray(np.sin(xs.sum(1) + step).astype(np.float32))
+
+    t_step = optim.make_train_step(t_loss, None, optim.AdamWConfig(lr=0.05))
+    j_step = jopt.make_train_step(j_loss, None, jopt.AdamWConfig(lr=0.05))
+    j_state = jopt.init_state(jax.tree.map(jnp.asarray, params))
+    runs = {}
+    for name, fail_at in (("clean", ()), ("faulty", (3, 8))):
+        loop = FaultTolerantLoop(t_step, t_data,
+                                 CheckpointManager(tmp_path / name, async_write=False),
+                                 ckpt_every=5, injector=FaultInjector(fail_at))
+        state, step, _ = loop.run(interop.train_state(j_state, device=CPU), 12)
+        assert step == 12 and loop.restarts == len(fail_at)
+        assert isinstance(state, optim.TrainState) and int(state.step) == 12
+        runs[name] = state
+    for a, b in zip(tree_leaves(runs["clean"]), tree_leaves(runs["faulty"])):
+        assert torch.equal(a, b)
+    jloop = JR.FaultTolerantLoop(j_step, j_data, JManager(tmp_path / "j", async_write=False),
+                                 ckpt_every=5, injector=JR.FaultInjector((3, 8)))
+    jfinal, _, _ = jloop.run(j_state, 12)
+    for name in ("params", "mu", "nu"):
+        for w, g in zip(jax.tree.leaves(getattr(jfinal, name)),
+                        tree_leaves(getattr(runs["clean"], name))):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-7)
+
+
+def test_loop_entry_copy_survives_in_place_steps(tmp_path):
+    """AdamW writes each step into its state's tensors; two faults before
+    the first checkpoint both restart from the entry state as it was taken,
+    so the run ends on the clean run's bits (ten steps, faults at 2 and 4)."""
+    from repro_torch import optim
+
+    xs = torch.from_numpy(np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32))
+
+    def loss(p, y, cfg):
+        return torch.mean((xs @ p["w"] - y) ** 2), {}
+
+    step_fn = optim.make_train_step(loss, None, optim.AdamWConfig(lr=0.05))
+    runs = {}
+    for name, fail_at in (("clean", ()), ("faulty", (2, 4))):
+        loop = FaultTolerantLoop(step_fn, lambda s: torch.sin(xs.sum(1) + s),
+                                 CheckpointManager(tmp_path / name, async_write=False),
+                                 ckpt_every=100, injector=FaultInjector(fail_at))
+        state, step, _ = loop.run(optim.init_state({"w": torch.ones(3)}), 10)
+        assert step == 10 and loop.restarts == len(fail_at)
+        runs[name] = state
+    for a, b in zip(tree_leaves(runs["clean"]), tree_leaves(runs["faulty"])):
+        assert torch.equal(a, b)

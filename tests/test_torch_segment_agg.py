@@ -232,3 +232,60 @@ def test_tree_rule_refuses_non_finite_and_overflow_accepts_zeros():
     p[:, 4] = 2.0**126  # 10·2^126 > 2^128: a partial sum would overflow
     assert tree_exact(p).tolist() == [True, False, False, True, False]
     assert _edge_order_sum(p[:, 3:4]).view(torch.int32).item() == 0  # +0.0
+
+
+# --- the gradient: K5 over the transposed layout (K5ᵀ) -------------------------
+
+@pytest.mark.parametrize("V,E,d,seed", [(200, 1000, 8, 0), (64, 5000, 3, 1), (300, 50, 16, 2)])
+def test_gradient_is_the_transposed_sum_bitwise(V, E, d, seed):
+    """The gradient of ``segment_agg(x, layout)`` in x against ``jax.vjp``
+    of the reference's gather and ``segment_sum`` with the same weights,
+    bit for bit: both scatter ``w·g[dst]`` into ``src`` in the caller's
+    edge order from zero.  Padding (dst < 0) carries no gradient."""
+    import jax
+
+    x, src, dst, w = _inputs(V, E, d, seed)
+    dst[::7] = -1
+    g = np.random.default_rng(seed + 9).standard_normal((V, d)).astype(np.float32)
+    keep = dst >= 0
+
+    def jsum(x):
+        return jax.ops.segment_sum(x[src[keep]] * w[keep][:, None], dst[keep], V)
+
+    _, vjp = jax.vjp(jsum, jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    lay = segment_layout(src, dst, V, w, device="cpu")
+    xt = torch.from_numpy(x).requires_grad_()
+    segment_agg(xt, lay).backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(xt.grad.numpy(), want)
+    t = lay.transposed(V)
+    assert t is lay.transposed(V)  # built once and kept
+    assert t.n_rows == V and t.n_edges == int(keep.sum())
+
+
+def test_message_layout_gradient_is_a_gather():
+    """For a message layout (src = arange) every transposed row holds one
+    edge: the gradient is ``w·g[idx]`` exactly, as ``jax.vjp`` of
+    ``segment_sum`` (a gather)."""
+    from repro_torch.models.gnn import message_layout
+
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, 40, 500).astype(np.int32)
+    msgs = rng.standard_normal((500, 6)).astype(np.float32)
+    g = rng.standard_normal((40, 6)).astype(np.float32)
+    lay = message_layout(idx, 40, device="cpu")
+    xt = torch.from_numpy(msgs).requires_grad_()
+    segment_agg(xt, lay).backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(xt.grad.numpy(), g[idx])
+    assert int(torch.diff(lay.transposed(500).row_ptr).max()) == 1
+
+
+def test_weights_requiring_a_gradient_raise():
+    x, src, dst, w = _inputs(20, 50, 2, seed=8)
+    wt = torch.from_numpy(w).requires_grad_()
+    with pytest.raises(ValueError, match="constants"):
+        segment_layout(src, dst, 20, wt, device="cpu")
+    lay = segment_layout(src, dst, 20, device="cpu")
+    with pytest.raises(ValueError, match="constants"):
+        lay.with_weights(wt)
+    assert lay.with_weights(wt.detach()).cache == {}
