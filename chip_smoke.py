@@ -548,8 +548,9 @@ def phase_build() -> dict:
 
 def _kernel_label(mangled: str) -> str:
     """``_ZN12_GLOBAL__N_111fa_fwd_bf16ILi128EEEv…`` → ``fa_fwd_bf16<128>``:
-    the last of the length-prefixed names, and its template argument (an
-    int, ``float`` or ``__nv_bfloat16``)."""
+    the last of the length-prefixed names, and its template arguments (an
+    int, a bool, ``float`` or ``__nv_bfloat16``; ``fa_bwd_kv_bf16<128,
+    true>``)."""
     import re
 
     pos, name = re.match(r"_ZN?", mangled).end() if mangled.startswith("_Z") else 0, mangled
@@ -557,11 +558,13 @@ def _kernel_label(mangled: str) -> str:
         n = re.match(r"\d+", mangled[pos:])
         pos += n.end()
         name, pos = mangled[pos:pos + int(n.group())], pos + int(n.group())
-    t = re.match(r"I(?:Li(\d+)E|(f)|\d+(__nv_bfloat16))E", mangled[pos:])
+    arg = r"Li(\d+)E|Lb([01])E|(f)|\d+(__nv_bfloat16)"
+    t = re.match(rf"I((?:{arg})+)E", mangled[pos:])
     if not t:
         return name
-    arg = t.group(1) or ("float" if t.group(2) else t.group(3))
-    return f"{name}<{arg}>"
+    args = [i or ("true" if b == "1" else "false") if (i or b) else ("float" if f else h)
+            for i, b, f, h in re.findall(arg, t.group(1))]
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_kernels(log: str) -> dict:

@@ -22,6 +22,17 @@ time beside K6's and the mean clocks of each phase: to Q loaded and scaled,
 to the first tile, per tile waiting on the ring, in S = Q·Kᵀ, in the
 softmax and in P·V, the epilogue, and the gaps between blocks on an SM.
 One JSON line per row; last, the card's name and power limit.
+
+    python3 scripts/bench_k6.py --bwd [--baseline old/flash_attention_bwd.cu ...] [--phases]
+
+``--bwd`` times K6b (the backward) instead: its kernels' ``-Xptxas -v``
+figures and shared memory, ``chip_smoke.py``'s K6b rows (llama3-8b's
+training layer in bf16, a ragged float32 case with a window: errors within
+``K6B_LIMITS``, equal bits twice, the plain version and SDPA's backward
+beside it), and each ``--baseline`` (a ``flash_attention_bwd.cu`` with the
+same C entry point) timed on the same inputs in turns.  ``--phases`` adds
+the device time of each of K6b's kernels (delta, dK/dV, dQ) from
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -126,6 +137,130 @@ def _trace(cs, reps: int) -> None:
         del q, k, v, out
 
 
+BWD_CASES = [  # (B, KV, S, G, hd, dtype, window): chip_smoke.check_k6b's shapes
+    (2, 8, 4096, 4, 128, "bfloat16", None), (2, 4, 1000, 4, 128, "float32", 256)]
+
+
+def _bwd_lib(src: str, tag: str):
+    """Build a K6b source with the port's nvcc flags; its library and log."""
+    from repro_torch.kernels import _build
+
+    out = os.path.join(str(_build.BUILD_DIR), f"libk6b_{tag}.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"bench_k6: {src} does not build:\n{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = [P] * 12 + [I] * 5 + [ctypes.c_float] + \
+        [I] * 4 + [P]
+    lib.flash_attention_bwd_launch.restype = I
+    return lib, proc.stdout + proc.stderr
+
+
+def _bwd_inputs(case, gen):
+    import torch
+
+    B, KV, S, G, hd, dtn, window = case
+    dt, BK = getattr(torch, dtn), B * KV
+    q, dout = (torch.randn((BK, S, G * hd), generator=gen, device="cuda").to(dt)
+               for _ in range(2))
+    k, v = (torch.randn((BK, S, hd), generator=gen, device="cuda").to(dt) for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(BK, S).contiguous()
+    return q, k, v, dout, pos
+
+
+def profile_phases(fn, calls: int = 3) -> dict:
+    """Device ms of each kernel name over ``calls`` calls of ``fn``, per
+    call (torch.profiler's CUPTI trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            out[e.key[:120]] = us / calls / 1e3
+    return out
+
+
+def _bwd(cs, args, smi: str) -> int:
+    """``--bwd``: K6b's build figures, baselines in turns, phases and rows."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import _k6, _lib_bwd, flash_attention_bwd
+
+    lib, log = _bwd_lib(str(_build.SOURCES["flash_attention_bwd"]), "log")
+    _lib_bwd()
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    _emit({"k6b_kernels": cs.ptxas_kernels(log),
+           "smem_bytes": {hd: {"bf16": lib.flash_attention_bwd_smem_bytes(hd, 1),
+                               "f32": lib.flash_attention_bwd_smem_bytes(hd, 0)}
+                          for hd in (16, 32, 64, 128)},
+           "ptxas_warnings": [ln for ln in log.splitlines() if "arning" in ln]})
+    cs._highest_f32()
+    for i, src in enumerate(args.baseline):
+        blib, blog = _bwd_lib(src, f"baseline{i}")
+        _emit({"baseline": src, "k6b_kernels": cs.ptxas_kernels(blog)})
+        for case in BWD_CASES:
+            B, KV, S, G, hd, dtn, window = case
+            q, k, v, dout, pos = _bwd_inputs(case, torch.Generator("cuda").manual_seed(S))
+            out, lse = _k6(q, k, v, pos, pos, True, window, True)
+            bout = [torch.empty_like(t) for t in (q, k, v)]
+            delta = torch.empty_like(lse)
+
+            def base():
+                _build.check(blib.flash_attention_bwd_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), pos.data_ptr(), pos.data_ptr(),
+                    *(t.data_ptr() for t in bout), B * KV, S, S, G, hd, hd ** -0.5,
+                    int(dtn == "bfloat16"), 1, int(window is not None), int(window or 0),
+                    torch.cuda.current_stream().cuda_stream), "K6b baseline")
+
+            def new():
+                return flash_attention_bwd(q, k, v, out, lse, dout, pos, pos, causal=True,
+                                           window=window)
+
+            ms = {"baseline": [], "k6b": []}
+            for who, fn in [("baseline", base), ("k6b", new), ("k6b", new), ("baseline", base)]:
+                ms[who].append(cs.cuda_time_ms(fn, reps=args.reps))
+            got = new()
+            base()
+            torch.cuda.synchronize()
+            diff = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                    for a, b in zip(got, bout)]
+            _emit({"case": case, "baseline": src, "k6b_ms": ms["k6b"],
+                   "baseline_ms": ms["baseline"], "rel_diff_dq_dk_dv": diff})
+            del q, k, v, dout, out, lse, bout, got
+            torch.cuda.empty_cache()
+    if args.phases:
+        for case in BWD_CASES:
+            q, k, v, dout, pos = _bwd_inputs(case, torch.Generator("cuda").manual_seed(0))
+            out, lse = _k6(q, k, v, pos, pos, True, case[6], True)
+            _emit({"phases": case, "device_ms": profile_phases(
+                lambda: flash_attention_bwd(q, k, v, out, lse, dout, pos, pos, causal=True,
+                                            window=case[6]))})
+            del q, k, v, dout, out, lse
+    bad = []
+    for row in cs.check_k6b(None):
+        ok = cs._within(row["shape"]["errors"], row["shape"]["limits"]) and \
+            row["shape"]["repeat_bitwise"]
+        bad += [] if ok else [row["name"]]
+        _emit(row)
+    print(smi, flush=True)
+    if bad:
+        print(f"bench_k6: outside K6B_LIMITS or not repeating: {bad}", file=sys.stderr)
+    return 1 if bad else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="append", default=[],
@@ -133,6 +268,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--trace", action="store_true",
                     help="time K6's phases in a build with -DK6_TRACE")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time K6b, the backward (--baseline: flash_attention_bwd.cu sources)")
+    ap.add_argument("--phases", action="store_true",
+                    help="with --bwd: device time of each of K6b's kernels")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
@@ -147,6 +286,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import kernel as fa_k
 
     smi = cs.nvidia_smi_line()
+    if args.bwd:
+        return _bwd(cs, args, smi)
     res = _build.build_all()
     log = res["logs"].get("flash_attention")
     if log is None:  # built before this process: build once more to read -Xptxas -v

@@ -20,6 +20,18 @@ With ``--serve-p99 N`` each baseline is also timed end to end: N
 forward and a copy of the scores to the host, on the host's clock), the
 model's CIN layers going through the baseline or through K7, in the same
 turns.  One JSON line per row; last, the card's name and power limit.
+
+    python3 scripts/bench_k7.py --bwd [--baseline old/cin_bwd.cu ...] [--phases]
+
+``--bwd`` times K7b (the backward) instead: its kernels' ``-Xptxas -v``
+figures and shared memory, ``chip_smoke.py``'s K7b rows (``train_batch``'s
+layers 1 and 2 at B = 65,536 in float32: errors within 1e-5, equal bits
+twice, the plain version and the einsum's autograd beside it), and each
+``--baseline`` (a ``cin_bwd.cu``: this one's C entry point, whose scratch
+it sizes with ``cin_bwd_scratch_bytes``, or the scalar kernel's, whose
+``part`` takes ``splits`` x Hk*m x H' floats by that kernel's rule, 64 x 64
+tiles of (k, n)) timed on the same inputs in turns.  ``--phases`` adds the
+device time of each of K7b's kernels from ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -137,6 +149,113 @@ def _serve_p99(baseline_run, n: int):
     return ms
 
 
+def _bwd_launcher(lib):
+    """A function (g, xk, x0, w) -> (dxk, dx0, dw) that launches ``lib``'s
+    K7b, with its scratch, whichever of the two scratch layouts it takes."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.cin_bwd_launch.argtypes = [P] * 8 + [I] * 7 + [P]
+    lib.cin_bwd_launch.restype = I
+    sized = hasattr(lib, "cin_bwd_scratch_bytes")
+    if sized:
+        lib.cin_bwd_scratch_bytes.argtypes = [I] * 6
+        lib.cin_bwd_scratch_bytes.restype = ctypes.c_longlong
+
+    def run(g, xk, x0, w):
+        B, Hk, D = xk.shape
+        m, Hn = x0.shape[1], w.shape[1]
+        if sized:
+            from repro_torch.kernels.cin.kernel import bwd_splits
+            splits = bwd_splits(B, Hk, m, D, Hn)
+            nbytes = lib.cin_bwd_scratch_bytes(B, Hk, m, D, Hn, splits)
+        else:  # the scalar kernel's rule: 64 x 64 tiles of (k, n)
+            tiles = -(-(Hk * m) // 64) * -(-Hn // 64)
+            splits = max(1, min(32, -(-1056 // tiles), (B * D) // 1024))
+            nbytes = splits * Hk * m * Hn * 4
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=xk.device)
+        outs = torch.empty_like(xk), torch.empty_like(x0), torch.empty_like(w)
+        _build.check(lib.cin_bwd_launch(
+            g.data_ptr(), xk.data_ptr(), x0.data_ptr(), w.data_ptr(),
+            *(t.data_ptr() for t in outs), scratch.data_ptr(), B, Hk, m, D, Hn,
+            int(xk.dtype == torch.bfloat16), splits, torch.cuda.current_stream().cuda_stream),
+            "K7b baseline")
+        return outs
+    return run
+
+
+def _bwd(cs, args, smi: str) -> int:
+    """``--bwd``: K7b's build figures, baselines in turns, phases and rows."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cin.kernel import _lib_bwd, cin_layer_bwd
+
+    scripts = os.path.join(ROOT, "scripts")
+    sys.path.insert(0, scripts)
+    from bench_k6 import profile_phases
+
+    _, log = _build_lib(str(_build.SOURCES["cin_bwd"]), "bwd_log")
+    lib = _lib_bwd()
+    lib.cin_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.cin_bwd_smem_bytes.restype = ctypes.c_longlong
+    _emit({"k7b_kernels": cs.ptxas_kernels(log),
+           "smem_bytes_m39_h200": {"t": lib.cin_bwd_smem_bytes(39, 200, 0),
+                                   "dw": lib.cin_bwd_smem_bytes(39, 200, 1)},
+           "ptxas_warnings": [ln for ln in log.splitlines() if "arning" in ln]})
+    cs._highest_f32()
+    B, m, D, Hn = 65_536, 39, 10, 200
+    for i, src in enumerate(args.baseline):
+        blib, blog = _build_lib(src, f"bwd_baseline{i}")
+        base_run = _bwd_launcher(blib)
+        _emit({"baseline": src, "k7b_kernels": cs.ptxas_kernels(blog)})
+        for layer, Hk in ((1, 39), (2, 200)):
+            gen = torch.Generator("cuda").manual_seed(Hk)
+            xk = torch.randn((B, Hk, D), generator=gen, device="cuda")
+            x0 = torch.randn((B, m, D), generator=gen, device="cuda")
+            w = 0.1 * torch.randn((Hk * m, Hn), generator=gen, device="cuda")
+            g = torch.randn((B, Hn, D), generator=gen, device="cuda")
+
+            def base():
+                return base_run(g, xk, x0, w)
+
+            def new():
+                return cin_layer_bwd(xk, x0, w, g)
+
+            ms = {"baseline": [], "k7b": []}
+            for who, fn in [("baseline", base), ("k7b", new), ("k7b", new), ("baseline", base)]:
+                ms[who].append(cs.cuda_time_ms(fn, reps=max(1, args.reps // 5)))
+            got, want = new(), base()
+            torch.cuda.synchronize()
+            diff = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+            _emit({"layer": layer, "B": B, "Hk": Hk, "baseline": src, "k7b_ms": ms["k7b"],
+                   "baseline_ms": ms["baseline"], "rel_diff_dxk_dx0_dw": diff})
+            del xk, x0, w, g, got, want
+            torch.cuda.empty_cache()
+    if args.phases:
+        for layer, Hk in ((1, 39), (2, 200)):
+            gen = torch.Generator("cuda").manual_seed(Hk)
+            xk = torch.randn((B, Hk, D), generator=gen, device="cuda")
+            x0 = torch.randn((B, m, D), generator=gen, device="cuda")
+            w = 0.1 * torch.randn((Hk * m, Hn), generator=gen, device="cuda")
+            g = torch.randn((B, Hn, D), generator=gen, device="cuda")
+            _emit({"phases": f"layer {layer}", "device_ms": profile_phases(
+                lambda: cin_layer_bwd(xk, x0, w, g), calls=2)})
+            del xk, x0, w, g
+    bad = []
+    for row in cs.check_k7b(None):
+        ok = cs._within(row["shape"]["errors"], row["shape"]["limits"]) and \
+            row["shape"]["repeat_bitwise"]
+        bad += [] if ok else [row["name"]]
+        _emit(row)
+    print(smi, flush=True)
+    if bad:
+        print(f"bench_k7: outside K7B_LIMIT or not repeating: {bad}", file=sys.stderr)
+    return 1 if bad else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", action="append", default=[],
@@ -144,6 +263,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--serve-p99", type=int, default=0, metavar="N",
                     help="also time N serve_p99 requests with each baseline and with K7")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time K7b, the backward (--baseline: cin_bwd.cu sources)")
+    ap.add_argument("--phases", action="store_true",
+                    help="with --bwd: device time of each of K7b's kernels")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
@@ -158,6 +281,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.cin.kernel import _lib
 
     smi = cs.nvidia_smi_line()
+    if args.bwd:
+        return _bwd(cs, args, smi)
     res = _build.build_all()
     log = res["logs"].get("cin")
     if log is None:  # built before this process: build once more to read -Xptxas -v

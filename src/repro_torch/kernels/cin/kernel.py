@@ -14,7 +14,7 @@ never takes the plain path: a failed build or launch raises.
 The layer is differentiable in ``xk``, ``x0`` and ``w`` on both devices
 (one ``torch.autograd.Function``): the backward is
 :func:`.ref.cin_layer_bwd_ref` on the CPU and K7b (``cin_bwd_launch`` from
-``csrc/cin_bwd.cu``: three CUDA launches, counted once as ``"cin_bwd"``)
+``csrc/cin_bwd.cu``: seven CUDA launches, counted once as ``"cin_bwd"``)
 on the card.  K7b sums ``dw`` over the B·D rows in :func:`bwd_splits`
 fixed splits, each written apart and added in split order, so its bits do
 not depend on the card.
@@ -36,7 +36,8 @@ import torch
 from .. import _build
 from . import ref
 
-__all__ = ["cin_layer", "cin_layer_bwd", "bwd_splits", "launch", "launch_counts", "plan",
+__all__ = ["cin_layer", "cin_layer_bwd", "bwd_splits", "bwd_scratch_bytes", "launch",
+           "launch_counts", "plan",
            "reset_launch_counts", "smem_bytes", "ROWS", "COLS", "MAX_SPLITS", "SMEM_LIMIT"]
 
 _LAUNCHES = {"cin": 0, "cin_bwd": 0}
@@ -76,20 +77,41 @@ def _lib_bwd():
     if not getattr(lib, "_typed", False):
         lib.cin_bwd_launch.argtypes = [_P] * 8 + [_I] * 7 + [_P]
         lib.cin_bwd_launch.restype = _I
+        lib.cin_bwd_scratch_bytes.argtypes = [_I] * 6
+        lib.cin_bwd_scratch_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
 
 BWD_TILES = 1056  # cin_bwd_dw blocks aimed at: 8 waves of 132 SMs, fixed (not read off the card)
 MAX_BWD_SPLITS = 32
+BWD_K, BWD_N = 128, 104  # a cin_bwd_dw block's tile of (k, n)
+BWD_COLS = 80            # columns (h, j) of a cin_bwd_t tile
+BWD_MAX_FIELDS, BWD_MAX_CHANNELS = 64, 256
 
 
 def bwd_splits(B: int, Hk: int, m: int, D: int, Hn: int) -> int:
-    """The splits of the B·D rows over which K7b sums ``dw`` (64 × 64 tiles
-    of (k, n)): enough for ``BWD_TILES`` blocks, at most ``MAX_BWD_SPLITS``
-    and at least 1,024 rows a split.  A function of the shape alone."""
-    tiles = -(-(Hk * m) // 64) * -(-Hn // 64)
+    """The splits of the B·D rows over which K7b sums ``dw`` (tiles of
+    ``BWD_K`` × ``BWD_N`` of (k, n)): enough for ``BWD_TILES`` blocks, at
+    most ``MAX_BWD_SPLITS`` and at least 1,024 rows a split.  A function of
+    the shape alone."""
+    tiles = -(-(Hk * m) // BWD_K) * -(-Hn // BWD_N)
     return max(1, min(MAX_BWD_SPLITS, -(-BWD_TILES // max(1, tiles)), (B * D) // 1024))
+
+
+def bwd_scratch_bytes(B: int, Hk: int, m: int, D: int, Hn: int, splits: int) -> int:
+    """K7b's scratch (``csrc/cin_bwd.cu`` ``scratch_layout``), each piece at a
+    256-byte boundary: w's TF32 hi and lo copies in ``BWD_COLS``-column tiles
+    of ``80 // pad_fields(m)`` values of h, n padded to 32; g transposed to
+    (H', B·D), rows padded to 4, hi and lo; xk and x0 transposed to (Hk,
+    B·D) and (m, B·D); the splits' float32 partials of ``dw``."""
+    def up(x):
+        return -(-x // 256) * 256
+    nh = BWD_COLS // ref.pad_fields(m)
+    rp = -(-(B * D) // 4) * 4
+    wt = up(-(-Hk // nh) * BWD_COLS * -(-Hn // 32) * 32 * 4)
+    rows = 2 * up(Hn * rp * 4) + up(Hk * rp * 4) + up(m * rp * 4)
+    return 2 * wt + rows + up(splits * Hk * m * Hn * 4)
 
 
 _RING_BYTES = {torch.float32: 3 * 2 * COLS * 128, torch.bfloat16: 3 * COLS * 128}
@@ -254,17 +276,19 @@ def cin_layer_bwd(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor, g: torch.
     if tuple(g.shape) != (B, Hn, D) or g.dtype != xk.dtype or g.device != xk.device \
             or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous ({B}, {Hn}, {D}) tensor like xk")
-    if m > 64:
-        raise ValueError(f"K7b holds at most 64 fields a thread group, not {m}")
+    if m > BWD_MAX_FIELDS or Hn > BWD_MAX_CHANNELS:
+        raise ValueError(f"K7b keeps a tile's g rows and x0 rows in shared memory: it takes "
+                         f"m <= {BWD_MAX_FIELDS} and H' <= {BWD_MAX_CHANNELS}, not {m} and {Hn}")
     dxk, dx0, dw = torch.empty_like(xk), torch.empty_like(x0), torch.empty_like(w)
     if B * D == 0 or Hk * m * Hn == 0:
         return dxk.zero_(), dx0.zero_(), dw.zero_()
     splits = bwd_splits(B, Hk, m, D, Hn)
-    part = torch.empty(splits * Hk * m * Hn, dtype=torch.float32, device=xk.device)
+    scratch = torch.empty(bwd_scratch_bytes(B, Hk, m, D, Hn, splits), dtype=torch.uint8,
+                          device=xk.device)
     _LAUNCHES["cin_bwd"] += 1
     code = _lib_bwd().cin_bwd_launch(
         g.data_ptr(), xk.data_ptr(), x0.data_ptr(), w.data_ptr(), dxk.data_ptr(),
-        dx0.data_ptr(), dw.data_ptr(), part.data_ptr(), B, Hk, m, D, Hn,
+        dx0.data_ptr(), dw.data_ptr(), scratch.data_ptr(), B, Hk, m, D, Hn,
         int(xk.dtype == torch.bfloat16), splits, torch.cuda.current_stream(xk.device).cuda_stream)
     _build.check(code, "cin_bwd")
     return dxk, dx0, dw

@@ -27,13 +27,22 @@ round-to-nearest, ties away (``cvt.rna.tf32.f32``), and
 ``hi·w_lo + lo·w_hi + hi·w_hi``; in bfloat16 ``z = z_hi + z_lo``, two bf16
 values (exact: a product of two bf16 values has at most 16 significant
 bits), times ``w``.
+
+:func:`cin_bwd_split_partials` follows K7b (``csrc/cin_bwd.cu``) the same
+way: ``t = g·wᵀ`` in stages of 32 channels and ``dw = zᵀ·g`` in stages of
+32 rows of each of ``splits`` fixed cuts of the B·D rows
+(:func:`bwd_split_row`), every operand split into TF32 ``hi + lo``, each
+stage's ``hi·lo + lo·hi + hi·hi`` summed apart (float64 here) and added in
+order to a float32 sum; ``dxk`` and ``dx0`` from ``t`` in float32; the
+splits' partials of ``dw`` added in split order.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["cin_layer_ref", "cin_layer_bwd_ref", "cin_split_partials", "pad_fields",
+__all__ = ["cin_layer_ref", "cin_layer_bwd_ref", "cin_split_partials", "cin_bwd_split_partials",
+           "bwd_split_row", "pad_fields",
            "stage_range", "tf32_rna", "STAGE_K"]
 
 _Z_ELEMS = 1 << 26  # float32 elements of z alive at once
@@ -150,3 +159,53 @@ def cin_split_partials(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor,
                 acc = acc + sum(a[:, ks] @ b[ks] for a, b in pairs).float()
             parts[s][b0:b1] = acc.reshape(b1 - b0, D, Hn).permute(0, 2, 1)
     return parts
+
+
+def _tf32_parts(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def _staged_3xtf32(a: torch.Tensor, b: torch.Tensor, depth: int) -> torch.Tensor:
+    """a (M, K) · b (K, N), both float32, as K7b sums it: stages of ``depth``
+    along K, each stage's ``hi·lo + lo·hi + hi·hi`` in float64, then added in
+    order to a float32 sum."""
+    (ah, al), (bh, bl) = _tf32_parts(a), _tf32_parts(b)
+    ah, al, bh, bl = (x.double() for x in (ah, al, bh, bl))
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32, device=a.device)
+    for k0 in range(0, a.shape[1], depth):
+        ks = slice(k0, k0 + depth)
+        acc = acc + (ah[:, ks] @ bl[ks] + al[:, ks] @ bh[ks] + ah[:, ks] @ bh[ks]).float()
+    return acc
+
+
+def bwd_split_row(R: int, s: int, splits: int) -> int:
+    """The first of the B·D rows in K7b's split ``s`` (``R`` past the last):
+    ``R·s / splits`` rounded down to a whole stage of 32 rows."""
+    return R if s >= splits else R * s // splits // 32 * 32
+
+
+def cin_bwd_split_partials(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor,
+                           g: torch.Tensor, splits: int = 1):
+    """K7b's arithmetic: ``(dxk, dx0, dw_parts)`` in float32, with ``dw_parts``
+    one (Hk·m, H') partial per split of the B·D rows; their sum in split
+    order, rounded to the inputs' type, is K7b's ``dw``."""
+    B, Hk, D = xk.shape
+    m, Hn = x0.shape[1], w.shape[1]
+    R = B * D
+    def rows(x):  # (B, C, D) -> (R, C)
+        return x.float().permute(0, 2, 1).reshape(R, x.shape[1])
+
+    def back(x):  # (R, C) -> (B, C, D)
+        return x.view(B, D, -1).permute(0, 2, 1)
+
+    gr, xkr, x0r = rows(g), rows(xk), rows(x0)
+    t = _staged_3xtf32(gr, w.float().t(), 32).view(R, Hk, m)
+    dxk = (t * x0r[:, None, :]).sum(-1)
+    dx0 = (t * xkr[:, :, None]).sum(1)
+    z = (xkr[:, :, None] * x0r[:, None, :]).reshape(R, Hk * m)
+    parts = []
+    for s in range(splits):
+        lo, hi = bwd_split_row(R, s, splits), bwd_split_row(R, s + 1, splits)
+        parts.append(_staged_3xtf32(z[lo:hi].t(), gr[lo:hi], 32))
+    return back(dxk), back(dx0), parts

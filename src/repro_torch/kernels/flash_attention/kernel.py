@@ -16,7 +16,8 @@ also writes each row's float32 log-sum-exp (K6's ``lse`` output on the
 card, without changing ``out``'s bits) and keeps q, k, v, out and lse;
 the backward is :func:`.ref.flash_attention_bwd_ref` on the CPU and K6b
 (``flash_attention_bwd_launch`` from ``csrc/flash_attention_bwd.cu``: its
-three CUDA launches counted once, as ``"flash_attention_bwd"``) on the card.
+CUDA launches, four in bf16 and three in float32, counted once, as
+``"flash_attention_bwd"``) on the card.
 
 K6 tiles the flattened (query, head) rows by ``ROW_TILE`` and the keys by
 ``KEY_TILE``, per dtype.  p is rounded to bf16 against the running max of
@@ -150,7 +151,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, q_pos, kv_pos, *, causal: bool 
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor like q")
-    if dout.data_ptr() % 16:  # the bf16 kernels stage rows in 16-byte loads
+    if dout.data_ptr() % 16:  # the bf16 kernels read dO through a TMA map
         dout = dout.clone()
     if tuple(lse.shape) != (BK, S * G) or lse.dtype != torch.float32 \
             or not lse.is_contiguous() or lse.device != q.device:

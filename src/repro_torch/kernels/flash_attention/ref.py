@@ -34,9 +34,11 @@ Masks are built from positions: a key is visible where ``kv_pos >= 0``,
 ``q_pos − kv_pos >= 0`` (causal) and ``q_pos − kv_pos < window`` (sliding
 window), in int32 arithmetic as the reference's.
 
-:func:`kv_tile_classes` is the rule by which K6's bf16 kernel sorts its kv
-tiles into ``SKIP`` (not loaded), ``PARTIAL`` (masked element by element)
-and ``FULL`` (every pair visible: no mask), stated in torch.
+:func:`kv_tile_classes` is the rule by which K6's bf16 kernel (and K6b's dQ
+kernel) sorts its kv tiles into ``SKIP`` (not loaded), ``PARTIAL`` (masked
+element by element) and ``FULL`` (every pair visible: no mask), stated in
+torch; :func:`row_tile_classes` is the same rule the other way round, by
+which K6b's dK/dV kernel sorts the row tiles of each key tile.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["attention_ref", "flash_attention_ref", "flash_attention_bwd_ref",
-           "kv_tile_classes", "NEG", "SKIP", "PARTIAL", "FULL"]
+           "kv_tile_classes", "row_tile_classes", "NEG", "SKIP", "PARTIAL", "FULL"]
 
 NEG = -1e30
 SKIP, PARTIAL, FULL = 0, 1, 2  # csrc/flash_attention.cu kSkip, kPartial, kFull
@@ -190,6 +192,52 @@ def kv_tile_classes(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int, rows: int
     if window is not None:
         full = full & (qmax - kmin < window)
     cls = torch.full((BK, nq, nk), PARTIAL, dtype=torch.int8, device=q_pos.device)
+    cls[full] = FULL
+    cls[~seen.any(-1)] = SKIP
+    return cls
+
+
+def row_tile_classes(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int, rows: int, keys: int,
+                     causal: bool = True, window=None) -> torch.Tensor:
+    """(BK, S) and (BK, T) positions → (BK, ⌈T/keys⌉, ⌈S·G/rows⌉) int8 of
+    ``SKIP``, ``PARTIAL`` or ``FULL``, for key tiles of ``keys`` keys (keys
+    past T are padding, position −1) and row tiles of ``rows`` flattened
+    (query, head) rows (rows past S·G are not rows).  With [kmin, kmax] the
+    positions of a key tile's valid keys: a row tile is SKIP where the key
+    tile has no valid key or no row of it lies in [kmin, kmax + window − 1]
+    (the causal bound from kmin, the window's from kmax); FULL where every
+    key is valid, the smallest row position ≥ kmax (causal) and the largest
+    − kmin < window; else PARTIAL."""
+    BK, S = q_pos.shape
+    T = kv_pos.shape[1]
+    nq, nk = -(-S * G // rows), -(-T // keys)
+    big = 2**40
+    qp = torch.repeat_interleave(q_pos.long(), G, dim=1)
+    qv = torch.zeros((BK, nq * rows), dtype=torch.bool, device=qp.device)
+    qv[:, :S * G] = True
+    qpad = torch.zeros((BK, nq * rows), dtype=torch.int64, device=qp.device)
+    qpad[:, :S * G] = qp
+    qpad, qv = qpad.view(BK, 1, nq, rows), qv.view(BK, 1, nq, rows)
+    kp = torch.full((BK, nk * keys), -1, dtype=torch.int64, device=kv_pos.device)
+    kp[:, :T] = kv_pos.long()
+    kp = kp.view(BK, nk, keys)
+    valid = kp >= 0
+    kmin = torch.where(valid, kp, big).amin(-1)[:, :, None, None]  # (BK, nk, 1, 1)
+    kmax = torch.where(valid, kp, -big).amax(-1)[:, :, None, None]
+    seen = qv & valid.any(-1)[:, :, None, None]  # (BK, nk, nq, rows): could the row see a key?
+    if causal:
+        seen = seen & (qpad - kmin >= 0)
+    if window is not None:
+        seen = seen & (qpad - kmax < window)
+    qmin = torch.where(qv, qpad, big).amin(-1)  # (BK, 1, nq)
+    qmax = torch.where(qv, qpad, -big).amax(-1)
+    kmin, kmax = kmin[..., 0], kmax[..., 0]
+    full = valid.all(-1)[:, :, None].expand(BK, nk, nq)
+    if causal:
+        full = full & (qmin >= kmax)
+    if window is not None:
+        full = full & (qmax - kmin < window)
+    cls = torch.full((BK, nk, nq), PARTIAL, dtype=torch.int8, device=q_pos.device)
     cls[full] = FULL
     cls[~seen.any(-1)] = SKIP
     return cls

@@ -233,7 +233,7 @@ def serve_graph(graph: str = "block-rmat", k: int = 8,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="mixtral-8x7b")
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)

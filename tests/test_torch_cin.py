@@ -350,3 +350,84 @@ def test_cin_backward_bf16_rounds_once():
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16
         assert torch.equal(a, b.to(torch.bfloat16))
+
+
+# --- K7b's arithmetic: cin_bwd_split_partials and the split rule ---------------
+
+def _exact_bwd(xk, x0, w, g):
+    """The three gradients in float64 from the same inputs."""
+    xk, x0, w, g = (t.double() for t in (xk, x0, w, g))
+    B, Hk, D = xk.shape
+    m = x0.shape[1]
+    t = torch.einsum("hjn,bnd->bhjd", w.view(Hk, m, -1), g)
+    dw = torch.einsum("bhd,bjd,bnd->hjn", xk, x0, g).reshape(w.shape)
+    return torch.einsum("bhjd,bjd->bhd", t, x0), torch.einsum("bhjd,bhd->bjd", t, xk), dw
+
+
+def _rel64(got, want) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("B,Hk,m,D,Hn,splits", [(6, 200, 39, 10, 200, 1),
+                                                (6, 200, 39, 10, 200, 3),
+                                                (13, 7, 5, 3, 41, 4)])
+def test_bwd_emulation_within_1e5_of_float64(B, Hk, m, D, Hn, splits):
+    """K7b's 3×TF32 stages (``cin_bwd_split_partials``: TF32 hi/lo of every
+    operand, each stage summed apart and promoted to float32, the splits
+    added in order) and the plain version ``cin_layer_bwd_ref``, each
+    gradient within 1e-5 of its largest magnitude of the float64 gradient
+    (at Hk = 200, m = 39, H' = 200: the widths of xDeepFM's layer 2).  The
+    partial of a dropped split, and TF32's hi parts alone, are seen."""
+    from repro_torch.kernels.cin.ref import (_staged_3xtf32, cin_bwd_split_partials,
+                                             cin_layer_bwd_ref)
+
+    xk, x0, w = (torch.from_numpy(a) for a in _inputs(B, Hk, m, D, Hn, seed=B + Hk))
+    g = torch.from_numpy(np.random.default_rng(B).standard_normal((B, Hn, D), np.float32))
+    exact = _exact_bwd(xk, x0, w, g)
+    dxk, dx0, parts = cin_bwd_split_partials(xk, x0, w, g, splits)
+    assert len(parts) == splits
+    dw = parts[0]
+    for p in parts[1:]:
+        dw = dw + p
+    for got, want in zip((dxk, dx0, dw), exact):
+        assert got.dtype == torch.float32 and _rel64(got, want) <= REL_F32
+    for got, want in zip(cin_layer_bwd_ref(xk, x0, w, g), exact):
+        assert _rel64(got, want) <= REL_F32
+    if splits > 1:
+        assert _rel64(dw - parts[-1], exact[2]) > REL_F32
+    # one TF32 product (hi·hi) instead of three: ~2^-11, far past the limit
+    gr = g.permute(0, 2, 1).reshape(B * D, Hn)
+    one = (tf32_rna(gr).double() @ tf32_rna(w.t()).double()).float()
+    assert _rel64(one, gr.double() @ w.double().t()) > REL_F32
+    assert _rel64(_staged_3xtf32(gr, w.t(), 32), gr.double() @ w.double().t()) <= REL_F32
+
+
+def test_bwd_splits_are_a_function_of_the_shape(monkeypatch):
+    """``bwd_splits`` reads nothing but the shape (no card, no state): equal
+    shapes give equal splits, in [1, 32], at least 1,024 rows a split;
+    ``train_batch``'s layers split 32 (layer 1) and 9 (layer 2) ways."""
+    from repro_torch.kernels.cin.kernel import MAX_BWD_SPLITS, bwd_scratch_bytes, bwd_splits
+    from repro_torch.kernels.cin.ref import bwd_split_row
+
+    def no_card(*a, **k):
+        raise AssertionError("bwd_splits asked the card")
+
+    for name in ("is_available", "get_device_properties", "current_device", "device_count"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
+    assert bwd_splits(65_536, 39, 39, 10, 200) == 32
+    assert bwd_splits(65_536, 200, 39, 10, 200) == 9
+    for shape in [(65_536, 200, 39, 10, 200), (5, 3, 2, 1, 41), (2048, 200, 39, 10, 200),
+                  (100, 20, 40, 10, 200), (1, 1, 1, 1, 1)]:
+        s = bwd_splits(*shape)
+        assert s == bwd_splits(*shape) and 1 <= s <= MAX_BWD_SPLITS
+        assert s == 1 or shape[0] * shape[3] // s >= 1024
+        assert bwd_scratch_bytes(*shape, s) % 256 == 0
+        R = shape[0] * shape[3]
+        cuts = [bwd_split_row(R, i, s) for i in range(s + 1)]
+        assert cuts[0] == 0 and cuts[-1] == R and cuts == sorted(cuts)
+        assert all(c % 32 == 0 for c in cuts[:-1])  # a stage's TMA box starts aligned
+    # w's copies (100 tiles of 80 columns x 224 n), g^T's (200 x 655,360),
+    # two copies each; xk^T (200 x 655,360), x0^T (39 x 655,360); 9 partials
+    # of 7,800 x 200; in bytes
+    assert bwd_scratch_bytes(65_536, 200, 39, 10, 200, 9) == \
+        2 * 100 * 80 * 224 * 4 + (2 * 200 + 200 + 39) * 655_360 * 4 + 9 * 7800 * 200 * 4

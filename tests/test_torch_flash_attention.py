@@ -10,8 +10,9 @@ Tolerances as there: atol 2e-5 in float32 (sums in another order), 2e-2 in
 bfloat16 (the port follows ``models/attention.py``'s rounding — q scaled
 in float32, then rounded — where the Pallas kernel scales in bfloat16).
 Inputs come from numpy seeds.  ``kv_tile_classes``, the rule by which K6
-skips, masks or takes whole each kv tile, is held against the brute-force
-mask on every pair.
+skips, masks or takes whole each kv tile, and ``row_tile_classes``, the
+same rule by which K6b's dK/dV kernel sorts row tiles, are held against the
+brute-force mask on every pair.
 """
 
 import jax.numpy as jnp
@@ -218,6 +219,46 @@ def test_kv_tile_classes_see_a_planted_wrong_rule():
     wrong[(kmax[:, None] <= qmin[:, :, None]) & (cls != fa_ref.SKIP)] = fa_ref.FULL
     assert not torch.equal(wrong, cls)
     assert _class_violations(wrong, q_pos, kv_pos, G, rows, keys, causal, window)
+
+
+@pytest.mark.parametrize("case", ["causal prefill", "window", "rolled cache", "padded keys",
+                                  "G=5", "ragged S and T", "not causal, window"])
+def test_row_tile_classes_hold_against_the_mask(case):
+    """K6b's dK/dV producer sorts the 64-row tiles of each 128-key tile
+    (``row_tile_classes``): no pair of a SKIP tile is visible and every pair
+    of a FULL tile is, by the brute-force mask; a causal prefill has at most
+    keys·G/rows + 1 PARTIAL row tiles a key tile (the rows of its diagonal);
+    every class occurs where the case allows it."""
+    q_pos, kv_pos, G, causal, window = _tile_case(case)
+    rows, keys = 64, 128  # csrc/flash_attention_bwd.cu kRowTile, kKeyTile
+    cls = fa_ref.row_tile_classes(q_pos, kv_pos, G, rows, keys, causal, window)
+    S, T = q_pos.shape[1], kv_pos.shape[1]
+    assert cls.shape == (2, -(-T // keys), -(-S * G // rows))
+    assert _class_violations(cls.transpose(1, 2), q_pos, kv_pos, G, rows, keys, causal,
+                             window) == []
+    if case == "causal prefill":
+        assert int((cls == fa_ref.PARTIAL).sum(-1).max()) <= keys * G // rows + 1
+        assert {fa_ref.SKIP, fa_ref.PARTIAL, fa_ref.FULL} <= set(cls.unique().tolist())
+    if case == "window":
+        assert bool((cls[:, 0] == fa_ref.SKIP).any()) and bool((cls == fa_ref.FULL).any())
+
+
+def test_row_tile_classes_see_a_planted_wrong_rule():
+    """FULL from each key tile's last key instead of its largest (a rule that
+    holds for a sorted cache) marks row tiles FULL that see a rolled cache's
+    later keys masked: the check above must catch it."""
+    q_pos, kv_pos, G, causal, window = _tile_case("rolled cache")
+    rows, keys = 64, 128
+    cls = fa_ref.row_tile_classes(q_pos, kv_pos, G, rows, keys, causal, window)
+    klast = kv_pos.long()[:, keys - 1::keys]  # (BK, nk): T is a whole number of key tiles
+    qp = torch.repeat_interleave(q_pos.long(), G, dim=1)
+    qp = torch.nn.functional.pad(qp, (0, -qp.shape[1] % rows), value=2**40)
+    qmin = qp.view(2, -1, rows).amin(-1)  # (BK, nq)
+    wrong = cls.clone()
+    wrong[(qmin[:, None, :] >= klast[:, :, None]) & (cls != fa_ref.SKIP)] = fa_ref.FULL
+    assert not torch.equal(wrong, cls)
+    assert _class_violations(wrong.transpose(1, 2), q_pos, kv_pos, G, rows, keys, causal,
+                             window)
 
 
 # --- the backward: flash_attention_bwd_ref (K6b's plain version) -------------

@@ -1127,6 +1127,13 @@ def test_k6_model_layout_and_refusals(cuda, highest_f32):
     (torch.bfloat16, 128, 4, 4096, 4096, None, True, 0), (torch.bfloat16, 32, 2, 64, 64, None,
                                                           True, 0),
     (torch.bfloat16, 16, 3, 77, 141, 48, True, 5),
+    # the edges of K6b's bf16 tiles (64 rows a dK/dV stage, 128 keys a block,
+    # 128 rows a dQ block): S·G and T off every tile size, at each hd
+    (torch.bfloat16, 128, 3, 77, 141, None, True, 0), (torch.bfloat16, 64, 5, 51, 200, 70,
+                                                       True, 0),
+    (torch.bfloat16, 32, 1, 63, 129, None, False, 0), (torch.bfloat16, 16, 4, 200, 255, None,
+                                                       True, 9),
+    (torch.bfloat16, 128, 8, 130, 130, 33, True, 0),
 ])
 def test_k6b_against_plain_version_and_repeats(cuda, highest_f32, dtype, hd, G, S, T, window,
                                                causal, pad):
@@ -1155,6 +1162,34 @@ def test_k6b_against_plain_version_and_repeats(cuda, highest_f32, dtype, hd, G, 
     limit = 2**-6 if dtype == torch.bfloat16 else 1e-5
     for a, b, c in zip(got, again, want):
         assert a.dtype == dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        err = (a.float() - c.float()).abs().max() / c.float().abs().max()
+        assert err <= limit, float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,G,S,T,window,pad", [(128, 4, 300, 700, None, 0),
+                                                 (64, 2, 97, 513, 200, 40),
+                                                 (128, 4, 64, 1024, None, 300)])
+def test_k6b_rolled_and_padded_positions(cuda, highest_f32, dtype, hd, G, S, T, window, pad):
+    """K6b with BK = 3 over a rolled cache (slots out of position order) and
+    padded keys, where the position-range classes of both kernels decide
+    which tiles run: within the limits of ``test_k6b_against_plain_version_
+    and_repeats`` of ``flash_attention_bwd_ref``, the same bits twice."""
+    from repro_torch.kernels.flash_attention.kernel import _k6, flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    q, k, v, qp, kp = (t.to(cuda) for t in _k6_inputs(3, S, T, G, hd, dtype, seed=S + T,
+                                                      rolling=True, pad_keys=pad))
+    out, lse = _k6(q, k, v, qp, kp, True, window, True)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda).manual_seed(3), device=cuda
+                       ).to(dtype)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, qp, kp, causal=True, window=window)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, qp, kp, causal=True, window=window)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, qp, kp, causal=True, window=window,
+                                   block_q=128, block_k=256)
+    limit = 2**-6 if dtype == torch.bfloat16 else 1e-5
+    for a, b, c in zip(got, again, want):
         assert torch.equal(a, b)
         err = (a.float() - c.float()).abs().max() / c.float().abs().max()
         assert err <= limit, float(err)
@@ -1401,6 +1436,11 @@ def test_k7_refusals_and_backward(cuda):
 @pytest.mark.parametrize("B,Hk,m,D,Hn", [
     (5, 3, 2, 1, 41), (77, 8, 6, 4, 8), (64, 39, 39, 10, 200), (48, 200, 39, 10, 200),
     (100, 20, 40, 10, 200), (2048, 200, 39, 10, 200),
+    # the edges of K7b's tiles (128 rows a t block, 80 columns of (h, j) a t
+    # tile, 128 k x 104 n a dw block, 32 rows a dw stage): m = 64 and
+    # H' = 256 (the widest it takes), 10 h a tile (mp = 8), 3 h and 8 zero
+    # columns a tile (mp = 24) with 9 splits, ragged B·D, H' off 8 and 32
+    (300, 20, 64, 7, 256), (130, 11, 8, 3, 33), (1000, 9, 17, 10, 100), (3, 41, 39, 10, 13),
 ])
 def test_k7b_against_plain_version_and_repeats(cuda, highest_f32, dtype, B, Hk, m, D, Hn):
     """K7b against ``cin_layer_bwd_ref`` on the same card tensors: the
@@ -1414,6 +1454,11 @@ def test_k7b_against_plain_version_and_repeats(cuda, highest_f32, dtype, B, Hk, 
     xk, x0, w = (t.to(cuda) for t in _k7_inputs(B, Hk, m, D, Hn, dtype, seed=B + Hk))
     g = torch.randn((B, Hn, D), generator=torch.Generator(cuda).manual_seed(2), device=cuda
                     ).to(dtype)
+    from repro_torch.kernels.cin.kernel import _lib_bwd, bwd_scratch_bytes, bwd_splits
+
+    splits = bwd_splits(B, Hk, m, D, Hn)
+    assert _lib_bwd().cin_bwd_scratch_bytes(B, Hk, m, D, Hn, splits) == \
+        bwd_scratch_bytes(B, Hk, m, D, Hn, splits)
     before = launch_counts()["cin_bwd"]
     got = cin_layer_bwd(xk, x0, w, g)
     again = cin_layer_bwd(xk, x0, w, g)

@@ -291,3 +291,19 @@ def test_cli(capsys):
         tserve.main(["--graph", "kronecker", "--device", "cpu"])
     tserve.main(["--arch", "xdeepfm", "--batch", "3", "--device", "cpu"])
     assert "[serve] xdeepfm: scored 3 in" in capsys.readouterr().out
+
+
+def test_cli_default_arch_is_the_references(monkeypatch, capsys):
+    """``main`` with no ``--arch`` serves mixtral-8x7b's smoke config, the
+    reference CLI's default (``repro.launch.serve``'s ``--arch``)."""
+    calls = []
+    serve_lm = tserve.serve_lm
+
+    def spy(arch, **kw):
+        calls.append((arch, kw["smoke"]))
+        return serve_lm(arch, **kw)
+
+    monkeypatch.setattr(tserve, "serve_lm", spy)
+    tserve.main(["--device", "cpu"])
+    assert calls == [("mixtral-8x7b", True)]
+    assert "[serve] mixtral-8x7b: 2×16 tokens in" in capsys.readouterr().out
